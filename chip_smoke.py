@@ -4,19 +4,29 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. build the port's CUDA kernel (csrc/preprocess.cu) with nvcc;
-  2. hold the kernel against its plain PyTorch version on the card, at the serving
-     path's shape and a ragged one, and time kernel, plain version and library yardstick;
-  3. drive the serving path at full model width: synthetic videos -> extract_features
-     (K1 preprocess -> UNet++ fa -> I3Res50 ft, bf16) -> .npy -> UCF MGFN scores ->
-     frame timeline, with the kernel's launch count read from that run;
-  4. fidelity: the first batch again through the f32 plain-preprocess path with TF32
-     off; every clip's feature cosine to it must reach FIDELITY_COS_MIN and the
-     batch's error, against the spread between its clips, stay within
-     FIDELITY_SPREAD_MAX, which two controls (a wrong preprocess with R and B swapped,
-     another clip's features) must exceed, so the limit is shown to tell them apart;
-  5. the serving CLI (python -m ted_spad_tpu_torch.score_video --synthetic) on its
-     default device.
+  1. build the port's CUDA kernels (csrc/preprocess.cu: K1, csrc/doubleconv.cu: K2)
+     with nvcc, one process per source, started together;
+  2. hold K1 against its plain PyTorch version on the card, at the serving path's
+     shape and a ragged one, and time kernel, plain version and library yardstick;
+  3. hold K2 against its plain version (float32 convs, TF32 off) at the plain UNet's
+     nine DoubleConv shapes with a few frames, a ragged shape and the halo case, in
+     float32 and bfloat16; time it at the serving batch (256 frames) at those nine
+     shapes and at four UNet++ decoder-cluster shapes, beside its plain version, its
+     bound and the cuDNN conv pair;
+  4. drive the default serving path at full model width: synthetic videos ->
+     extract_features (K1 preprocess -> UNet++ fa -> I3Res50 ft, bf16) -> .npy -> UCF
+     MGFN scores -> frame timeline, with the kernels' launch counts read from that
+     run (K2: none);
+  5. fidelity: the first batch again through the f32 plain path with TF32 off;
+     every clip's feature cosine to it must reach FIDELITY_COS_MIN and the batch's
+     error, against the spread between its clips, stay within FIDELITY_SPREAD_MAX,
+     which two controls (a wrong preprocess with R and B swapped, another clip's
+     features) must exceed, so the limit is shown to tell them apart;
+  6. the same for the plain-UNet path (arch_fa="unet": K1 -> UNet whose nine
+     DoubleConvs are K2 -> I3Res50 -> .npy -> MGFN), with K1 launched once and K2
+     nine times per batch, and a second fidelity gate on the fa output itself;
+  7. the serving CLI (python -m ted_spad_tpu_torch.score_video --synthetic) on its
+     default device, with the default fa and with --params selecting the UNet.
 
 Prints the kernel table as one JSON line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero, printing no result,
@@ -35,6 +45,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOPS = 67e12  # H100 SXM f32 rate outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 
 SERVING_CLIPS = (16, 16, 240, 320, 3)  # one extraction batch: 16 clips x 16 frames
 RAGGED_CLIPS = ((2, 3, 61, 83, 3), 56, 40)
@@ -48,6 +59,29 @@ BF16_TOL = 2.0 ** -7  # one bf16 ulp at 1.0
 # error over the batch, measured against the spread between its clips, can.
 FIDELITY_COS_MIN = 0.99
 FIDELITY_SPREAD_MAX = 0.5
+
+# K2 beside the plain UNet's nine DoubleConvs (chip_probes.UNET_DOUBLECONVS) also at the
+# UNet++ decoder's 112^2 / 56^2 cluster (name, H = W, Cin, Cmid, Cout;
+# scripts/microbench_fa.py:240-243).
+UNETPP_CLUSTER = (
+    ("x_2_2", 112, 128, 64, 64), ("x_1_2", 112, 192, 64, 64), ("x_0_2", 112, 320, 64, 64),
+    ("x_0_1", 56, 384, 128, 128),
+)
+K2_CHECK_FRAMES = 2
+K2_TIMED_FRAMES = 256  # one 16-clip batch of 16 frames: one launch per DoubleConv
+# K2 vs its plain version. f32: summation order only. bf16: 2**-6 of max|ref| is one
+# to two bf16 ulps at the largest value: summation order, and with it an occasional
+# flip in the rounding of a conv1 value (kept in bf16 between the convs) or an output.
+K2_F32_TOL = 1e-4
+K2_BF16_TOL = 2.0 ** -6
+UNET_VIDEOS = 2  # 240x320 synthetic videos of SERVING_FRAMES frames, 10 clips each
+# The random-init UNet's sigmoid output sits near 0.5 (std 0.029, between-frame spread
+# RMS 0.011 on an H100): the ft's own bf16 rounding then swamps the differences
+# between clips (features' error / spread 1.09 with K2 exact). A trained anonymizer's
+# output resembles its input, so the smoke draws outc 8x wider: output std 0.21, no
+# saturation, error / spread 0.17 (python -m ted_spad_tpu_torch.chip_probes gain
+# sweeps gains 1/4/8/16).
+UNET_OUTC_GAIN = 8.0
 
 
 def log(msg: str) -> None:
@@ -75,13 +109,22 @@ def time_ms(fn, reps: int = 20, inner: int = 5) -> float:
 
 
 def phase_build() -> None:
+    """nvcc for every kernel source at once (one process each), then each one's
+    ptxas lines: registers, spills, shared memory."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from ted_spad_tpu_torch.utils import cuda_build
 
-    seconds, nvcc_out = cuda_build.build("preprocess")
-    for line in nvcc_out.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"[build] preprocess: {line.strip()}")
-    log(f"[build] csrc/preprocess.cu built in {seconds:.2f}s")
+    names = ("preprocess", "doubleconv")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:
+        results = list(pool.map(cuda_build.build, names))
+    for name, (seconds, nvcc_out) in zip(names, results):
+        for line in nvcc_out.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"[build] {name}: {line.strip()}")
+        log(f"[build] csrc/{name}.cu built in {seconds:.2f}s")
+    log(f"[build] all kernels built in {time.perf_counter() - t0:.2f}s")
 
 
 def preprocess_bound(clips_shape, out_h: int, out_w: int, out_bytes: int):
@@ -157,6 +200,91 @@ def check_preprocess(device) -> dict:
     }
 
 
+def double_conv_bound(n, h, w, cin, cmid, cout) -> tuple[float, float]:
+    """(ms by operations, ms by bytes) of one bf16 DoubleConv: 2*9*(Cin*Cmid +
+    Cmid*Cout) FLOP per pixel at the bf16 tensor-core peak; x read and the output
+    written once, the weights and f32 biases read once, at the memory rate."""
+    flops = 2 * n * h * w * 9 * (cin * cmid + cmid * cout)
+    bytes_moved = 2 * (n * h * w * (cin + cout) + 9 * (cin * cmid + cmid * cout)) + 4 * (cmid + cout)
+    return flops / BF16_FLOPS * 1e3, bytes_moved / HBM_BYTES_PER_S * 1e3
+
+
+def check_double_conv(device) -> dict:
+    """K2 against double_conv_reference (float32 convs, TF32 off) at every UNet shape
+    and two hard cases, then its times at the serving batch."""
+    import torch
+    import torch.nn.functional as F
+
+    from ted_spad_tpu_torch.chip_probes import UNET_DOUBLECONVS, double_conv_operands
+    from ted_spad_tpu_torch.ops import doubleconv as dc
+    from ted_spad_tpu_torch.utils.device import tf32_off
+
+    cases = [(name, (K2_CHECK_FRAMES, s, s, ci, cm, co), None)
+             for name, s, ci, cm, co in UNET_DOUBLECONVS]
+    cases += [("ragged", (2, 13, 17, 24, 16, 8), None), ("halo b1=5", (1, 28, 28, 16, 8, 8), 5.0)]
+    worst = 0.0
+    for i, (name, shape, b1) in enumerate(cases):
+        for dtype, tol in ((torch.float32, K2_F32_TOL), (torch.bfloat16, K2_BF16_TOL)):
+            args = double_conv_operands(device, shape, dtype, seed=i, b1=b1)
+            got = dc.fused_double_conv(*args)
+            with tf32_off():
+                ref = dc.double_conv_reference(*args)
+            torch.cuda.synchronize()
+            err = float((got.float() - ref.float()).abs().max())
+            scale = float(ref.float().abs().max())
+            log(f"[K2] {name} {shape} {str(dtype)[6:]}: max|kernel - plain| = {err:.3e}, "
+                f"{err / scale:.3e} of max|plain| {scale:.3f} (tolerance {tol:.3e})")
+            if not (scale > 0 and err <= tol * scale):
+                raise AssertionError(f"K2 disagrees with its plain version at {name}: {err}")
+            worst = max(worst, err)
+
+    shapes = []
+    for where, table in (("unet", UNET_DOUBLECONVS), ("unet++ decoder", UNETPP_CLUSTER)):
+        for name, s, ci, cm, co in table:
+            shape = (K2_TIMED_FRAMES, s, s, ci, cm, co)
+            x, w1, b1, w2, b2 = double_conv_operands(device, shape, torch.bfloat16, seed=99)
+            ms = time_ms(lambda: dc.fused_double_conv(x, w1, b1, w2, b2), reps=3, inner=1)
+            with tf32_off():
+                plain_ms = time_ms(lambda: dc.double_conv_reference(x, w1, b1, w2, b2),
+                                   reps=3, inner=1)
+            # The yardstick: cuDNN bf16 channels_last conv + bias + ReLU, twice, on the
+            # same folded weights (the port never calls it).
+            xc = x.permute(0, 3, 1, 2)
+            w1c, w2c = (t.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+                        for t in (w1, w2))
+            b1c, b2c = b1.to(torch.bfloat16), b2.to(torch.bfloat16)
+            library_ms = time_ms(lambda: F.relu(F.conv2d(F.relu(F.conv2d(xc, w1c, b1c, padding=1)),
+                                                        w2c, b2c, padding=1)), reps=3, inner=1)
+            by_ops, by_bytes = double_conv_bound(*shape)
+            bound_ms = max(by_ops, by_bytes)
+            flops = by_ops * 1e-3 * BF16_FLOPS
+            shapes.append({"path": where, "block": name, "shape": [s, s, ci, cm, co],
+                           "frames": K2_TIMED_FRAMES, "ms": ms, "plain_ms": plain_ms,
+                           "bound_ms": bound_ms, "bound_by": "operations" if by_ops >= by_bytes
+                           else "bytes", "library_ms": library_ms})
+            log(f"[K2] {where} {name} {s}x{s} {ci}->{cm}->{co} x{K2_TIMED_FRAMES} bf16: kernel "
+                f"{ms:.4f} ms ({flops / ms * 1e-9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, cuDNN "
+                f"pair {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({shapes[-1]['bound_by']}; "
+                f"bytes {by_bytes:.4f} ms), {ms / bound_ms:.1f}x the bound, "
+                f"{ms / library_ms:.2f}x cuDNN")
+            del x, w1, w2, xc, w1c, w2c
+    unet = [r for r in shapes if r["path"] == "unet"]
+    by_ops, by_bytes = (sum(t) for t in zip(*(double_conv_bound(K2_TIMED_FRAMES, *r["shape"])
+                                              for r in unet)))
+    total = {key: sum(r[key] for r in unet) for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    log(f"[K2] the nine UNet DoubleConvs of one 16-clip batch: kernel {total['ms']:.3f} ms, plain "
+        f"{total['plain_ms']:.3f} ms, cuDNN pairs {total['library_ms']:.3f} ms, bound "
+        f"{total['bound_ms']:.3f} ms")
+    return {
+        "name": "K2 double_conv", "route": "cuda",
+        "source": "ted_spad_tpu_torch/csrc/doubleconv.cu",
+        "replaces": "ted_spad_tpu/ops/pallas_doubleconv.py:46",
+        "max_abs_err": worst, **total,
+        "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+        "shapes": shapes,
+    }
+
+
 def profile_step(fn, steps: int) -> None:
     """Device time by kernel over ``steps`` calls (torch.profiler), and the device's
     busy share of the window's host wall time."""
@@ -185,16 +313,12 @@ def profile_step(fn, steps: int) -> None:
 def serving_path(device, workdir: str) -> dict:
     """Drive the port's serving path at full width, the way a user would, and check
     its outputs. Returns the kernels' launch counts from this run."""
-    import numpy as np
     import torch
 
-    from ted_spad_tpu_torch.config.params import FeatureExtractionParams, MGFNParams
-    from ted_spad_tpu_torch.data.features import padded_test_batch
-    from ted_spad_tpu_torch.models import load_fa_model, load_ft_model, load_mgfn_model
-    from ted_spad_tpu_torch.ops.metrics import frame_level_scores
+    from ted_spad_tpu_torch.config.params import FeatureExtractionParams
+    from ted_spad_tpu_torch.models import load_fa_model, load_ft_model
+    from ted_spad_tpu_torch.ops.doubleconv import fused_double_conv
     from ted_spad_tpu_torch.ops.preprocess import fused_preprocess
-    from ted_spad_tpu_torch.ops.temporal import test_features as with_magnitude
-    from ted_spad_tpu_torch.stages.anomaly_detection import make_score_fn
     from ted_spad_tpu_torch.stages.feature_extraction import (
         extract_features, iter_clip_batches, make_extract_step, video_clip_starts,
     )
@@ -210,7 +334,7 @@ def serving_path(device, workdir: str) -> dict:
         f"{len(uris)} videos x {clips_per_video} clips, batch {p.batch_size}")
 
     torch.cuda.reset_peak_memory_stats(device)
-    fused_preprocess.launches = 0
+    fused_preprocess.launches = fused_double_conv.launches = 0
     res = extract_features(p, uris, os.path.join(workdir, "features"), fa=fa, ft=ft,
                            decode_hw=(240, 320), num_workers=8, device=device, log_fn=log)
     peak = torch.cuda.max_memory_allocated(device)
@@ -220,30 +344,16 @@ def serving_path(device, workdir: str) -> dict:
     if len(res["saved"]) != len(uris) or res["skipped"]:
         raise AssertionError(f"expected {len(uris)} .npy files, got {res}")
 
-    mp = MGFNParams.for_dataset("UCF")
-    mgfn = load_mgfn_model(mp, device=device)
-    score_fn = make_score_fn(mgfn, device=device)
-    latencies = []
-    for uri, path in res["saved"].items():
-        feats = np.load(path)
-        if feats.shape != (clips_per_video, FEATURE_DIM) or not np.isfinite(feats).all():
-            raise AssertionError(f"{path}: features {feats.shape}, finite={np.isfinite(feats).all()}")
-        t0 = time.perf_counter()
-        video, mask, t = padded_test_batch(with_magnitude(feats))
-        clip_scores = score_fn(video, mask)[0, :t].cpu().numpy()
-        frames = frame_level_scores(clip_scores, SERVING_FRAMES, frames_per_clip=p.clip_step)
-        latencies.append(time.perf_counter() - t0)
-        if frames.shape != (SERVING_FRAMES,) or not ((frames >= 0) & (frames <= 1)).all():
-            raise AssertionError(f"{uri}: frame scores {frames.shape} outside [0, 1]")
-    log(f"[serve] MGFN UCF scoring: {len(latencies)} videos, latency per video "
-        f"{json.dumps([round(x * 1e3, 3) for x in latencies])} ms (first includes warm-up), "
-        f"scores in [0, 1]")
+    score_videos(res["saved"], clips_per_video, p.clip_step, device, "[serve]")
 
     # The main path ends here: read every kernel's launch count.
-    launches = {"K1 preprocess": fused_preprocess.launches}
+    launches = {"K1 preprocess": fused_preprocess.launches,
+                "K2 double_conv": fused_double_conv.launches}
     log(f"[serve] kernel launches on the main path: {json.dumps(launches)}")
     if launches["K1 preprocess"] <= 0:
         raise AssertionError("the serving path never launched K1")
+    if launches["K2 double_conv"] != 0:
+        raise AssertionError("the UNet++ path launched K2, which only the plain UNet runs")
 
     # Device time of one extraction step at the serving batch (decode excluded).
     batch, _, _ = next(iter_clip_batches(uris, p, p.batch_size, num_workers=8))
@@ -254,22 +364,59 @@ def serving_path(device, workdir: str) -> dict:
         f"{p.batch_size / step_ms * 1e3:.2f} clips/s")
     profile_step(lambda: step(batch), steps=3)
 
-    # Phase 4: the first batch through the float32 plain-preprocess path, TF32 off.
+    # Phase 5: the first batch through the float32 plain path, TF32 off.
     fa32 = load_fa_model(seed=0, dtype="float32", device=device)
     ft32 = load_ft_model(seed=0, dtype="float32", device=device)
     ref_step = make_extract_step(ft32, p.replace(compute_dtype="float32"), fa32,
                                  use_kernel=False, device=device)
     got = step(batch).double()
     ref = ref_step(batch).double()
-    # Controls: a wrong preprocess (R and B swapped) and another clip's features,
-    # read against the same f32 reference.
+    feature_gate(got, ref, step(batch.flip(-1).contiguous()).double(), "[fidelity]")
+    return launches
+
+
+def score_videos(saved: dict, clips_per_video: int, clip_step: int, device, tag: str) -> None:
+    """Every video's .npy -> UCF MGFN clip scores -> frame timeline, checked: finite
+    (clips, 2048) features, SERVING_FRAMES frame scores in [0, 1]."""
+    import numpy as np
+
+    from ted_spad_tpu_torch.config.params import MGFNParams
+    from ted_spad_tpu_torch.data.features import padded_test_batch
+    from ted_spad_tpu_torch.models import load_mgfn_model
+    from ted_spad_tpu_torch.ops.metrics import frame_level_scores
+    from ted_spad_tpu_torch.ops.temporal import test_features as with_magnitude
+    from ted_spad_tpu_torch.stages.anomaly_detection import make_score_fn
+
+    mgfn = load_mgfn_model(MGFNParams.for_dataset("UCF"), device=device)
+    score_fn = make_score_fn(mgfn, device=device)
+    latencies = []
+    for uri, path in saved.items():
+        feats = np.load(path)
+        if feats.shape != (clips_per_video, FEATURE_DIM) or not np.isfinite(feats).all():
+            raise AssertionError(f"{path}: features {feats.shape}, finite={np.isfinite(feats).all()}")
+        t0 = time.perf_counter()
+        video, mask, t = padded_test_batch(with_magnitude(feats))
+        clip_scores = score_fn(video, mask)[0, :t].cpu().numpy()
+        frames = frame_level_scores(clip_scores, SERVING_FRAMES, frames_per_clip=clip_step)
+        latencies.append(time.perf_counter() - t0)
+        if frames.shape != (SERVING_FRAMES,) or not ((frames >= 0) & (frames <= 1)).all():
+            raise AssertionError(f"{uri}: frame scores {frames.shape} outside [0, 1]")
+    log(f"{tag} MGFN UCF scoring: {len(latencies)} videos, latency per video "
+        f"{json.dumps([round(x * 1e3, 3) for x in latencies])} ms (first includes warm-up), "
+        f"scores in [0, 1]")
+
+
+def feature_gate(got, ref, swapped, tag: str) -> None:
+    """The bf16 features of one batch against the f32 plain path's. Controls: a wrong
+    preprocess (R and B swapped) and another clip's features, read against the same
+    f32 reference, must exceed the limit."""
     readings = {name: fidelity(x, ref) for name, x in (
         ("serving", got),
-        ("control R/B swapped", step(batch.flip(-1).contiguous()).double()),
+        ("control R/B swapped", swapped),
         ("control previous clip", got.roll(1, dims=0)),
     )}
     for name, (cos_min, spread_err) in readings.items():
-        log(f"[fidelity] {name} vs f32 plain path (TF32 off), {got.shape[0]} clips: min cosine "
+        log(f"{tag} {name} vs f32 plain path (TF32 off), {got.shape[0]} clips: min cosine "
             f"{cos_min:.8f} (limit {FIDELITY_COS_MIN}), error / between-clip spread "
             f"{spread_err:.6f} (limit {FIDELITY_SPREAD_MAX})")
     cos_min, spread_err = readings.pop("serving")
@@ -278,6 +425,103 @@ def serving_path(device, workdir: str) -> dict:
     for name, (_, control_err) in readings.items():
         if not control_err > FIDELITY_SPREAD_MAX:
             raise AssertionError(f"the fidelity limit does not reject the {name}")
+
+
+def unet_path(device, workdir: str) -> dict:
+    """The plain-UNet serving path (arch_fa="unet") at full width through the user's
+    entry point, extract_features. Checks its outputs and kernel launch counts (K1
+    once, K2 nine times per batch), times its step, and holds its features and its fa
+    output against the f32 plain path."""
+    import torch
+
+    from ted_spad_tpu_torch.config.params import FeatureExtractionParams
+    from ted_spad_tpu_torch.models import load_fa_model, load_ft_model
+    from ted_spad_tpu_torch.ops.doubleconv import fused_double_conv
+    from ted_spad_tpu_torch.ops.preprocess import fused_preprocess, fused_preprocess_reference
+    from ted_spad_tpu_torch.stages.feature_extraction import (
+        extract_features, iter_clip_batches, make_extract_step, video_clip_starts,
+    )
+    from ted_spad_tpu_torch.utils.device import tf32_off
+
+    p = FeatureExtractionParams(batch_size=16, arch_fa="unet")
+    uris = [f"synthetic://n={SERVING_FRAMES},h=240,w=320,seed={100 + i}"
+            for i in range(UNET_VIDEOS)]
+    clips_per_video = len(video_clip_starts(SERVING_FRAMES, p.num_frames, p.clip_stride,
+                                            p.clip_step))
+
+    def unet(dtype: str):
+        fa = load_fa_model(p.arch_fa, seed=0, dtype=dtype, device=device)
+        with torch.no_grad():
+            fa.outc.weight.mul_(UNET_OUTC_GAIN)
+        return fa
+
+    fa = unet(p.compute_dtype)
+    ft = load_ft_model(seed=0, device=device)
+    log(f"[unet] UNet fa {sum(x.numel() for x in fa.parameters())} params (outc x"
+        f"{UNET_OUTC_GAIN}), {p.compute_dtype}, {len(uris)} videos x {clips_per_video} clips, "
+        f"batch {p.batch_size}")
+
+    torch.cuda.reset_peak_memory_stats(device)
+    fused_preprocess.launches = fused_double_conv.launches = 0
+    res = extract_features(p, uris, os.path.join(workdir, "features_unet"), fa=fa, ft=ft,
+                           decode_hw=(240, 320), num_workers=8, device=device, log_fn=log)
+    launches = {"K1 preprocess": fused_preprocess.launches,
+                "K2 double_conv": fused_double_conv.launches}
+    peak = torch.cuda.max_memory_allocated(device)
+    batches = -(-res["clips"] // p.batch_size)
+    log(f"[unet] extract_features: {res['clips']} clips in {res['elapsed_s']:.3f}s = "
+        f"{res['clips_per_sec']:.2f} clips/s end to end (decode included), peak device memory "
+        f"{peak / 2**20:.1f} MiB")
+    log(f"[unet] kernel launches on the UNet path: {json.dumps(launches)} for {batches} batches")
+    if len(res["saved"]) != len(uris) or res["skipped"]:
+        raise AssertionError(f"expected {len(uris)} .npy files, got {res}")
+    if launches != {"K1 preprocess": batches, "K2 double_conv": 9 * batches}:
+        raise AssertionError(f"expected K1 x{batches} and K2 x{9 * batches}: {launches}")
+    score_videos(res["saved"], clips_per_video, p.clip_step, device, "[unet]")
+
+    batch, _, _ = next(iter_clip_batches(uris, p, p.batch_size, num_workers=8))
+    batch = torch.from_numpy(batch).to(device)
+    step = make_extract_step(ft, p, fa, device=device)
+    step_ms = time_ms(lambda: step(batch), reps=3, inner=1)
+    log(f"[unet] extract step device time {step_ms:.3f} ms per {p.batch_size}-clip batch = "
+        f"{p.batch_size / step_ms * 1e3:.2f} clips/s")
+    profile_step(lambda: step(batch), steps=2)
+
+    fa32 = unet("float32")
+    ft32 = load_ft_model(seed=0, dtype="float32", device=device)
+    ref_step = make_extract_step(ft32, p.replace(compute_dtype="float32"), fa32,
+                                 use_kernel=False, device=device)
+    got = step(batch).double()
+    feature_gate(got, ref_step(batch).double(), step(batch.flip(-1).contiguous()).double(),
+                 "[unet fidelity]")
+
+    # The fa output itself: the bf16 UNet with K2 against the f32 plain UNet, on the
+    # batch's frames from the f32 plain preprocess.
+    b, t = batch.shape[:2]
+    img = fused_preprocess_reference(batch, out_dtype=torch.float32)
+    frames = img.reshape((b * t,) + img.shape[2:]).permute(0, 3, 1, 2)
+    with torch.inference_mode(), tf32_off():
+        ref = fa32(frames, use_kernel=False).double()
+        out = fa(frames).double()
+        swapped = fa(frames.flip(1)).double()
+    spread = torch.linalg.norm(ref - ref.mean(0))
+    readings = {"fa bf16 K2": out, "control R/B swapped": swapped,
+                "control previous clip": out.roll(t, dims=0)}
+    log(f"[unet fidelity] fa output (f32 plain): mean {float(ref.mean()):.6f}, std "
+        f"{float(ref.std()):.6f}, min {float(ref.min()):.6f}, max {float(ref.max()):.6f}, "
+        f"share saturated (< 0.01 or > 0.99) {float(((ref < 0.01) | (ref > 0.99)).double().mean()):.6f}, "
+        f"between-frame spread (RMS) {float(spread) / ref.numel() ** 0.5:.6f}")
+    errs = {}
+    for name, x in readings.items():
+        errs[name] = float(torch.linalg.norm(x - ref) / spread)
+        log(f"[unet fidelity] {name} vs f32 plain fa (TF32 off), {b * t} frames: error / "
+            f"between-frame spread {errs[name]:.6f} (limit {FIDELITY_SPREAD_MAX}), max abs "
+            f"error {float((x - ref).abs().max()):.6f}")
+    if not errs.pop("fa bf16 K2") <= FIDELITY_SPREAD_MAX:
+        raise AssertionError("the bf16 K2 UNet drifts from the f32 plain UNet")
+    for name, err in errs.items():
+        if not err > FIDELITY_SPREAD_MAX:
+            raise AssertionError(f"the fa fidelity limit does not reject the {name}")
     return launches
 
 
@@ -291,20 +535,31 @@ def fidelity(x, ref) -> tuple[float, float]:
 
 
 def serving_cli(workdir: str) -> None:
-    """The serving CLI's synthetic smoke on its default device (cuda)."""
+    """The serving CLI's synthetic smoke on its default device (cuda), with the
+    default fa and with a --params file selecting the plain UNet (K2 at 32^2 ... 2^2)."""
     import contextlib
     import io
 
     from ted_spad_tpu_torch import score_video
+    from ted_spad_tpu_torch.ops.doubleconv import fused_double_conv
 
-    out = io.StringIO()  # its per-video JSON lines stay off this script's stdout
-    with contextlib.redirect_stdout(out):
-        summaries = score_video.run(score_video.parser().parse_args(
-            ["--synthetic", "--out_dir", os.path.join(workdir, "cli")]))
-    if len(summaries) != 2 or any("error" in s for s in summaries):
-        raise AssertionError(f"score_video --synthetic: {summaries}")
-    log(f"[cli] python -m ted_spad_tpu_torch.score_video --synthetic: "
-        f"{[(s['clips'], s['frames'], s['max_score']) for s in summaries]} (clips, frames, max)")
+    params = os.path.join(workdir, "params_unet.py")
+    with open(params, "w") as f:
+        f.write('arch_fa = "unet"\n')
+    for extra in ([], ["--params", params]):
+        out = io.StringIO()  # its per-video JSON lines stay off this script's stdout
+        launches = fused_double_conv.launches
+        with contextlib.redirect_stdout(out):
+            summaries = score_video.run(score_video.parser().parse_args(
+                ["--synthetic", "--out_dir", os.path.join(workdir, "cli"), *extra]))
+        if len(summaries) != 2 or any("error" in s for s in summaries):
+            raise AssertionError(f"score_video --synthetic {extra}: {summaries}")
+        if (fused_double_conv.launches > launches) != bool(extra):
+            raise AssertionError(f"score_video --synthetic {extra}: K2 launched "
+                                 f"{fused_double_conv.launches - launches} times")
+        log(f"[cli] python -m ted_spad_tpu_torch.score_video --synthetic {' '.join(extra)}: "
+            f"{[(s['clips'], s['frames'], s['max_score']) for s in summaries]} (clips, frames, "
+            f"max), K2 launches {fused_double_conv.launches - launches}")
 
 
 def card_line() -> str:
@@ -334,13 +589,18 @@ def main() -> int:
 
     phase_build()
     k1 = check_preprocess(device)
+    k2 = check_double_conv(device)
 
     with tempfile.TemporaryDirectory() as workdir:
-        launches = serving_path(device, workdir)
+        launches = {"unet++": serving_path(device, workdir), "unet": unet_path(device, workdir)}
         serving_cli(workdir)
-    k1["launches"] = launches["K1 preprocess"]
+    # Each kernel's launches on its own main path (K1: the default UNet++ path, K2: the
+    # plain-UNet path), and on every path driven.
+    for k, name, path in ((k1, "K1 preprocess", "unet++"), (k2, "K2 double_conv", "unet")):
+        k["launches"] = launches[path][name]
+        k["launches_by_path"] = {where: counts[name] for where, counts in launches.items()}
 
-    log(json.dumps({"kernels": [k1]}))
+    log(json.dumps({"kernels": [k1, k2]}))
     log(f"[card] {card}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

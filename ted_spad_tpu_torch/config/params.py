@@ -5,6 +5,8 @@ with the same names and defaults so one configuration reads the same in both."""
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
+import sys
 from typing import Any
 
 
@@ -85,3 +87,28 @@ class MGFNParams:
 
     def replace(self, **kw: Any):
         return dataclasses.replace(self, **kw)
+
+
+def load_params_module(path: str) -> dict[str, Any]:
+    """Import a reference-style ``params_*.py`` file and return its public constants.
+
+    Drop-in equivalent of the reference's ``importlib.import_module(args.params...)``
+    (train_anonymizer.py:564-566).
+    """
+    spec = importlib.util.spec_from_file_location("user_params", path)
+    if spec is None or spec.loader is None:
+        raise ValueError(f"cannot import params file {path!r}")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["user_params"] = mod
+    spec.loader.exec_module(mod)
+    return {k: v for k, v in vars(mod).items() if not k.startswith("_")}
+
+
+def apply_params_file(params, path: str | None):
+    """Overlay a reference-style params file onto a typed dataclass, ignoring unknown keys."""
+    if path is None:
+        return params
+    overrides = load_params_module(path)
+    field_names = {f.name for f in dataclasses.fields(params)}
+    known = {k: v for k, v in overrides.items() if k in field_names}
+    return params.replace(**known)

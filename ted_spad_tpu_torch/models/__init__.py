@@ -15,13 +15,14 @@ from torch import nn
 from ted_spad_tpu_torch.models.i3res50 import I3Res50, WrapperI3D
 from ted_spad_tpu_torch.models.mgfn import MGFN
 from ted_spad_tpu_torch.models.resnet2d import ResNet2D
-from ted_spad_tpu_torch.models.unet import UNetPlusPlus
+from ted_spad_tpu_torch.models.unet import UNet, UNetPlusPlus
 from ted_spad_tpu_torch.utils.device import resolve_device, torch_dtype
 
 __all__ = [
     "I3Res50",
     "MGFN",
     "ResNet2D",
+    "UNet",
     "UNetPlusPlus",
     "WrapperI3D",
     "load_fa_model",
@@ -49,16 +50,22 @@ def load_fa_model(
     dtype: str | None = "bfloat16",
     tiny: bool = False,
     device: str | torch.device = "cuda",
-) -> UNetPlusPlus:
-    """Anonymizer factory (model_loaders.py:17-53). Only ``arch='unet++'`` is ported."""
-    if arch != "unet++":
-        raise NotImplementedError(f"fa architecture {arch!r} is not ported; use 'unet++'")
+) -> UNetPlusPlus | UNet:
+    """Anonymizer factory (model_loaders.py:17-53): ``arch='unet++'`` (the default)
+    or ``'unet'``. ``tiny`` exists for UNet++ only, as in the JAX package."""
     g = torch.Generator().manual_seed(seed)
-    if tiny:
-        model = UNetPlusPlus(decoder_channels=(16, 8, 8, 8), encoder_layers=(1, 1, 1, 1),
-                             encoder_width=8, generator=g)
+    if arch == "unet++":
+        if tiny:
+            model = UNetPlusPlus(decoder_channels=(16, 8, 8, 8), encoder_layers=(1, 1, 1, 1),
+                                 encoder_width=8, generator=g)
+        else:
+            model = UNetPlusPlus(generator=g)
+    elif arch == "unet":
+        if tiny:
+            raise ValueError("the UNet fa has no tiny variant; build it at full width")
+        model = UNet(generator=g)
     else:
-        model = UNetPlusPlus(generator=g)
+        raise ValueError(f"Architecture {arch!r} invalid for fa_model. Try 'unet' or 'unet++'")
     return _place(model, device, torch_dtype(dtype), "channels_last")
 
 

@@ -63,6 +63,16 @@ def resize_nearest(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
     return F.interpolate(x, scale_factor=scale, mode="nearest")
 
 
+def resize_bilinear(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
+    """Bilinear upsample of (H, W) by an integer scale, align_corners=True
+    (unet_parts.py:53), computed in float32 and cast back as the JAX package does;
+    keeps the memory format."""
+    h, w = x.shape[-2], x.shape[-1]
+    out = F.interpolate(x.float(), size=(h * scale, w * scale), mode="bilinear",
+                        align_corners=True)
+    return out.to(x.dtype)
+
+
 def pad_to_match(x: torch.Tensor, target_h: int, target_w: int) -> torch.Tensor:
     """Zero-pad (H, W) centered, torch ``F.pad([dx//2, dx-dx//2, ...])``
     (unet_parts.py:56-63)."""

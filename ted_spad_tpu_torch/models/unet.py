@@ -1,8 +1,11 @@
-"""Anonymizer fa: UNet++ with a ResNet-18 encoder (counterpart of
-ted_spad_tpu/models/unet.py, itself smp's ``UnetPlusPlus(encoder_name='resnet18',
-encoder_depth=4, decoder_channels=(256,128,64,32), classes=3, activation=None)``).
+"""Anonymizer fa architectures (counterpart of ted_spad_tpu/models/unet.py):
 
-Per-frame 2D model on NCHW frames; raw (un-activated) RGB output in float32.
+- ``UNet``: the classic UNet (unet_model.py, bilinear variant), nine DoubleConv
+  blocks, each one launch of kernel K2 on the card; sigmoid RGB output.
+- ``UNetPlusPlus``: smp's ``UnetPlusPlus(encoder_name='resnet18', encoder_depth=4,
+  decoder_channels=(256,128,64,32), classes=3, activation=None)``; raw RGB output.
+
+Per-frame 2D models on NCHW frames; output in float32.
 """
 
 from __future__ import annotations
@@ -12,8 +15,91 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ted_spad_tpu_torch.models.layers import ConvBN, pad_to_match, resize_nearest
+from ted_spad_tpu_torch.models.layers import (
+    ConvBN, max_pool_valid, pad_to_match, resize_bilinear, resize_nearest,
+)
 from ted_spad_tpu_torch.models.resnet2d import ResNet2D
+from ted_spad_tpu_torch.ops.doubleconv import double_conv_reference, fold_bn, fused_double_conv
+
+
+class DoubleConv(nn.Module):
+    """(conv3x3 => BN => ReLU) * 2 (unet_parts.py:8-25), eval mode, as one fused
+    DoubleConv: BN and the conv bias are folded into the weights in float32 on every
+    call (so weights loaded later are always the ones used), the folded weights are
+    rounded to the module's dtype, and ``fused_double_conv`` (K2 on the card) runs
+    both convs. ``conv1`` / ``conv2`` hold the flax module's parameters."""
+
+    def __init__(self, in_ch: int, features: int, mid_features: int | None = None, *,
+                 generator: torch.Generator):
+        super().__init__()
+        mid = mid_features or features
+        self.conv1 = ConvBN(in_ch, mid, (3, 3), 1, 1, use_bias=True, generator=generator)
+        self.conv2 = ConvBN(mid, features, (3, 3), 1, 1, use_bias=True, generator=generator)
+
+    @staticmethod
+    def _folded(block: ConvBN) -> tuple[torch.Tensor, torch.Tensor]:
+        """(w (3, 3, I, O) in the module dtype, b float32) of one ConvBN."""
+        conv, bn = block.conv, block.bn
+        w, b = fold_bn(conv.weight.float().permute(2, 3, 1, 0), bn.weight.float(),
+                       bn.bias.float(), bn.running_mean.float(), bn.running_var.float(),
+                       bn.eps, bias=conv.bias.float())
+        return w.to(conv.weight.dtype).contiguous(), b.contiguous()
+
+    def forward(self, x: torch.Tensor, use_kernel: bool = True) -> torch.Tensor:
+        """(N, Cin, H, W) ``channels_last`` -> (N, Cout, H, W) ``channels_last``.
+        ``use_kernel=False`` runs the plain version on any device."""
+        w1, b1 = self._folded(self.conv1)
+        w2, b2 = self._folded(self.conv2)
+        fn = fused_double_conv if use_kernel else double_conv_reference
+        return fn(x.permute(0, 2, 3, 1), w1, b1, w2, b2).permute(0, 3, 1, 2)
+
+
+class UNet(nn.Module):
+    """Classic UNet fa (unet_model.py:6-37): bilinear variant, 64...512 channels,
+    sigmoid RGB output. Decoder concatenations are [skip, up]."""
+
+    def __init__(self, n_classes: int = 3, *, generator: torch.Generator):
+        super().__init__()
+        g = generator
+        self.inc = DoubleConv(3, 64, generator=g)
+        self.down1 = DoubleConv(64, 128, generator=g)
+        self.down2 = DoubleConv(128, 256, generator=g)
+        self.down3 = DoubleConv(256, 512, generator=g)
+        self.down4 = DoubleConv(512, 512, generator=g)
+        self.up1 = DoubleConv(1024, 256, 512, generator=g)
+        self.up2 = DoubleConv(512, 128, 256, generator=g)
+        self.up3 = DoubleConv(256, 64, 128, generator=g)
+        self.up4 = DoubleConv(128, 64, 64, generator=g)
+        self.outc = nn.Conv2d(64, n_classes, 1, bias=True)
+        nn.init.normal_(self.outc.weight, 0.0, (1.0 / 64) ** 0.5, generator=g)
+        nn.init.zeros_(self.outc.bias)
+
+    def forward(self, x: torch.Tensor, use_kernel: bool = True) -> torch.Tensor:
+        """(N, 3, H, W) -> (N, n_classes, H, W) float32 in [0, 1]. ``use_kernel=False``
+        runs every DoubleConv through its plain version."""
+        cl = torch.channels_last
+        x = x.to(self.outc.weight.dtype).contiguous(memory_format=cl)
+
+        def block(module: DoubleConv, t: torch.Tensor) -> torch.Tensor:
+            return module(t, use_kernel=use_kernel)
+
+        def down(module: DoubleConv, t: torch.Tensor) -> torch.Tensor:
+            return block(module, max_pool_valid(t, (2, 2), (2, 2)).contiguous(memory_format=cl))
+
+        def up(module: DoubleConv, t: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+            t = pad_to_match(resize_bilinear(t, 2), skip.shape[-2], skip.shape[-1])
+            return block(module, torch.cat([skip, t], dim=1).contiguous(memory_format=cl))
+
+        x1 = block(self.inc, x)
+        x2 = down(self.down1, x1)
+        x3 = down(self.down2, x2)
+        x4 = down(self.down3, x3)
+        x5 = down(self.down4, x4)
+        y = up(self.up1, x5, x4)
+        y = up(self.up2, y, x3)
+        y = up(self.up3, y, x2)
+        y = up(self.up4, y, x1)
+        return torch.sigmoid(self.outc(y).float())
 
 
 class UnetPPDecoderBlock(nn.Module):

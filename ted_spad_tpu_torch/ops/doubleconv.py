@@ -1,0 +1,128 @@
+"""Fused DoubleConv: relu(conv3x3(relu(conv3x3(x, w1) + b1), w2) + b2), SAME padding.
+
+Counterpart of ted_spad_tpu/ops/pallas_doubleconv.py, the eval-mode ``DoubleConv``
+of the plain UNet with BatchNorm (and the conv bias) folded into w/b by ``fold_bn``.
+Layouts are the JAX package's: x (N, H, W, Cin), weights (3, 3, I, O), biases f32.
+
+- ``double_conv_reference``: the plain version, two float32 ``F.conv2d`` calls. Its
+  numerics are those of the JAX reference: products of the input dtype summed in
+  float32, float32 bias, ReLU, the conv1 result rounded to the input dtype, then
+  the same again for conv2 with the result in the input dtype.
+- ``fused_double_conv``: the kernel wrapper (K2, csrc/doubleconv.cu). On a CUDA
+  tensor it launches the hand-written kernel; on a CPU tensor it runs the plain
+  version. Its ``launches`` attribute counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+
+def fold_bn(w: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, mean: torch.Tensor,
+            var: torch.Tensor, eps: float = 1e-5,
+            bias: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fold eval-mode BN, and the conv's own bias if it has one, into the conv:
+    returns (w * scale, beta + (bias - mean) * scale) with
+    scale = gamma / sqrt(var + eps) per output channel, the last axis of ``w``."""
+    scale = gamma / torch.sqrt(var + eps)
+    shift = -mean if bias is None else bias - mean
+    return w * scale, beta + shift * scale
+
+
+def _conv3x3_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """SAME 3x3 conv of NHWC ``x`` with HWIO ``w``, in float32: (N, H, W, O) f32."""
+    y = F.conv2d(x.permute(0, 3, 1, 2).float(), w.permute(3, 2, 0, 1).float(), padding=1)
+    return y.permute(0, 2, 3, 1)
+
+
+def double_conv_reference(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                          w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """Plain version: (N, H, W, Cin) -> (N, H, W, Cout) in x.dtype. On the card,
+    run it with TF32 off (utils/device.tf32_off) to keep its float32 convs exact."""
+    y = torch.relu(_conv3x3_f32(x, w1) + b1.float()).to(x.dtype)
+    return torch.relu(_conv3x3_f32(y, w2) + b2.float()).to(x.dtype)
+
+
+_ERR_TOO_WIDE = -2  # csrc/doubleconv.cu: kErrTooWide
+
+
+@functools.cache
+def _library():
+    from ted_spad_tpu_torch.utils.cuda_build import load
+
+    fn = load("doubleconv").ted_double_conv
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.restype = i
+    fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+    return fn
+
+
+def _check(x, w1, b1, w2, b2) -> None:
+    if x.dim() != 4:
+        raise ValueError(f"fused_double_conv takes x of shape (N, H, W, Cin), got {tuple(x.shape)}")
+    n, h, w, cin = x.shape
+    cmid, cout = w1.shape[-1], w2.shape[-1]
+    shapes = {"w1": (w1, (3, 3, cin, cmid)), "b1": (b1, (cmid,)),
+              "w2": (w2, (3, 3, cmid, cout)), "b2": (b2, (cout,))}
+    for name, (t, want) in shapes.items():
+        if tuple(t.shape) != want:
+            raise ValueError(f"fused_double_conv: {name} has shape {tuple(t.shape)}, "
+                             f"expected {want} for x {tuple(x.shape)}")
+        if t.device != x.device:
+            raise ValueError(f"fused_double_conv: {name} on {t.device}, x on {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"fused_double_conv takes float32 or bfloat16 x, not {x.dtype}")
+    if w1.dtype != x.dtype or w2.dtype != x.dtype:
+        raise ValueError(f"fused_double_conv: weights {w1.dtype}/{w2.dtype} must match x {x.dtype}")
+    if b1.dtype != torch.float32 or b2.dtype != torch.float32:
+        raise ValueError(f"fused_double_conv: biases must be float32, got {b1.dtype}/{b2.dtype}")
+    for name, t in (("x", x), ("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2)):
+        if not t.is_contiguous():
+            raise ValueError(f"fused_double_conv: {name} must be contiguous (for x: the NHWC "
+                             "view of a channels_last tensor); it would be copied")
+
+
+def fused_double_conv(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                      w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """relu(conv3x3(relu(conv3x3(x, w1) + b1), w2) + b2), SAME padding, BN folded.
+
+    x: (N, H, W, Cin) float32 or bfloat16, any H and W, contiguous (the NHWC view
+    ``t.permute(0, 2, 3, 1)`` of a ``channels_last`` NCHW tensor is);
+    w1: (3, 3, Cin, Cmid) and w2: (3, 3, Cmid, Cout) in x.dtype; b1, b2: float32.
+    Returns (N, H, W, Cout) in x.dtype, contiguous. On CUDA this launches kernel K2
+    on the current stream; on the CPU it runs ``double_conv_reference``.
+    """
+    _check(x, w1, b1, w2, b2)
+    if x.device.type == "cpu":
+        return double_conv_reference(x, w1, b1, w2, b2)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_double_conv runs on cuda or cpu, not {x.device}")
+    n, h, w, cin = x.shape
+    cmid, cout = w1.shape[-1], w2.shape[-1]
+    if not 0 < n <= 65535 or h * w == 0:
+        raise ValueError(f"fused_double_conv launches one grid row per frame, 1 to 65535 "
+                         f"frames of a non-empty image; got x {tuple(x.shape)}")
+    if any(t.data_ptr() % 16 for t in (x, w1, w2)):
+        raise ValueError("fused_double_conv: x, w1 and w2 must start on a 16-byte boundary "
+                         "(the kernel reads them 16 bytes at a time)")
+    out = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _library()(
+            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+            out.data_ptr(), int(x.dtype == torch.bfloat16), n, h, w, cin, cmid, cout,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err == _ERR_TOO_WIDE:
+        raise ValueError(f"fused_double_conv: the conv1 tile of Cmid={cmid} in {x.dtype} does "
+                         "not fit in a block's shared memory")
+    if err != 0:
+        raise RuntimeError(f"fused_double_conv: kernel launch failed with cudaError {err}")
+    fused_double_conv.launches += 1
+    return out
+
+
+fused_double_conv.launches = 0

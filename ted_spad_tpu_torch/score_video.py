@@ -12,6 +12,10 @@ the ``--threshold`` exceedance spans. Clip features land in
 re-run with other settings never reuses stale features while a same-config re-run
 resumes.
 
+Configuration: ``--params FILE`` overlays a reference-style ``params_*.py`` file on
+``FeatureExtractionParams`` (e.g. ``arch_fa = "unet"`` selects the plain UNet fa,
+whose DoubleConvs run kernel K2).
+
 Weights: ``--*_weights`` take ``.npz`` files of flax variables keyed by
 '/'-joined paths (utils/jax_weights.load_npz_variables); without them the models
 draw random weights from ``--seed`` (smoke runs only).
@@ -48,7 +52,9 @@ def spans_above(frame_scores, threshold: float) -> list[list[int]]:
 def run(args) -> list[dict]:
     """Score every video; returns the per-video summaries (also written to
     ``<out_dir>/summary.json``)."""
-    from ted_spad_tpu_torch.config.params import FeatureExtractionParams, MGFNParams
+    from ted_spad_tpu_torch.config.params import (
+        FeatureExtractionParams, MGFNParams, apply_params_file,
+    )
     from ted_spad_tpu_torch.data.features import padded_test_batch
     from ted_spad_tpu_torch.data.video_reader import open_video
     from ted_spad_tpu_torch.models import load_fa_model, load_ft_model, load_mgfn_model
@@ -62,7 +68,8 @@ def run(args) -> list[dict]:
     )
 
     device = resolve_device(args.device)
-    p = FeatureExtractionParams(anonymized=not args.raw, seed=args.seed)
+    p = apply_params_file(FeatureExtractionParams(anonymized=not args.raw, seed=args.seed),
+                          args.params)
     mp = MGFNParams.for_dataset(args.datasetname, seed=args.seed)
     if args.synthetic:
         # Tiny shapes and procedural videos; MGFN's internal dims shrink too.
@@ -78,7 +85,8 @@ def run(args) -> list[dict]:
             raise SystemExit(f"--videos_glob {args.videos_glob!r} matched no files")
         decode_hw = tuple(args.decode_hw) if args.decode_hw else (240, 320)
 
-    cfg = f"{p!r}|rgb|{decode_hw}|fa={args.fa_weights}|ft={args.ft_weights}"
+    cfg = (f"{p!r}|rgb|{decode_hw}|params={args.params}|fa={args.fa_weights}"
+           f"|ft={args.ft_weights}")
     feat_dir = os.path.join(args.out_dir, "features", hashlib.sha1(cfg.encode()).hexdigest()[:12])
     score_dir = os.path.join(args.out_dir, "scores")
     os.makedirs(feat_dir, exist_ok=True)
@@ -141,6 +149,8 @@ def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--videos_glob", type=str, default=None)
+    ap.add_argument("--params", type=str, default=None,
+                    help="reference-style params_*.py overlaid on FeatureExtractionParams")
     ap.add_argument("--synthetic", action="store_true",
                     help="two procedural videos at tiny shapes (no media needed)")
     ap.add_argument("--raw", action="store_true", help="skip anonymization (raw features)")

@@ -4,8 +4,9 @@ feature_extraction/dali_extraction.py).
 
 Windowing: 16-frame clips at stride 2, non-overlapping step 32. Per clip batch:
 uint8 clips -> preprocess (kernel K1 on CUDA: center crop 0.8, antialiased resize
-to 224^2, /255) -> frozen UNet++ fa per frame -> I3Res50 ``extract_features`` ->
-one 2048-d feature per clip, stacked into a per-video ``.npy``.
+to 224^2, /255) -> frozen fa per frame (UNet++, or the plain UNet whose DoubleConvs
+run kernel K2 on CUDA; ``arch_fa``) -> I3Res50 ``extract_features`` -> one 2048-d
+feature per clip, stacked into a per-video ``.npy``.
 
 Host/device overlap: host decode threads pack clips from several videos into
 fixed-size batches; each batch is copied from pinned memory with ``non_blocking``
@@ -29,7 +30,7 @@ import torch
 
 from ted_spad_tpu_torch.config.params import FeatureExtractionParams
 from ted_spad_tpu_torch.data.video_reader import open_video
-from ted_spad_tpu_torch.models import load_fa_model, load_ft_model
+from ted_spad_tpu_torch.models import UNet, load_fa_model, load_ft_model
 from ted_spad_tpu_torch.ops.preprocess import fused_preprocess, fused_preprocess_reference
 from ted_spad_tpu_torch.utils.device import resolve_device, tf32_off, torch_dtype
 from ted_spad_tpu_torch.utils.naming import dedup_names
@@ -168,8 +169,10 @@ def make_extract_step(
 
     Preprocess -> (frozen fa per frame) -> ft ``extract_features``, under
     ``torch.inference_mode()``, in the models' dtype (bf16 on the card by default).
-    ``use_kernel`` (default: True on CUDA) runs the preprocess through kernel K1;
-    False runs its plain version in float32, as the JAX package's ``use_pallas``.
+    ``use_kernel`` (default: True on CUDA) selects every kernel of the step against
+    its plain version, as the JAX package's ``use_pallas``: True runs the preprocess
+    through kernel K1 and a UNet fa's DoubleConvs through kernel K2; False runs the
+    plain preprocess in float32 and the plain DoubleConv.
     Float32 convolutions and matmuls run with TF32 off during the step
     (utils/device.tf32_off); the caller's TF32 settings are left as they were."""
     check_supported(p)
@@ -180,6 +183,7 @@ def make_extract_step(
     if use_kernel is None:
         use_kernel = device.type == "cuda"
     out_dtype = torch_dtype(p.compute_dtype)
+    fa_kw = {"use_kernel": use_kernel} if isinstance(fa, UNet) else {}
 
     def preprocess(clips_u8: torch.Tensor) -> torch.Tensor:
         kw = dict(out_h=p.reso_h, out_w=p.reso_w, cropping_factor=p.cropping_factor)
@@ -196,7 +200,7 @@ def make_extract_step(
             # (B*T, 3, h, w) in channels_last memory: a view, no copy.
             frames = img.reshape((b * t,) + img.shape[2:]).permute(0, 3, 1, 2)
             if fa is not None:
-                frames = fa(frames)  # (B*T, 3, h, w) float32
+                frames = fa(frames, **fa_kw)  # (B*T, 3, h, w) float32
             # (B, 3, T, h, w): channels_last_3d when the frames are channels_last.
             clips = frames.permute(0, 2, 3, 1).reshape(b, t, *frames.shape[2:], 3).permute(
                 0, 4, 1, 2, 3)

@@ -1,10 +1,11 @@
-"""Build the port's CUDA kernel with nvcc and load it with ctypes.
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-``csrc/<name>.cu`` exposes a plain C interface and compiles into
+Each ``csrc/<name>.cu`` is self-contained (it includes no header of the
+repository), exposes a plain C interface and compiles into
 ``build/ted_spad_tpu_torch/lib<name>-<hash>.so`` under the repository root (a
 directory ``.gitignore`` lists). The hash covers the source and the flags, so an
 edited source rebuilds and an unchanged one loads as it is. Nothing is built at
-import time: the first wrapper call that needs the kernel builds it.
+import time: the first wrapper call that needs a kernel builds it.
 """
 
 from __future__ import annotations
@@ -49,8 +50,9 @@ def build(name: str) -> tuple[float, str]:
     the library was built already. Raises with nvcc's output if the build fails."""
     target = _target(name)
     os.makedirs(BUILD_DIR, exist_ok=True)
-    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)  # concurrent processes build once
+    with open(os.path.join(BUILD_DIR, f".{name}.lock"), "w") as lock:
+        # Concurrent builders of one source build it once; other sources build alongside.
+        fcntl.flock(lock, fcntl.LOCK_EX)
         if os.path.exists(target):
             return 0.0, ""
         tmp = f"{target}.{os.getpid()}.tmp"

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from ted_spad_tpu_torch.ops import doubleconv as dc
 from ted_spad_tpu_torch.ops import preprocess as pp
 from ted_spad_tpu_torch.utils.device import tf32_off
 
@@ -18,7 +19,7 @@ from ted_spad_tpu_torch.utils.device import tf32_off
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel is CUDA C++ with no CPU mode")
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ with no CPU mode")
     return torch.device("cuda")
 
 
@@ -47,3 +48,49 @@ def test_preprocess_kernel_rejects_non_contiguous(cuda_device):
     clips = torch.zeros((2, 2, 16, 16, 3), dtype=torch.uint8, device=cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
         pp.fused_preprocess(clips[:, :, ::2], out_h=8, out_w=8)
+
+
+def _double_conv_operands(device, shape, dtype, b1=None):
+    n, h, w, cin, cmid, cout = shape
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(n, h, w, cin, generator=g)
+    w1 = torch.randn(3, 3, cin, cmid, generator=g) * (2 / (9 * cin)) ** 0.5
+    w2 = torch.randn(3, 3, cmid, cout, generator=g) * (2 / (9 * cmid)) ** 0.5
+    b1 = torch.randn(cmid, generator=g) * 0.1 if b1 is None else torch.full((cmid,), b1)
+    b2 = torch.randn(cout, generator=g) * 0.1
+    return [t.to(device) for t in (x.to(dtype), w1.to(dtype), b1, w2.to(dtype), b2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,b1", [
+    ((2, 224, 224, 3, 64, 64), None),    # inc: Cin = 3, K padded inside the kernel
+    ((2, 28, 28, 1024, 512, 256), None),  # up1: the widest
+    ((2, 13, 17, 24, 16, 8), None),       # ragged frame and channel counts
+    ((1, 28, 28, 16, 8, 8), 5.0),         # halo: conv2 must see zeros outside the image
+])
+def test_double_conv_kernel_matches_plain_version(cuda_device, shape, b1):
+    """K2 vs its plain version (float32 convs with TF32 off): f32 within 1e-4 of
+    max|ref| (summation order); bf16 within 2**-6 of max|ref|, one to two bf16 ulps at
+    the largest value (summation order, and with it an occasional flip in the rounding
+    of a conv1 value or of the output)."""
+    launches = dc.fused_double_conv.launches
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2.0 ** -6)):
+        args = _double_conv_operands(cuda_device, shape, dtype, b1)
+        got = dc.fused_double_conv(*args)
+        with tf32_off():
+            ref = dc.double_conv_reference(*args)
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape and got.dtype == dtype
+        scale = float(ref.float().abs().max())
+        assert scale > 0 and float((got.float() - ref.float()).abs().max()) <= tol * scale
+    assert dc.fused_double_conv.launches == launches + 2
+
+
+@pytest.mark.cuda
+def test_double_conv_kernel_rejects_what_it_does_not_take(cuda_device):
+    x, w1, b1, w2, b2 = _double_conv_operands(cuda_device, (1, 8, 8, 16, 16, 16), torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        dc.fused_double_conv(x[:, :, ::2], w1, b1, w2, b2)
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view(x.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        dc.fused_double_conv(shifted, w1, b1, w2, b2)
