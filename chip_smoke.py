@@ -9,10 +9,11 @@ Phases, each fatal on failure:
   2. hold K1 against its plain PyTorch version on the card, at the serving path's
      shape and a ragged one, and time kernel, plain version and library yardstick;
   3. hold K2 against its plain version (float32 convs, TF32 off) at the plain UNet's
-     nine DoubleConv shapes with a few frames, a ragged shape and the halo case, in
-     float32 and bfloat16; time it at the serving batch (256 frames) at those nine
-     shapes and at four UNet++ decoder-cluster shapes, beside its plain version, its
-     bound and the cuDNN conv pair;
+     nine DoubleConv shapes with a few frames, a ragged shape, the halo case and one
+     ragged shape per bf16 tile class, in float32 and bfloat16; time it at the serving
+     batch (256 frames) at those nine shapes and at four UNet++ decoder-cluster shapes,
+     beside its plain version, its bound and the cuDNN conv pair, with each shape's
+     tile class and that instantiation's registers (the bf16 ones must not spill);
   4. drive the default serving path at full model width: synthetic videos ->
      extract_features (K1 preprocess -> UNet++ fa -> I3Res50 ft, bf16) -> .npy -> UCF
      MGFN scores -> frame timeline, with the kernels' launch counts read from that
@@ -60,13 +61,6 @@ BF16_TOL = 2.0 ** -7  # one bf16 ulp at 1.0
 FIDELITY_COS_MIN = 0.99
 FIDELITY_SPREAD_MAX = 0.5
 
-# K2 beside the plain UNet's nine DoubleConvs (chip_probes.UNET_DOUBLECONVS) also at the
-# UNet++ decoder's 112^2 / 56^2 cluster (name, H = W, Cin, Cmid, Cout;
-# scripts/microbench_fa.py:240-243).
-UNETPP_CLUSTER = (
-    ("x_2_2", 112, 128, 64, 64), ("x_1_2", 112, 192, 64, 64), ("x_0_2", 112, 320, 64, 64),
-    ("x_0_1", 56, 384, 128, 128),
-)
 K2_CHECK_FRAMES = 2
 K2_TIMED_FRAMES = 256  # one 16-clip batch of 16 frames: one launch per DoubleConv
 # K2 vs its plain version. f32: summation order only. bf16: 2**-6 of max|ref| is one
@@ -108,11 +102,13 @@ def time_ms(fn, reps: int = 20, inner: int = 5) -> float:
     return times[len(times) // 2]
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
     """nvcc for every kernel source at once (one process each), then each one's
-    ptxas lines: registers, spills, shared memory."""
+    ptxas lines: registers, spills, shared memory. Returns K2's registers and spills
+    by instantiation, and fails if a bf16 one spills."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from ted_spad_tpu_torch.chip_probes import k2_register_report
     from ted_spad_tpu_torch.utils import cuda_build
 
     names = ("preprocess", "doubleconv")
@@ -125,6 +121,7 @@ def phase_build() -> None:
                 log(f"[build] {name}: {line.strip()}")
         log(f"[build] csrc/{name}.cu built in {seconds:.2f}s")
     log(f"[build] all kernels built in {time.perf_counter() - t0:.2f}s")
+    return k2_register_report(dict(zip(names, results))["doubleconv"][1], log)
 
 
 def preprocess_bound(clips_shape, out_h: int, out_w: int, out_bytes: int):
@@ -209,19 +206,23 @@ def double_conv_bound(n, h, w, cin, cmid, cout) -> tuple[float, float]:
     return flops / BF16_FLOPS * 1e3, bytes_moved / HBM_BYTES_PER_S * 1e3
 
 
-def check_double_conv(device) -> dict:
+def check_double_conv(device, registers: dict) -> dict:
     """K2 against double_conv_reference (float32 convs, TF32 off) at every UNet shape
-    and two hard cases, then its times at the serving batch."""
+    and the hard cases, then its times at the serving batch. ``registers``: K2's
+    ptxas report by instantiation (phase_build)."""
     import torch
     import torch.nn.functional as F
 
-    from ted_spad_tpu_torch.chip_probes import UNET_DOUBLECONVS, double_conv_operands
+    from ted_spad_tpu_torch.chip_probes import (
+        K2_CLASS_RAGGED, UNET_DOUBLECONVS, UNETPP_CLUSTER, double_conv_operands,
+    )
     from ted_spad_tpu_torch.ops import doubleconv as dc
     from ted_spad_tpu_torch.utils.device import tf32_off
 
     cases = [(name, (K2_CHECK_FRAMES, s, s, ci, cm, co), None)
              for name, s, ci, cm, co in UNET_DOUBLECONVS]
     cases += [("ragged", (2, 13, 17, 24, 16, 8), None), ("halo b1=5", (1, 28, 28, 16, 8, 8), 5.0)]
+    cases += [(name, shape, None) for name, shape in K2_CLASS_RAGGED]
     worst = 0.0
     for i, (name, shape, b1) in enumerate(cases):
         for dtype, tol in ((torch.float32, K2_F32_TOL), (torch.bfloat16, K2_BF16_TOL)):
@@ -258,15 +259,18 @@ def check_double_conv(device) -> dict:
             by_ops, by_bytes = double_conv_bound(*shape)
             bound_ms = max(by_ops, by_bytes)
             flops = by_ops * 1e-3 * BF16_FLOPS
+            plan = dc.k2_tile_plan(s, s, ci, cm, co)
             shapes.append({"path": where, "block": name, "shape": [s, s, ci, cm, co],
                            "frames": K2_TIMED_FRAMES, "ms": ms, "plain_ms": plain_ms,
                            "bound_ms": bound_ms, "bound_by": "operations" if by_ops >= by_bytes
-                           else "bytes", "library_ms": library_ms})
-            log(f"[K2] {where} {name} {s}x{s} {ci}->{cm}->{co} x{K2_TIMED_FRAMES} bf16: kernel "
-                f"{ms:.4f} ms ({flops / ms * 1e-9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, cuDNN "
-                f"pair {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({shapes[-1]['bound_by']}; "
+                           else "bytes", "library_ms": library_ms, "tile_class": plan.tile_class,
+                           "registers": registers[plan.kernel]["registers"]})
+            log(f"[K2] {where} {name} {s}x{s} {ci}->{cm}->{co} x{K2_TIMED_FRAMES} bf16, tile "
+                f"{plan.tile_class} ({plan.kernel}, {shapes[-1]['registers']} registers): kernel "
+                f"{ms:.4f} ms ({flops / ms * 1e-9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, cuDNN pair "
+                f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({shapes[-1]['bound_by']}; "
                 f"bytes {by_bytes:.4f} ms), {ms / bound_ms:.1f}x the bound, "
-                f"{ms / library_ms:.2f}x cuDNN")
+                f"{ms / library_ms:.2f}x cuDNN, {plain_ms / ms:.2f}x faster than plain")
             del x, w1, w2, xc, w1c, w2c
     unet = [r for r in shapes if r["path"] == "unet"]
     by_ops, by_bytes = (sum(t) for t in zip(*(double_conv_bound(K2_TIMED_FRAMES, *r["shape"])
@@ -587,9 +591,9 @@ def main() -> int:
     log(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
         f"{torch.cuda.get_device_name(0)}")
 
-    phase_build()
+    registers = phase_build()
     k1 = check_preprocess(device)
-    k2 = check_double_conv(device)
+    k2 = check_double_conv(device, registers)
 
     with tempfile.TemporaryDirectory() as workdir:
         launches = {"unet++": serving_path(device, workdir), "unet": unet_path(device, workdir)}

@@ -4,9 +4,11 @@ the numbers PERF.md quotes from them can be taken again:
     python -m ted_spad_tpu_torch.chip_probes k2     # kernel K2 alone
     python -m ted_spad_tpu_torch.chip_probes gain   # the UNet's outc gain vs the gates
 
-``k2``: builds K2, holds it against its plain version (float32 convs, TF32 off) at
-the plain UNet's nine DoubleConv shapes with two frames, in f32 and bf16, then
-times the kernel alone at 256 frames (CUDA events).
+``k2``: builds K2 and prints each instantiation's registers and spills (failing if
+the bf16 kernels spill), holds it against its plain version (float32 convs, TF32 off)
+at the plain UNet's nine DoubleConv shapes with two frames and at one ragged shape per
+bf16 tile class, in f32 and bf16, then times the kernel alone at 256 frames (CUDA
+events), with each shape's tile class.
 
 ``gain``: the random-init UNet's sigmoid output sits near 0.5, so the bf16 ft's own
 rounding can swamp the differences between clips. For outc gains 1, 4, 8 and 16 it
@@ -16,6 +18,7 @@ and fa output, bf16 kernel path against the f32 plain path, with their controls)
 
 from __future__ import annotations
 
+import re
 import sys
 import time
 
@@ -25,6 +28,40 @@ UNET_DOUBLECONVS = (
     ("down3", 28, 256, 512, 512), ("down4", 14, 512, 512, 512), ("up1", 28, 1024, 512, 256),
     ("up2", 56, 512, 256, 128), ("up3", 112, 256, 128, 64), ("up4", 224, 128, 64, 64),
 )
+# K2 beside the nine is also timed at the UNet++ decoder's 112^2 / 56^2 cluster (name,
+# H = W, Cin, Cmid, Cout; scripts/microbench_fa.py:240-243).
+UNETPP_CLUSTER = (
+    ("x_2_2", 112, 128, 64, 64), ("x_1_2", 112, 192, 64, 64), ("x_0_2", 112, 320, 64, 64),
+    ("x_0_1", 56, 384, 128, 128),
+)
+
+# One ragged shape per bf16 tile class (N, H, W, Cin, Cmid, Cout): H and W are not
+# multiples of the class's tile.
+K2_CLASS_RAGGED = (
+    ("ragged 16x16", (2, 20, 20, 64, 64, 64)), ("ragged 16x28", (2, 20, 30, 96, 128, 64)),
+    ("ragged 14x14", (2, 20, 30, 128, 256, 128)), ("ragged 7x14", (2, 12, 20, 256, 512, 256)),
+)
+
+
+def k2_register_report(nvcc_out: str, log=print) -> dict[str, dict[str, int]]:
+    """Each K2 instantiation's registers and spill bytes from nvcc's ptxas report,
+    logged and keyed "bf16 Cls<...>" as ``k2_tile_plan(...).kernel`` names it, or
+    "f32 4x8"; raises if a bf16 one spills."""
+    from ted_spad_tpu_torch.utils import cuda_build
+
+    report = {}
+    for name, r in cuda_build.ptxas_report(nvcc_out).items():
+        if "double_conv_bf16" in name:
+            args = re.findall(r"Li(\d+)E", re.search(r"ClsI(.*?)EE", name).group(1) + "E")
+            label = f"bf16 Cls<{', '.join(args)}>"
+        else:
+            label = "f32 4x8"
+        report[label] = r
+        log(f"[K2 build] {label}: {r['registers']} registers, spill stores "
+            f"{r['spill_stores']} B, spill loads {r['spill_loads']} B")
+        if label.startswith("bf16") and (r["spill_stores"] or r["spill_loads"]):
+            raise AssertionError(f"the bf16 K2 {label} spills registers: {r}")
+    return report
 
 
 def double_conv_operands(device, shape, dtype, seed: int = 0, b1=None):
@@ -54,17 +91,24 @@ def k2(device) -> None:
     from ted_spad_tpu_torch.utils import cuda_build
     from ted_spad_tpu_torch.utils.device import tf32_off
 
-    seconds, _ = cuda_build.build("doubleconv")
+    seconds, nvcc_out = cuda_build.build("doubleconv")
+    k2_register_report(nvcc_out)
     print(f"build {seconds:.2f}s", flush=True)
-    for name, s, cin, cmid, cout in UNET_DOUBLECONVS:
-        for dtype in (torch.float32, torch.bfloat16):
-            args = double_conv_operands(device, (2, s, s, cin, cmid, cout), dtype)
+    cases = [(name, (2, s, s, cin, cmid, cout)) for name, s, cin, cmid, cout in UNET_DOUBLECONVS]
+    worst = 0.0
+    for name, shape in cases + list(K2_CLASS_RAGGED):
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2.0 ** -6)):
+            args = double_conv_operands(device, shape, dtype)
             got = dc.fused_double_conv(*args)
             with tf32_off():
                 ref = dc.double_conv_reference(*args)
             err = float((got.float() - ref.float()).abs().max())
-            print(f"{name} {str(dtype)[6:]}: max|kernel - plain| {err:.3e} of max|plain| "
-                  f"{float(ref.float().abs().max()):.3f}", flush=True)
+            scale = float(ref.float().abs().max())
+            worst = max(worst, err / scale / tol)
+            print(f"{name} {shape} {str(dtype)[6:]}: max|kernel - plain| {err:.3e} = "
+                  f"{err / scale:.3e} of max|plain| {scale:.3f} (tolerance {tol:.3e})", flush=True)
+    print(f"worst error / tolerance {worst:.3f}: {'exact' if worst <= 1 else 'NOT EXACT'}")
+    total = 0.0
     for name, s, cin, cmid, cout in UNET_DOUBLECONVS:
         args = double_conv_operands(device, (256, s, s, cin, cmid, cout), torch.bfloat16)
         dc.fused_double_conv(*args)
@@ -75,8 +119,12 @@ def k2(device) -> None:
         end.record()
         end.synchronize()
         ms = start.elapsed_time(end) / 3
+        total += ms
         flops = 2 * 256 * s * s * 9 * (cin * cmid + cmid * cout)
-        print(f"{name} x256 bf16: kernel {ms:.3f} ms = {flops / ms * 1e-9:.1f} TFLOP/s", flush=True)
+        plan = dc.k2_tile_plan(s, s, cin, cmid, cout)
+        print(f"{name} x256 bf16 ({plan.kernel}, {plan.smem_bytes} B): kernel {ms:.3f} ms = "
+              f"{flops / ms * 1e-9:.1f} TFLOP/s", flush=True)
+    print(f"the nine x256 bf16: kernel {total:.3f} ms", flush=True)
 
 
 def gain(device) -> None:

@@ -11,12 +11,15 @@ Layouts are the JAX package's: x (N, H, W, Cin), weights (3, 3, I, O), biases f3
 - ``fused_double_conv``: the kernel wrapper (K2, csrc/doubleconv.cu). On a CUDA
   tensor it launches the hand-written kernel; on a CPU tensor it runs the plain
   version. Its ``launches`` attribute counts kernel launches.
+- ``k2_tile_plan``: the kernel's tile class and shared memory for a shape, computed
+  as the kernel lays them out; raises ``ValueError`` where no class fits.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -48,6 +51,55 @@ def double_conv_reference(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 
 
 _ERR_TOO_WIDE = -2  # csrc/doubleconv.cu: kErrTooWide
+SMEM_PER_BLOCK = 232_448  # the most dynamic shared memory an H100 block may opt into
+
+# The bf16 tile classes of csrc/doubleconv.cu, the first whose Cmid limit holds is
+# taken: (largest Cmid, TH, TW, warps along M, blocks per SM, warps per block). 4 n8
+# tiles a warp, so the N chunk of both GEMMs is warps / WM * 32 channels; stages carry
+# 16 input channels, and the ring holds two.
+_K2_CLASSES = (
+    (64, 16, 16, 7, 2, 7), (128, 16, 28, 8, 1, 8), (256, 14, 14, 4, 1, 8), (512, 7, 14, 4, 1, 8),
+)
+
+
+class K2Plan(NamedTuple):
+    tile_class: str  # "THxTW" outputs per block
+    smem_bytes: int  # dynamic shared memory of one block
+    kernel: str  # the instantiation, "bf16 Cls<TH, TW, WM, blocks, warps>"
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _align128(n: int) -> int:
+    return _cdiv(n, 128) * 128
+
+
+def k2_tile_plan(h: int, w: int, cin: int, cmid: int, cout: int) -> K2Plan:
+    """The bf16 K2's tile class and shared memory for an (H, W) frame and Cin -> Cmid ->
+    Cout, laid out as csrc/doubleconv.cu lays them out: the class is the first whose
+    Cmid limit holds; shared memory holds the conv1 tile ((TH+2)(TW+2) pixels x Cmid
+    rounded to the N chunk, plus 8 channels of padding) and two stages, each a
+    16-channel patch chunk ((TH+4)(TW+4) pixels, rows of 24) and 9 x 16 weight rows of
+    the N chunk plus 8. Raises ValueError where no class fits."""
+    if min(h, w, cin, cmid, cout) <= 0:
+        raise ValueError(f"k2_tile_plan: sizes must be positive, got {(h, w, cin, cmid, cout)}")
+    for limit, *params in _K2_CLASSES:
+        if cmid <= limit:
+            break
+    else:
+        raise ValueError(f"K2 has no bf16 tile class for Cmid={cmid}: its conv1 tile must "
+                         f"stay in shared memory, which holds Cmid <= {limit}")
+    th, tw, wm, _, warps = params
+    nc = warps // wm * 32
+    mid = (th + 2) * (tw + 2) * (_cdiv(cmid, nc) * nc + 8) * 2
+    stage = (th + 4) * (tw + 4) * 24 * 2 + 9 * 16 * (nc + 8) * 2
+    smem = _align128(mid) + 2 * _align128(stage)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"K2's {th}x{tw} tile at Cmid={cmid} needs {smem} B of shared "
+                         f"memory, more than a block's {SMEM_PER_BLOCK}")
+    return K2Plan(f"{th}x{tw}", smem, f"bf16 Cls<{', '.join(map(str, params))}>")
 
 
 @functools.cache
@@ -109,6 +161,8 @@ def fused_double_conv(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     if any(t.data_ptr() % 16 for t in (x, w1, w2)):
         raise ValueError("fused_double_conv: x, w1 and w2 must start on a 16-byte boundary "
                          "(the kernel reads them 16 bytes at a time)")
+    if x.dtype == torch.bfloat16:
+        k2_tile_plan(h, w, cin, cmid, cout)  # raises where no tile class fits
     out = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = _library()(

@@ -14,6 +14,7 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -46,15 +47,17 @@ def _target(name: str) -> str:
 
 def build(name: str) -> tuple[float, str]:
     """Compile ``csrc/<name>.cu`` unless its library exists. Returns the seconds
-    nvcc took and its output (the ptxas register/spill report), or (0.0, "") when
-    the library was built already. Raises with nvcc's output if the build fails."""
+    nvcc took (0.0 when the library was built already) and its output, the ptxas
+    register/spill report, kept beside the library. Raises with nvcc's output if the
+    build fails."""
     target = _target(name)
     os.makedirs(BUILD_DIR, exist_ok=True)
     with open(os.path.join(BUILD_DIR, f".{name}.lock"), "w") as lock:
         # Concurrent builders of one source build it once; other sources build alongside.
         fcntl.flock(lock, fcntl.LOCK_EX)
-        if os.path.exists(target):
-            return 0.0, ""
+        if os.path.exists(target) and os.path.exists(target + ".log"):
+            with open(target + ".log") as f:
+                return 0.0, f.read()
         tmp = f"{target}.{os.getpid()}.tmp"
         t0 = time.perf_counter()
         proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, name + ".cu")],
@@ -62,8 +65,25 @@ def build(name: str) -> tuple[float, str]:
         seconds, out = time.perf_counter() - t0, proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise RuntimeError(f"kernel build failed: {name}.cu (nvcc exit {proc.returncode}):\n{out}")
+        with open(target + ".log", "w") as f:
+            f.write(out)
         os.replace(tmp, target)
         return seconds, out
+
+
+def ptxas_report(nvcc_out: str) -> dict[str, dict[str, int]]:
+    """Registers and spill bytes per kernel from nvcc's ``-Xptxas -v`` output:
+    {mangled kernel name: {"registers", "spill_stores", "spill_loads"}}."""
+    report: dict[str, dict[str, int]] = {}
+    entry = None
+    for line in nvcc_out.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            entry = report.setdefault(m.group(1), {"registers": 0, "spill_stores": 0, "spill_loads": 0})
+        elif entry is not None and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            entry["spill_stores"], entry["spill_loads"] = int(m.group(1)), int(m.group(2))
+        elif entry is not None and (m := re.search(r"Used (\d+) registers", line)):
+            entry["registers"] = int(m.group(1))
+    return report
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -67,6 +67,10 @@ def _double_conv_operands(device, shape, dtype, b1=None):
     ((2, 28, 28, 1024, 512, 256), None),  # up1: the widest
     ((2, 13, 17, 24, 16, 8), None),       # ragged frame and channel counts
     ((1, 28, 28, 16, 8, 8), 5.0),         # halo: conv2 must see zeros outside the image
+    ((2, 20, 20, 64, 64, 64), None),      # bf16 16x16 class, ragged
+    ((2, 20, 30, 96, 128, 64), None),     # bf16 16x28 class, ragged
+    ((2, 20, 30, 128, 256, 128), None),   # bf16 14x14 class, ragged
+    ((2, 12, 20, 256, 512, 256), None),   # bf16 7x14 class, ragged
 ])
 def test_double_conv_kernel_matches_plain_version(cuda_device, shape, b1):
     """K2 vs its plain version (float32 convs with TF32 off): f32 within 1e-4 of
@@ -94,3 +98,12 @@ def test_double_conv_kernel_rejects_what_it_does_not_take(cuda_device):
     shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view(x.shape)
     with pytest.raises(ValueError, match="16-byte"):
         dc.fused_double_conv(shifted, w1, b1, w2, b2)
+
+
+@pytest.mark.cuda
+def test_double_conv_kernel_refuses_a_cmid_no_tile_fits(cuda_device):
+    x, w1, b1, w2, b2 = _double_conv_operands(cuda_device, (1, 8, 8, 16, 1024, 16), torch.bfloat16)
+    launches = dc.fused_double_conv.launches
+    with pytest.raises(ValueError, match="Cmid"):
+        dc.fused_double_conv(x, w1, b1, w2, b2)
+    assert dc.fused_double_conv.launches == launches
