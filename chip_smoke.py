@@ -6,8 +6,12 @@
 Phases, each fatal on failure:
   1. build the port's CUDA kernels (csrc/preprocess.cu: K1, csrc/doubleconv.cu: K2)
      with nvcc, one process per source, started together;
-  2. hold K1 against its plain PyTorch version on the card, at the serving path's
-     shape and a ragged one, and time kernel, plain version and library yardstick;
+  2. hold K1 against its plain PyTorch version on the card (chip_probes.K1_CASES: the
+     serving shape, a ragged one, 480x856, 1080x1920, an unaligned base address and
+     a runtime-taps shape) and time kernel (and its device-only reading), plain version
+     and both library yardsticks (the cuBLAS matmul pair; F.interpolate antialiased,
+     held against the plain version first), with the bytes/s achieved beside the bound
+     and the registers;
   3. hold K2 against its plain version (float32 convs, TF32 off) at the plain UNet's
      nine DoubleConv shapes with a few frames, a ragged shape, the halo case and one
      ragged shape per bf16 tile class, in float32 and bfloat16; time it at the serving
@@ -45,15 +49,10 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
-F32_FLOPS = 67e12  # H100 SXM f32 rate outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 
-SERVING_CLIPS = (16, 16, 240, 320, 3)  # one extraction batch: 16 clips x 16 frames
-RAGGED_CLIPS = ((2, 3, 61, 83, 3), 56, 40)
 SERVING_VIDEOS, SERVING_FRAMES = 6, 320  # 240x320 synthetic videos, 10 clips each
 FEATURE_DIM = 2048  # I3Res50 pooled feature
-F32_TOL = 1e-5
-BF16_TOL = 2.0 ** -7  # one bf16 ulp at 1.0
 # Features of the bf16 serving path vs the f32 plain path. Random-init features of
 # different inputs are near-collinear, so the per-clip cosine cannot tell a wrong
 # preprocess apart (R/B swapped reads 0.99995 against 0.999995 on an H100); the
@@ -82,33 +81,13 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, reps: int = 20, inner: int = 5) -> float:
-    """Median over ``reps`` of the mean time of ``inner`` back-to-back calls, in ms,
-    from CUDA events."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    times.sort()
-    return times[len(times) // 2]
-
-
-def phase_build() -> dict:
+def phase_build() -> tuple[dict, dict]:
     """nvcc for every kernel source at once (one process each), then each one's
-    ptxas lines: registers, spills, shared memory. Returns K2's registers and spills
-    by instantiation, and fails if a bf16 one spills."""
+    ptxas lines: registers, spills, shared memory. Returns K1's and K2's registers and
+    spills by instantiation, and fails if a bf16 K2 one spills."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from ted_spad_tpu_torch.chip_probes import k2_register_report
+    from ted_spad_tpu_torch.chip_probes import k1_register_report, k2_register_report
     from ted_spad_tpu_torch.utils import cuda_build
 
     names = ("preprocess", "doubleconv")
@@ -121,80 +100,24 @@ def phase_build() -> dict:
                 log(f"[build] {name}: {line.strip()}")
         log(f"[build] csrc/{name}.cu built in {seconds:.2f}s")
     log(f"[build] all kernels built in {time.perf_counter() - t0:.2f}s")
-    return k2_register_report(dict(zip(names, results))["doubleconv"][1], log)
+    out = dict(zip(names, results))
+    return k1_register_report(out["preprocess"][1], log), k2_register_report(out["doubleconv"][1], log)
 
 
-def preprocess_bound(clips_shape, out_h: int, out_w: int, out_bytes: int):
-    """(bytes, f32 FLOP) that the preprocess of one clip batch needs: each input byte
-    that R_y and R_x use (the crop window) read once, each output written once, and
-    one multiply-add per nonzero tap of the two matrices."""
-    import numpy as np
+def check_preprocess(device, registers: dict) -> dict:
+    """K1 against fused_preprocess_reference (TF32 off) at every chip_probes.K1_CASES
+    shape, f32 and bf16 out, then its time at the serving shape beside its bound, the
+    plain version and both library yardsticks. ``registers``: K1's ptxas report by
+    instantiation (phase_build)."""
+    from ted_spad_tpu_torch.chip_probes import k1_check, k1_timing
 
-    from ted_spad_tpu_torch.ops import preprocess as pp
-
-    b, t, h, w, c = clips_shape
-    ry, rx = pp.preprocess_matrices(h, w, out_h, out_w, 0.8)
-    rows = np.flatnonzero(ry.any(axis=0)).size
-    cols = np.flatnonzero(rx.any(axis=0)).size
-    n = b * t
-    bytes_moved = n * (rows * cols * c + out_h * out_w * c * out_bytes)
-    flops = n * c * 2 * (np.count_nonzero(ry) * cols + np.count_nonzero(rx) * out_h)
-    return int(bytes_moved), int(flops), (rows, cols)
-
-
-def check_preprocess(device) -> dict:
-    """K1 against fused_preprocess_reference, f32 and bf16 out, serving and ragged shapes.
-    The plain version runs its matmuls in full f32 (TF32 off)."""
-    import numpy as np
-    import torch
-
-    from ted_spad_tpu_torch.ops import preprocess as pp
-    from ted_spad_tpu_torch.utils.device import tf32_off
-
-    rng = np.random.default_rng(0)
-    worst = 0.0
-    for shape, oh, ow in ((SERVING_CLIPS, 224, 224), RAGGED_CLIPS):
-        clips = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(device)
-        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
-            got = pp.fused_preprocess(clips, out_h=oh, out_w=ow, out_dtype=dtype)
-            with tf32_off():
-                ref = pp.fused_preprocess_reference(clips, out_h=oh, out_w=ow, out_dtype=dtype)
-            torch.cuda.synchronize()
-            err = float((got.float() - ref.float()).abs().max())
-            log(f"[K1] {tuple(shape)} -> {oh}x{ow} {str(dtype)[6:]}: max|kernel - plain| = "
-                f"{err:.3e} (tolerance {tol:.3e})")
-            if not err <= tol:
-                raise AssertionError(f"K1 disagrees with its plain version: {err} > {tol}")
-            worst = max(worst, err)
-
-    # Timing at the serving shape, bf16 out as the serving path runs it.
-    clips = torch.from_numpy(rng.integers(0, 256, SERVING_CLIPS, dtype=np.uint8)).to(device)
-    b, t, h, w, c = SERVING_CLIPS
-    ms = time_ms(lambda: pp.fused_preprocess(clips))
-    ry, rx = pp.preprocess_matrices(h, w, 224, 224, 0.8)
-    ry_t = torch.from_numpy(ry).to(device)
-    rxt = torch.from_numpy(rx).to(device).T
-    planes = clips.reshape(b * t, h, w, c).permute(0, 3, 1, 2).float()
-    with tf32_off():
-        plain_ms = time_ms(lambda: pp.fused_preprocess_reference(clips))
-        library_ms = time_ms(lambda: torch.matmul(torch.matmul(ry_t, planes), rxt))
-    del planes
-    bytes_moved, flops, (rows, cols) = preprocess_bound(SERVING_CLIPS, 224, 224, out_bytes=2)
-    bound_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    bound_ops = flops / F32_FLOPS * 1e3
-    bound_ms = max(bound_bytes, bound_ops)
-    log(f"[K1] serving shape {SERVING_CLIPS} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"two cuBLAS matmuls {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({bytes_moved} B: a {rows}x{cols} crop window read, 224x224 written; {flops} f32 "
-        f"FLOP), {ms / bound_ms:.2f}x the bound")
-    return {
-        "name": "K1 preprocess", "route": "cuda",
-        "source": "ted_spad_tpu_torch/csrc/preprocess.cu",
-        "replaces": "ted_spad_tpu/ops/pallas_preprocess.py:62",
-        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
-        "library_ms": library_ms,
-    }
+    worst = k1_check(device, log)
+    entry = k1_timing(device, log)
+    entry["registers"] = registers[f"bf16 {entry['kernel']}"]["registers"]
+    log(f"[K1] {entry['kernel']} (bf16): {entry['registers']} registers; "
+        f"{entry['library_ms'] / entry['ms']:.2f}x faster than the cuBLAS pair, "
+        f"{entry['library_interpolate_ms'] / entry['ms']:.2f}x faster than F.interpolate")
+    return {**entry, "max_abs_err": worst}
 
 
 def double_conv_bound(n, h, w, cin, cmid, cout) -> tuple[float, float]:
@@ -214,7 +137,7 @@ def check_double_conv(device, registers: dict) -> dict:
     import torch.nn.functional as F
 
     from ted_spad_tpu_torch.chip_probes import (
-        K2_CLASS_RAGGED, UNET_DOUBLECONVS, UNETPP_CLUSTER, double_conv_operands,
+        K2_CLASS_RAGGED, UNET_DOUBLECONVS, UNETPP_CLUSTER, double_conv_operands, time_ms,
     )
     from ted_spad_tpu_torch.ops import doubleconv as dc
     from ted_spad_tpu_torch.utils.device import tf32_off
@@ -319,6 +242,7 @@ def serving_path(device, workdir: str) -> dict:
     its outputs. Returns the kernels' launch counts from this run."""
     import torch
 
+    from ted_spad_tpu_torch.chip_probes import time_ms
     from ted_spad_tpu_torch.config.params import FeatureExtractionParams
     from ted_spad_tpu_torch.models import load_fa_model, load_ft_model
     from ted_spad_tpu_torch.ops.doubleconv import fused_double_conv
@@ -438,6 +362,7 @@ def unet_path(device, workdir: str) -> dict:
     output against the f32 plain path."""
     import torch
 
+    from ted_spad_tpu_torch.chip_probes import time_ms
     from ted_spad_tpu_torch.config.params import FeatureExtractionParams
     from ted_spad_tpu_torch.models import load_fa_model, load_ft_model
     from ted_spad_tpu_torch.ops.doubleconv import fused_double_conv
@@ -591,9 +516,9 @@ def main() -> int:
     log(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
         f"{torch.cuda.get_device_name(0)}")
 
-    registers = phase_build()
-    k1 = check_preprocess(device)
-    k2 = check_double_conv(device, registers)
+    k1_registers, k2_registers = phase_build()
+    k1 = check_preprocess(device, k1_registers)
+    k2 = check_double_conv(device, k2_registers)
 
     with tempfile.TemporaryDirectory() as workdir:
         launches = {"unet++": serving_path(device, workdir), "unet": unet_path(device, workdir)}

@@ -1,8 +1,15 @@
-"""Two measurements on a CUDA card that informed the plain-UNet slice, kept so that
-the numbers PERF.md quotes from them can be taken again:
+"""Measurements on a CUDA card that informed the port's kernels, kept so that the
+numbers PERF.md quotes from them can be taken again:
 
+    python -m ted_spad_tpu_torch.chip_probes k1     # kernel K1 alone
     python -m ted_spad_tpu_torch.chip_probes k2     # kernel K2 alone
     python -m ted_spad_tpu_torch.chip_probes gain   # the UNet's outc gain vs the gates
+
+``k1``: builds K1 and prints each instantiation's registers and spills, holds it
+against its plain version (float32 matmuls, TF32 off) at K1_CASES in f32 and bf16,
+then times it alone at the serving shape, bf16 out (``time_ms``, as chip_smoke.py
+times every kernel, and its device-only reading beside), next to its byte bound, the
+plain version and both library yardsticks, and at K1_FRAME_SIZES.
 
 ``k2``: builds K2 and prints each instantiation's registers and spills (failing if
 the bf16 kernels spill), holds it against its plain version (float32 convs, TF32 off)
@@ -41,6 +48,216 @@ K2_CLASS_RAGGED = (
     ("ragged 16x16", (2, 20, 20, 64, 64, 64)), ("ragged 16x28", (2, 20, 30, 96, 128, 64)),
     ("ragged 14x14", (2, 20, 30, 128, 256, 128)), ("ragged 7x14", (2, 12, 20, 256, 512, 256)),
 )
+
+
+# K1 against its plain version: (name, clip batch shape, out_h, out_w, byte offset of the
+# batch in its buffer). The serving batch; a ragged one (f32 rows of 480 B, 5 runs);
+# ShanghaiTech's native frame (pitch 2,568 B, window at 258 B: unaligned, KY 4, KX 7);
+# 1080p (KY 8, KX 14); the serving batch at an odd base address; a 10x downscale past
+# every compile-time instantiation (the runtime-taps kernel).
+K1_CASES = (
+    ("serving", (16, 16, 240, 320, 3), 224, 224, 0),
+    ("ragged", (2, 3, 61, 83, 3), 56, 40, 0),
+    ("480x856", (1, 4, 480, 856, 3), 224, 224, 0),
+    ("1080x1920", (1, 2, 1080, 1920, 3), 224, 224, 0),
+    ("serving at base + 1 B", (16, 16, 240, 320, 3), 224, 224, 1),
+    ("runtime taps", (1, 2, 200, 300, 3), 16, 16, 0),
+)
+# K1 timed beside the serving batch: ShanghaiTech's native frames and 1080p, bf16 out.
+K1_FRAME_SIZES = ((16, 16, 480, 856, 3), (4, 16, 1080, 1920, 3))
+K1_F32_TOL = 1e-5  # float32 rounding on [0, 1] images
+K1_BF16_TOL = 2.0 ** -7  # one bf16 ulp at 1.0
+K1_INTERPOLATE_TOL = 5e-5  # F.interpolate computes the filter weights in its own arithmetic
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+F32_FLOPS = 67e12  # H100 SXM f32 rate outside the tensor cores
+
+
+def k1_register_report(nvcc_out: str, log=print) -> dict[str, dict[str, int]]:
+    """Each K1 instantiation's registers and spill bytes from nvcc's ptxas report,
+    logged and keyed "bf16 K1<KY, SPAN>" (``k1_plan(...).kernel`` with the output type);
+    raises if one needs more registers than the blocks per SM that the plan counts on
+    for it (``K1_TAPS``) allow."""
+    from ted_spad_tpu_torch.ops import preprocess as pp
+    from ted_spad_tpu_torch.utils import cuda_build
+
+    blocks = {f"K1<{k}, {s}>": b for k, s, b in pp.K1_TAPS} | {"K1<runtime>": pp.K1_BLOCKS_PER_SM}
+    report = {}
+    for name, r in cuda_build.ptxas_report(nvcc_out).items():
+        m = re.search(r"preprocess_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", name)
+        if not m:
+            continue
+        taps = "runtime" if m.group(2) == "0" else f"{m.group(2)}, {m.group(3)}"
+        label = f"{'f32' if m.group(1) == 'f' else 'bf16'} K1<{taps}>"
+        report[label] = r
+        log(f"[K1 build] {label}: {r['registers']} registers, spill stores "
+            f"{r['spill_stores']} B, spill loads {r['spill_loads']} B")
+        n = blocks[label.split(" ", 1)[1]]  # 256 threads a block, registers taken in eights
+        if n * 256 * (-(-r["registers"] // 8) * 8) > pp.REGISTERS_PER_SM:
+            raise AssertionError(f"K1 {label} needs {r['registers']} registers: the {n} blocks "
+                                 f"per SM its plan counts on do not fit")
+    return report
+
+
+def k1_clips(device, shape, offset: int = 0, seed: int = 0):
+    """Seeded uint8 clips on the card; ``offset`` > 0 places them that many bytes into
+    a buffer, so that their base address is not aligned."""
+    import numpy as np
+    import torch
+
+    data = torch.from_numpy(np.random.default_rng(seed).integers(0, 256, shape, dtype=np.uint8))
+    buf = torch.empty(data.numel() + offset, dtype=torch.uint8, device=device)
+    clips = buf[offset:].view(shape)
+    clips.copy_(data)
+    return clips
+
+
+def k1_check(device, log=print) -> float:
+    """K1 against fused_preprocess_reference (TF32 off) at every K1_CASES entry, f32
+    and bf16 out; raises beyond the tolerances. Returns the worst max abs error."""
+    import torch
+
+    from ted_spad_tpu_torch.ops import preprocess as pp
+    from ted_spad_tpu_torch.utils.device import tf32_off
+
+    worst = 0.0
+    for i, (name, shape, oh, ow, offset) in enumerate(K1_CASES):
+        clips = k1_clips(device, shape, offset, seed=i)
+        plan = pp.k1_plan(*shape[2:4], oh, ow, 0.8)
+        for dtype, tol in ((torch.float32, K1_F32_TOL), (torch.bfloat16, K1_BF16_TOL)):
+            got = pp.fused_preprocess(clips, out_h=oh, out_w=ow, out_dtype=dtype)
+            with tf32_off():
+                ref = pp.fused_preprocess_reference(clips, out_h=oh, out_w=ow, out_dtype=dtype)
+            torch.cuda.synchronize()
+            err = float((got.float() - ref.float()).abs().max())
+            log(f"[K1] {name} {tuple(shape)} -> {oh}x{ow} {str(dtype)[6:]} ({plan.kernel}, "
+                f"{plan.band_rows} rows, {plan.smem_bytes} B, {plan.blocks_per_sm} blocks per "
+                f"SM): max|kernel - plain| = {err:.3e} (tolerance {tol:.3e})")
+            if not (got.shape == ref.shape and err <= tol):
+                raise AssertionError(f"K1 disagrees with its plain version at {name}: {err} > {tol}")
+            worst = max(worst, err)
+    return worst
+
+
+def k1_bound(clips_shape, out_h: int, out_w: int, out_bytes: int):
+    """(bytes, f32 FLOP, (window rows, cols)) that the preprocess of one clip batch
+    needs: each input byte that R_y and R_x use (the crop window) read once, each
+    output written once, and one multiply-add per nonzero tap of the two matrices."""
+    import numpy as np
+
+    from ted_spad_tpu_torch.ops import preprocess as pp
+
+    b, t, h, w, c = clips_shape
+    ry, rx = pp.preprocess_matrices(h, w, out_h, out_w, 0.8)
+    rows = np.flatnonzero(ry.any(axis=0)).size
+    cols = np.flatnonzero(rx.any(axis=0)).size
+    n = b * t
+    bytes_moved = n * (rows * cols * c + out_h * out_w * c * out_bytes)
+    flops = n * c * 2 * (np.count_nonzero(ry) * cols + np.count_nonzero(rx) * out_h)
+    return int(bytes_moved), int(flops), (rows, cols)
+
+
+def time_ms(fn, reps: int = 20, inner: int = 5, queued: bool = False) -> float:
+    """Median over ``reps`` of the mean time of ``inner`` back-to-back calls, in ms,
+    from CUDA events. ``queued``: each window first waits on the card behind a ~1 ms
+    device sleep, so the host has queued the calls before the first one starts and
+    the reading is the card's time alone, without the host's gaps between launches."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(2_000_000)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def k1_timing(device, log=print) -> dict:
+    """K1 alone at the serving shape, bf16 out, beside its bound, its plain version and
+    the two library yardsticks (two dense cuBLAS f32 matmuls; F.interpolate, antialiased,
+    on the crop, then a bf16 cast: ops/augment.py:center_crop_resize, held against the
+    plain version first). Returns the K1 entry of the kernel table, launches aside."""
+    import torch
+
+    from ted_spad_tpu_torch.ops import preprocess as pp
+    from ted_spad_tpu_torch.ops.augment import center_crop_resize
+    from ted_spad_tpu_torch.utils.device import tf32_off
+
+    shape = K1_CASES[0][1]
+    b, t, h, w, c = shape
+    clips = k1_clips(device, shape, seed=99)
+    with tf32_off():
+        ref = pp.fused_preprocess_reference(clips, out_dtype=torch.float32)
+    interp_err = float((center_crop_resize(clips, 0.8, 224, 224) - ref).abs().max())
+    log(f"[K1] center_crop_resize (F.interpolate, antialias) vs plain at {shape}: max abs "
+        f"error {interp_err:.3e} (tolerance {K1_INTERPOLATE_TOL:.0e})")
+    if not interp_err <= K1_INTERPOLATE_TOL:
+        raise AssertionError(f"the interpolate yardstick does not compute K1's function: {interp_err}")
+    del ref
+    ms = time_ms(lambda: pp.fused_preprocess(clips))
+    device_ms = time_ms(lambda: pp.fused_preprocess(clips), queued=True)
+    ry, rx = pp.preprocess_matrices(h, w, 224, 224, 0.8)
+    ry_t, rxt = torch.from_numpy(ry).to(device), torch.from_numpy(rx).to(device).T
+    planes = clips.reshape(b * t, h, w, c).permute(0, 3, 1, 2).float()
+    with tf32_off():
+        plain_ms = time_ms(lambda: pp.fused_preprocess_reference(clips))
+        library_ms = time_ms(lambda: torch.matmul(torch.matmul(ry_t, planes), rxt))
+    del planes
+    interp_ms = time_ms(lambda: center_crop_resize(clips, 0.8, 224, 224).to(torch.bfloat16))
+    bytes_moved, flops, (rows, cols) = k1_bound(shape, 224, 224, out_bytes=2)
+    bound_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    bound_ops = flops / F32_FLOPS * 1e3
+    bound_ms = max(bound_bytes, bound_ops)
+    plan = pp.k1_plan(h, w, 224, 224, 0.8)
+    log(f"[K1] serving shape {shape} bf16 ({plan.kernel}, {plan.band_rows} rows, "
+        f"{plan.smem_bytes} B): kernel {ms:.4f} ms (device only {device_ms:.4f}) = "
+        f"{bytes_moved / ms * 1e-6:.1f} GB/s of the {HBM_BYTES_PER_S * 1e-9:.0f} GB/s rate, "
+        f"{ms / bound_ms:.2f}x the bound {bound_ms:.4f} ms ({bytes_moved} B: a {rows}x{cols} "
+        f"crop window read, 224x224 written; {flops} f32 FLOP = {bound_ops:.4f} ms); plain "
+        f"{plain_ms:.4f} ms, two cuBLAS matmuls {library_ms:.4f} ms, F.interpolate + bf16 cast "
+        f"{interp_ms:.4f} ms")
+    return {
+        "name": "K1 preprocess", "route": "cuda",
+        "source": "ted_spad_tpu_torch/csrc/preprocess.cu",
+        "replaces": "ted_spad_tpu/ops/pallas_preprocess.py:62",
+        "ms": ms, "device_only_ms": device_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+        "library_ms": library_ms, "library_interpolate_ms": interp_ms,
+        "gbytes_per_s": bytes_moved / ms * 1e-6, "kernel": plan.kernel,
+    }
+
+
+def k1(device) -> None:
+    from ted_spad_tpu_torch.ops import preprocess as pp
+    from ted_spad_tpu_torch.utils import cuda_build
+
+    seconds, nvcc_out = cuda_build.build("preprocess")
+    registers = k1_register_report(nvcc_out)
+    print(f"build {seconds:.2f}s", flush=True)
+    print(f"worst max abs error {k1_check(device):.3e}", flush=True)
+    k1_timing(device)
+    for shape in K1_FRAME_SIZES:
+        clips = k1_clips(device, shape, seed=98)
+        bytes_moved = k1_bound(shape, 224, 224, out_bytes=2)[0]
+        bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        plan = pp.k1_plan(*shape[2:4], 224, 224)
+        ms = time_ms(lambda: pp.fused_preprocess(clips))
+        device_ms = time_ms(lambda: pp.fused_preprocess(clips), queued=True)
+        regs = registers[f"bf16 {plan.kernel}"]["registers"]
+        print(f"[K1] {shape} -> 224x224 bf16 ({plan.kernel}, {regs} registers, {plan.band_rows} "
+              f"rows, {plan.smem_bytes} B, {plan.blocks_per_sm} blocks per SM): kernel "
+              f"{ms:.4f} ms (device only {device_ms:.4f}) = "
+              f"{bytes_moved / ms * 1e-6:.1f} GB/s, {ms / bound_ms:.2f}x the byte bound "
+              f"{bound_ms:.4f} ms", flush=True)
+        del clips
 
 
 def k2_register_report(nvcc_out: str, log=print) -> dict[str, dict[str, int]]:
@@ -176,14 +393,14 @@ def gain(device) -> None:
 def main() -> int:
     import torch
 
-    if len(sys.argv) != 2 or sys.argv[1] not in ("k2", "gain"):
+    if len(sys.argv) != 2 or sys.argv[1] not in ("k1", "k2", "gain"):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_probes: needs a CUDA card", file=sys.stderr)
         return 1
     t0 = time.perf_counter()
-    {"k2": k2, "gain": gain}[sys.argv[1]](torch.device("cuda", 0))
+    {"k1": k1, "k2": k2, "gain": gain}[sys.argv[1]](torch.device("cuda", 0))
     print(f"{sys.argv[1]} done in {time.perf_counter() - t0:.1f}s on "
           f"{torch.cuda.get_device_name(0)}")
     return 0

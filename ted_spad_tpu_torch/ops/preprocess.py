@@ -9,12 +9,15 @@ window, the triangle filter and the 1/255 gain into the matrices.
 - ``fused_preprocess``: the kernel wrapper (K1, csrc/preprocess.cu). On a CUDA
   tensor it launches the hand-written kernel; on a CPU tensor it runs the plain
   version. Its ``launches`` attribute counts kernel launches.
+- ``k1_plan``: the kernel's instantiation, padded band tables and launch geometry for
+  a shape, computed as the kernel reads them; raises ``ValueError`` where nothing fits.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -107,44 +110,153 @@ def fused_preprocess_reference(
     return out.permute(0, 2, 3, 1).reshape(b, t, out_h, out_w, c).to(out_dtype)
 
 
+K1_RUN = 8  # output pixels per thread (csrc/preprocess.cu: kRun)
+# Compile-time taps of csrc/preprocess.cu (its K1_CASE table): (vertical taps, input
+# columns per run, blocks per SM its registers allow), smallest first: the serving
+# frame (240x320), ShanghaiTech's (480x856, also 360x640) and HD video (720p, 1080p)
+# into 224x224. The first that holds the shape's taps is taken; beyond them the
+# runtime-taps instantiation runs (its registers allow K1_BLOCKS_PER_SM).
+K1_TAPS = ((2, 12, 3), (4, 32, 3), (8, 64, 1))
+K1_BANDS = (32, 16, 8, 4, 2, 1)  # output rows per block, largest first
+# Three blocks per SM let their copies hide one another's latency. They fit where each
+# block's shared memory and its 1 KB reservation take a third of the SM's, and where
+# the instantiation needs at most 80 registers a thread (3 x 256 threads x 80 = 61,440
+# of the SM's 65,536; chip_probes.k1_register_report holds each build to its entry).
+K1_BLOCKS_PER_SM = 3
+REGISTERS_PER_SM = 65_536
+SMEM_PER_SM = 233_472  # an H100 SM's shared memory
+SMEM_RESERVED_PER_BLOCK = 1_024
+SMEM_PER_BLOCK = 232_448  # the most dynamic shared memory an H100 block may opt into
+
+
+class K1Plan(NamedTuple):
+    """How K1 runs one input/output shape, as csrc/preprocess.cu lays it out."""
+    kernel: str  # the instantiation, "K1<KY, SPAN>" or "K1<runtime>"
+    ky: int  # vertical taps as launched (padded up to the instantiation's)
+    span: int  # input columns per run of K1_RUN outputs, as launched
+    static: bool  # compile-time taps with the tables in shared memory
+    band_rows: int  # output rows per block; a block is one (frame, band)
+    n_bands: int
+    rows_buf: int  # staged input rows: the most any band needs
+    row_pitch: int  # bytes per staged row
+    smem_bytes: int  # dynamic shared memory of one block
+    blocks_per_sm: int  # as many as the registers allow where the block fits them, else 1
+    col0: int  # first window column; the kernel reads columns [col0, col0 + n_cols)
+    n_cols: int
+    runs: int  # runs of K1_RUN outputs per output row
+    vstart: np.ndarray  # (out_h,) int32: first input row of each output row's band
+    vw: np.ndarray  # (out_h, ky) float32: the band's weights (R_y, 1/255 folded in)
+    xs: np.ndarray  # (runs,) int32: first input column of each run, from col0
+    wrun: np.ndarray  # (runs, span, K1_RUN) float32: R_x over each run's columns
+    key: tuple  # k1_plan's arguments, which key the device copy of the tables
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _row_bands(ry: np.ndarray, ky: int) -> tuple[np.ndarray, np.ndarray]:
+    """``band(ry)`` padded to ``ky`` taps: starts moved down so that the taps end no
+    later than the last input row R_y uses (and never before row 0), zero weights past
+    the frame."""
+    start, _ = band(ry)
+    end = int(np.flatnonzero(ry.any(axis=0))[-1]) + 1
+    start = np.maximum(0, np.minimum(start, end - ky)).astype(np.int32)
+    idx = start[:, None] + np.arange(ky)
+    inside = idx < ry.shape[1]
+    w = np.where(inside, ry[np.arange(ry.shape[0])[:, None], np.minimum(idx, ry.shape[1] - 1)], 0)
+    return start, w.astype(np.float32)
+
+
+def _run_tiles(rx: np.ndarray, span: int) -> tuple[np.ndarray, np.ndarray]:
+    """(first column of each run relative to the window, (runs, span, K1_RUN) dense
+    tile of R_x over the run's columns, zero past the frame or the last output)."""
+    out_w, w = rx.shape
+    start, _ = band(rx)
+    col0 = int(start.min())
+    xs = (start[::K1_RUN] - col0).astype(np.int32)
+    wrun = np.zeros((len(xs), span, K1_RUN), np.float32)
+    for r, x in enumerate(xs):
+        cols = col0 + int(x) + np.arange(span)
+        ok = cols < w
+        for q in range(min(K1_RUN, out_w - r * K1_RUN)):
+            wrun[r, ok, q] = rx[r * K1_RUN + q, cols[ok]]
+    return xs, wrun
+
+
+def _table_sizes(runs: int, span: int, out_h: int, ky: int) -> list[int]:
+    """Words of each table segment (wrun, vw, xs, vstart), each rounded up to 4."""
+    return [_cdiv(n, 4) * 4 for n in (runs * (span * K1_RUN + 4), out_h * ky, runs, out_h)]
+
+
+def _table_words(plan: K1Plan) -> tuple[np.ndarray, tuple[int, ...]]:
+    """The tables as one float32 word array, laid out as csrc/preprocess.cu reads
+    them: each run's weight tile padded by 4 words (which spreads the 16-byte reads of
+    neighbouring runs over the banks), then vw, xs and vstart (int32 bits), each
+    segment a multiple of 4 words. Returns (words, word offsets of the four)."""
+    tiles = plan.wrun.reshape(plan.runs, -1)
+    segs = [np.concatenate([tiles, np.zeros((plan.runs, 4), np.float32)], axis=1).ravel(),
+            plan.vw.ravel(), plan.xs.view(np.float32), plan.vstart.view(np.float32)]
+    sizes = _table_sizes(plan.runs, plan.span, len(plan.vstart), plan.ky)
+    words = np.concatenate([np.pad(seg, (0, n - len(seg))) for seg, n in zip(segs, sizes)])
+    return words, tuple(int(x) for x in np.cumsum([0] + sizes[:-1]))
+
+
+@functools.lru_cache(maxsize=32)
+def k1_plan(h: int, w: int, out_h: int, out_w: int, cropping_factor: float = 0.8) -> K1Plan:
+    """K1's instantiation, tables and launch geometry for one shape. The taps are the
+    first K1_TAPS entry that holds R_y's band and every run's columns, else the
+    runtime-taps instantiation. The band is the largest of K1_BANDS whose block fits
+    as many to an SM as the instantiation's registers allow, else the largest that fits
+    one. Raises ValueError where nothing fits."""
+    ry, rx = preprocess_matrices(h, w, out_h, out_w, float(cropping_factor))
+    xstart, xw = band(rx)
+    ky_used, kx = band(ry)[1].shape[1], xw.shape[1]
+    col0 = int(xstart.min())
+    n_cols = int(xstart.max()) + kx - col0
+    span_used = max(int(xstart[min(o + K1_RUN, out_w) - 1]) + kx - int(xstart[o])
+                    for o in range(0, out_w, K1_RUN))
+    variants = [(k, s, b, True) for k, s, b in K1_TAPS if k >= ky_used and s >= span_used]
+    variants = variants[:1] + [(ky_used, _cdiv(span_used, 4) * 4, K1_BLOCKS_PER_SM, False)]
+    for ky, span, most_blocks, static in variants:
+        limits = [(1, SMEM_PER_BLOCK)]  # (blocks per SM, shared memory a block may take)
+        if most_blocks > 1:
+            limits.insert(0, (most_blocks, SMEM_PER_SM // most_blocks - SMEM_RESERVED_PER_BLOCK))
+        vstart, vw = _row_bands(ry, ky)
+        xs, wrun = _run_tiles(rx, span)
+        runs = len(xs)
+        row_pitch = _cdiv(max(15 + 3 * n_cols, 19 + 3 * (int(xs.max()) + span)), 16) * 16
+        table_bytes = 4 * sum(_table_sizes(runs, span, out_h, ky))
+        for blocks, limit in limits:
+            for rows in K1_BANDS:
+                rows_buf = max(int(vstart[min(o + rows, out_h) - 1]) + ky - int(vstart[o])
+                               for o in range(0, out_h, rows))
+                smem = (table_bytes if static else 0) + rows_buf * row_pitch
+                if smem <= limit:
+                    name = f"K1<{ky}, {span}>" if static else "K1<runtime>"
+                    return K1Plan(name, ky, span, static, rows, _cdiv(out_h, rows), rows_buf,
+                                  row_pitch, smem, blocks, col0, n_cols, runs, vstart, vw, xs,
+                                  wrun, (h, w, out_h, out_w, float(cropping_factor)))
+    raise ValueError(f"fused_preprocess: a {h}x{w} frame does not fit the kernel's shared "
+                     f"memory (one staged input row is {row_pitch} B)")
+
+
 @functools.lru_cache(maxsize=16)
-def _kernel_plan(h: int, w: int, out_h: int, out_w: int, cropping_factor: float,
-                 device: torch.device):
-    """Device-side band tables and the launch geometry for one shape. The kernel
-    reads only the input columns [col0, col0 + n_cols) that R_x uses (the crop
-    window); the column table is relative to col0."""
-    ry, rx = preprocess_matrices(h, w, out_h, out_w, cropping_factor)
-    ry_start, ry_w = band(ry)
-    rx_start, rx_w = band(rx)
-    ky, kx = ry_w.shape[1], rx_w.shape[1]
-    col0 = int(rx_start.min())
-    n_cols = int(rx_start.max()) + kx - col0
-    # Largest row tile whose shared memory (f32 vertical tile + staged input rows)
-    # fits in the 227 KB a block may use on Hopper.
-    for tile in (8, 4, 2, 1):
-        rows_max = max(
-            int(ry_start[min(o + tile, out_h) - 1]) + ky - int(ry_start[o])
-            for o in range(0, out_h, tile)
-        )
-        smem = tile * n_cols * 3 * 4 + rows_max * n_cols * 3
-        if smem <= 227 * 1024:
-            break
-    else:
-        raise ValueError(f"fused_preprocess: a {h}x{w} frame does not fit the kernel's "
-                         "shared-memory tile")
-    tables = [torch.from_numpy(a).to(device) for a in (ry_start, ry_w, rx_start - col0, rx_w)]
-    return tables, ky, kx, col0, n_cols, tile, rows_max
+def _device_tables(key: tuple, device: torch.device) -> tuple[torch.Tensor, tuple[int, ...]]:
+    """The tables of ``k1_plan(*key)`` on ``device`` and their word offsets."""
+    words, offsets = _table_words(k1_plan(*key))
+    return torch.from_numpy(words).to(device), offsets
 
 
 @functools.cache
 def _library():
     from ted_spad_tpu_torch.utils.cuda_build import load
 
-    fn = load("preprocess").ted_preprocess_u8
+    lib = load("preprocess")
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.restype = i
-    fn.argtypes = [p, p, i, p, p, i, p, p, i, i, i, i, i, i, i, i, i, i, p]
-    return fn
+    lib.ted_preprocess_u8.restype = i
+    lib.ted_preprocess_u8.argtypes = [p, ctypes.c_longlong, p, i, p] + [i] * 20 + [p]
+    return lib
 
 
 def fused_preprocess(
@@ -174,17 +286,19 @@ def fused_preprocess(
     if not clips_u8.is_contiguous():
         raise ValueError("fused_preprocess needs a contiguous clip batch")
     b, t, h, w, c = clips_u8.shape
-    if b * t > 65535:
-        raise ValueError(f"fused_preprocess launches one grid row per frame; {b * t} > 65535")
-    tables, ky, kx, col0, n_cols, tile, rows_max = _kernel_plan(
-        h, w, out_h, out_w, float(cropping_factor), clips_u8.device)
+    plan = k1_plan(h, w, out_h, out_w, float(cropping_factor))
+    if b * t * plan.n_bands >= 2**31:
+        raise ValueError(f"fused_preprocess launches one block per frame and band: {b * t} "
+                         f"frames x {plan.n_bands} bands exceed the grid's 2**31 - 1")
     out = torch.empty((b, t, out_h, out_w, c), dtype=out_dtype, device=clips_u8.device)
-    ry_start, ry_w, rx_start, rx_w = tables
+    tables, (wrun_off, vw_off, xs_off, vstart_off) = _device_tables(plan.key, clips_u8.device)
     with torch.cuda.device(clips_u8.device):
-        err = _library()(
-            clips_u8.data_ptr(), out.data_ptr(), int(out_dtype == torch.bfloat16),
-            ry_start.data_ptr(), ry_w.data_ptr(), ky, rx_start.data_ptr(), rx_w.data_ptr(), kx,
-            b * t, h, w, col0, n_cols, out_h, out_w, tile, rows_max,
+        err = _library().ted_preprocess_u8(
+            clips_u8.data_ptr(), clips_u8.numel(), out.data_ptr(),
+            int(out_dtype == torch.bfloat16), tables.data_ptr(), tables.numel(), wrun_off,
+            vw_off, xs_off, vstart_off, plan.ky, plan.span, int(plan.static), b * t, h, w,
+            plan.col0, plan.n_cols, out_h, out_w, plan.runs, plan.band_rows, plan.rows_buf,
+            plan.row_pitch, plan.smem_bytes,
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:

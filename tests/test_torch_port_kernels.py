@@ -24,14 +24,21 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,oh,ow", [((16, 16, 240, 320, 3), 224, 224),
-                                         ((2, 3, 61, 83, 3), 56, 40)])
-def test_preprocess_kernel_matches_plain_version(cuda_device, shape, oh, ow):
+@pytest.mark.parametrize("shape,oh,ow,offset", [
+    ((16, 16, 240, 320, 3), 224, 224, 0),   # the serving batch
+    ((2, 3, 61, 83, 3), 56, 40, 0),         # ragged
+    ((1, 4, 480, 856, 3), 224, 224, 0),     # unaligned row pitch and window, KY 4, KX 7
+    ((1, 2, 1080, 1920, 3), 224, 224, 0),   # KY 8, KX 14
+    ((16, 16, 240, 320, 3), 224, 224, 1),   # unaligned base address
+    ((1, 2, 200, 300, 3), 16, 16, 0),       # past every compile-time instantiation
+])
+def test_preprocess_kernel_matches_plain_version(cuda_device, shape, oh, ow, offset):
     """K1 vs its plain version: float32 out within 1e-5; bf16 out within one bf16 ulp
     at 1.0 (2**-7) of the plain version cast to bf16. The plain version runs its
     matmuls in full float32 (TF32 off)."""
-    clips = torch.from_numpy(np.random.default_rng(3).integers(0, 256, shape, dtype=np.uint8))
-    clips = clips.to(cuda_device)
+    data = torch.from_numpy(np.random.default_rng(3).integers(0, 256, shape, dtype=np.uint8))
+    clips = torch.empty(data.numel() + offset, dtype=torch.uint8, device=cuda_device)[offset:]
+    clips = clips.view(shape).copy_(data)
     launches = pp.fused_preprocess.launches
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)):
         got = pp.fused_preprocess(clips, out_h=oh, out_w=ow, out_dtype=dtype)

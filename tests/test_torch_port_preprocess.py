@@ -46,7 +46,8 @@ def test_band_reproduces_the_dense_matrices(h, w, oh, ow):
         assert start.min() == used[0] and (start + weights.shape[1]).max() == used[-1] + 1
 
 
-@pytest.mark.parametrize("shape,oh,ow", [((2, 3, 60, 80, 3), 56, 56), ((1, 2, 61, 83, 3), 56, 40)])
+@pytest.mark.parametrize("shape,oh,ow", [((2, 3, 60, 80, 3), 56, 56), ((1, 2, 61, 83, 3), 56, 40),
+                                         ((1, 1, 480, 856, 3), 224, 224)])
 def test_reference_matches_jax_kernel_and_xla_path(shape, oh, ow):
     clips = np.random.default_rng(0).integers(0, 256, shape, dtype=np.uint8)
     ours = pp.fused_preprocess_reference(torch.from_numpy(clips), out_h=oh, out_w=ow,
@@ -69,6 +70,32 @@ def test_center_crop_resize_matches_jax():
     mat = pp.fused_preprocess_reference(torch.from_numpy(clips), out_h=56, out_w=56,
                                         out_dtype=torch.float32).numpy()
     np.testing.assert_allclose(ours, mat, atol=ATOL, rtol=0)
+
+
+def test_center_crop_resize_matches_the_plain_version_at_the_serving_shape():
+    """K1's second library yardstick (F.interpolate, antialiased, on the crop) computes
+    K1's function: within 5e-5 of the matrix form at 240x320 -> 224x224. PyTorch
+    computes the filter weights in its own float arithmetic (measured 1.6e-5)."""
+    clips = torch.from_numpy(np.random.default_rng(4).integers(0, 256, (1, 2, 240, 320, 3),
+                                                               dtype=np.uint8))
+    ours = center_crop_resize(clips, 0.8, 224, 224)
+    mat = pp.fused_preprocess_reference(clips, out_dtype=torch.float32)
+    assert ours.shape == mat.shape
+    np.testing.assert_allclose(ours.numpy(), mat.numpy(), atol=5e-5, rtol=0)
+
+
+def test_kernel_tables_on_a_device_match_the_plan():
+    """The word array the wrapper hands K1 (built for any device, here the CPU) holds
+    the plan's tables at the offsets it passes."""
+    plan = pp.k1_plan(240, 320, 224, 224, 0.8)
+    words, (wrun, vw, xs, vstart) = pp._device_tables(plan.key, torch.device("cpu"))
+    words = words.numpy()
+    assert len(words) % 4 == 0 and wrun == 0 and min(vw, xs, vstart) % 4 == 0
+    tiles = words[: plan.runs * (plan.span * 8 + 4)].reshape(plan.runs, -1)
+    np.testing.assert_array_equal(tiles[:, :-4].reshape(plan.wrun.shape), plan.wrun)
+    np.testing.assert_array_equal(words[vw : vw + plan.vw.size].reshape(plan.vw.shape), plan.vw)
+    np.testing.assert_array_equal(words[xs : xs + plan.runs].view(np.int32), plan.xs)
+    np.testing.assert_array_equal(words[vstart : vstart + 224].view(np.int32), plan.vstart)
 
 
 def test_wrapper_on_cpu_takes_the_plain_path():
