@@ -31,7 +31,16 @@ Phases, each fatal on failure:
      DoubleConvs are K2 -> I3Res50 -> .npy -> MGFN), with K1 launched once and K2
      nine times per batch, and a second fidelity gate on the fa output itself;
   7. the serving CLI (python -m ted_spad_tpu_torch.score_video --synthetic) on its
-     default device, with the default fa and with --params selecting the UNet.
+     default device, with the default fa and with --params selecting the UNet;
+  8. the MGFN anomaly stage at the UCF preset's full width (feature 2048, dims 64/128/
+     1024, 16 videos per half, dropout 0.7, float32): synthetic 2048-d feature files
+     with planted spans -> train_anomaly_detection for two epochs on the card (train
+     steps, bucketed frame-AUC evaluation, best and final flax-msgpack checkpoints);
+     one train step (dropout 0, weights moved off the seeded init) held against the
+     same step on the CPU in float64, with another batch as the control, and the
+     float32 step against it, with a TF32 step as the control; evaluate on the card against the CPU; the final checkpoint
+     reloaded and scoring phase 4's features bit-equal to the in-memory model; the
+     stage's times, checkpoint size and peak memory printed. It launches no kernel.
 
 Prints the kernel table as one JSON line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero, printing no result,
@@ -75,6 +84,18 @@ UNET_VIDEOS = 2  # 240x320 synthetic videos of SERVING_FRAMES frames, 10 clips e
 # saturation, error / spread 0.17 (python -m ted_spad_tpu_torch.chip_probes gain
 # sweeps gains 1/4/8/16).
 UNET_OUTC_GAIN = 8.0
+
+# Phase 8: the anomaly stage's data, cut from UCF-Crime's 1,610 training and 290 test
+# videos; 3 steps per epoch at 16 videos per half.
+ANOMALY_TRAIN_VIDEOS, ANOMALY_TEST_VIDEOS = 96, 24  # the first half of the training list abnormal
+ANOMALY_CLIPS = (40, 241)  # clips per video, drawn uniformly
+ANOMALY_EPOCHS = 2
+# Card step vs CPU step from the same weights and batch, both in float64 (TF32 off).
+STEP_LOSS_RTOL, STEP_GRAD_RTOL, STEP_STATS_RTOL = 1e-5, 1e-4, 1e-5
+# The card's float32 step vs the CPU's float64 one: loss and each gradient tensor.
+# float32 reads up to 1.4e-4 (PERF.md §6, the MGFN stage); TF32 must read above it (the control).
+STEP_F32_RTOL = 1e-3
+EVAL_AUC_ATOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -491,6 +512,217 @@ def serving_cli(workdir: str) -> None:
             f"max), K2 launches {fused_double_conv.launches - launches}")
 
 
+def anomaly_step_gate(device, p, batch, control_batch, card: str) -> None:
+    """One train step (dropout 0) on the card and on the CPU from the same weights
+    (the seeded init moved off itself, chip_probes.perturbed_mgfn: at the init every
+    token has the same magnitude and the top-k picks on rounding noise) and the same
+    batch.
+
+    In float64 on both sides the top-k picks, the loss, every gradient and the
+    BatchNorm statistics after the step must agree within STEP_*_RTOL, and a CPU step
+    on another batch must not: the card computes the same step. In float32, the
+    precision the stage trains in, the card's step is held against that float64 CPU
+    step beside the CPU's own float32 step: its picks must agree and its loss and
+    every gradient stay within STEP_F32_RTOL, which the same card step with TF32 on
+    (the control) must exceed. Card and CPU float32 steps differ from each other by
+    up to 1.4e-4 of a gradient tensor's norm at this width (PERF.md §6): the
+    magnitude-contrastive loss compares L1 magnitudes of LayerNorm outputs that
+    differ by a few parts in a thousand and amplifies float32 rounding about
+    100-fold, most on tensors the following BatchNorms nearly cancel (Focus's
+    two-element rel_pos biases)."""
+    import contextlib
+
+    import torch
+
+    import ted_spad_tpu_torch.stages.anomaly_detection as stage
+    from ted_spad_tpu_torch.chip_probes import mgfn_step, perturbed_mgfn
+
+    p0 = p.replace(dropout_rate=0.0)
+    f64 = torch.float64
+
+    def rel(a: dict, b: dict) -> tuple[float, str]:
+        return max((float(torch.linalg.norm(a[k] - b[k]) / torch.linalg.norm(b[k])), k) for k in b)
+
+    def run(dev, dtype, b=batch):
+        return mgfn_step(perturbed_mgfn(p0, dev, dtype=dtype), p0, b, dev)
+
+    @contextlib.contextmanager
+    def tf32_on():
+        saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+    def against(ref, got) -> dict:
+        return {"differ": int((got[3] != ref[3]).any(dim=1).sum()),
+                "loss": abs(got[0] - ref[0]) / abs(ref[0]),
+                "grad": rel(got[1], ref[1]), "stats": rel(got[2], ref[2])}
+
+    ref = run("cpu", f64)
+    card64 = against(ref, run(device, f64))
+    control = rel(run("cpu", f64, control_batch)[1], ref[1])[0]
+    card32, cpu32 = against(ref, run(device, None)), against(ref, run("cpu", None))
+    saved_off, stage.tf32_off = stage.tf32_off, tf32_on  # the control: TF32 left on
+    try:
+        tf32 = against(ref, run(device, None))
+    finally:
+        stage.tf32_off = saved_off
+
+    def show(r: dict) -> str:
+        return (f"picks differ in {r['differ']} videos, loss rel {r['loss']:.3e}, worst gradient "
+                f"{r['grad'][0]:.3e} at {r['grad'][1]}, worst BN statistic {r['stats'][0]:.3e}")
+
+    log(f"[anomaly] train step, same weights and batch (dropout 0; smallest k-th to (k+1)-th "
+        f"magnitude gap {ref[4]:.3e}), against the CPU's float64 step: card float64 "
+        f"{show(card64)} (limits: loss {STEP_LOSS_RTOL}, gradients {STEP_GRAD_RTOL}, statistics "
+        f"{STEP_STATS_RTOL}; control, CPU float64 on another batch: worst gradient "
+        f"{control:.3e}) | {card}")
+    log(f"[anomaly] float32 steps against the CPU's float64 step: card {show(card32)}; CPU "
+        f"{show(cpu32)}; card with TF32 on (control) {show(tf32)} (limit {STEP_F32_RTOL}) | {card}")
+    if not (card64["differ"] == 0 and card64["loss"] <= STEP_LOSS_RTOL
+            and card64["grad"][0] <= STEP_GRAD_RTOL and card64["stats"][0] <= STEP_STATS_RTOL):
+        raise AssertionError("the card's float64 MGFN train step disagrees with the CPU's")
+    if not control > STEP_GRAD_RTOL:
+        raise AssertionError("the step gate does not tell another batch apart")
+    if not (card32["differ"] == 0 and card32["loss"] <= STEP_F32_RTOL
+            and card32["grad"][0] <= STEP_F32_RTOL):
+        raise AssertionError("the card's float32 MGFN train step drifts from the float64 one")
+    if not tf32["grad"][0] > STEP_F32_RTOL:
+        raise AssertionError("the float32 limit does not reject a TF32 step")
+
+
+def anomaly_stage(device, workdir: str, serving_features: list[str], card: str) -> dict:
+    """Phase 8: the MGFN anomaly stage at the UCF preset's full width on the card,
+    through train_anomaly_detection, held against the CPU. Returns the kernels'
+    launch counts from the stage's run (none expected)."""
+    import numpy as np
+    import torch
+
+    import ted_spad_tpu_torch.data.features as fm
+    from ted_spad_tpu_torch.chip_probes import time_ms
+    from ted_spad_tpu_torch.config.params import MGFNParams
+    from ted_spad_tpu_torch.data.features import (
+        FeatureDataset, TestFeatureDataset, padded_test_batch, paired_train_batches,
+    )
+    from ted_spad_tpu_torch.models import load_mgfn_model
+    from ted_spad_tpu_torch.ops.doubleconv import fused_double_conv
+    from ted_spad_tpu_torch.ops.preprocess import fused_preprocess
+    from ted_spad_tpu_torch.ops.temporal import test_features as with_magnitude
+    from ted_spad_tpu_torch.stages.anomaly_detection import (
+        evaluate, make_optimizer, make_score_fn, make_train_step, train_anomaly_detection,
+    )
+    from ted_spad_tpu_torch.train_mgfn import write_synthetic_features
+    from ted_spad_tpu_torch.utils.checkpoint import save_checkpoint
+    from ted_spad_tpu_torch.utils.jax_weights import state_dict_to_flax
+
+    root = os.path.join(workdir, "anomaly")
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    train_list, test_list, gt = write_synthetic_features(
+        root, n_train=ANOMALY_TRAIN_VIDEOS, n_test=ANOMALY_TEST_VIDEOS, feature_size=FEATURE_DIM,
+        clips=ANOMALY_CLIPS, frames_per_clip=32, seed=0)
+    fm.ABNORMAL_SPLIT["UCF"] = ANOMALY_TRAIN_VIDEOS // 2
+    data_mb = sum(os.path.getsize(os.path.join(root, f)) for f in os.listdir(root)) / 1e6
+    p = MGFNParams.for_dataset("UCF", rgb_list=train_list, test_rgb_list=test_list)
+    log(f"[anomaly] UCF preset: feature {p.feature_size}, dims {p.dims}, depths {p.depths}, "
+        f"dim_head {p.dim_head}, {p.batch_size} videos per half, seg_length {p.seg_length}, "
+        f"dropout {p.dropout_rate}; {ANOMALY_TRAIN_VIDEOS} training + {ANOMALY_TEST_VIDEOS} test "
+        f"videos of {ANOMALY_CLIPS[0]}-{ANOMALY_CLIPS[1] - 1} clips, {data_mb:.1f} MB written in "
+        f"{time.perf_counter() - t0:.2f}s, {len(gt)} gt frames")
+
+    # The stage's main path: two epochs through the user's entry point.
+    save_dir = os.path.join(root, "ckpt")
+    stamps = [time.perf_counter()]
+
+    def epoch_log(msg: str) -> None:
+        stamps.append(time.perf_counter())
+        log(f"[anomaly] {msg}")
+
+    torch.cuda.reset_peak_memory_stats(device)
+    fused_preprocess.launches = fused_double_conv.launches = 0
+    res = train_anomaly_detection(p, save_dir=save_dir, gt=gt, max_epochs=ANOMALY_EPOCHS,
+                                  log_fn=epoch_log, device=device)
+    launches = {"K1 preprocess": fused_preprocess.launches,
+                "K2 double_conv": fused_double_conv.launches}
+    peak = torch.cuda.max_memory_allocated(device)
+    model = res["model"]
+    h = res["history"]
+    n_params = sum(x.numel() for x in model.parameters())
+    walls = [round(b - a, 3) for a, b in zip(stamps, stamps[1:])]
+    log(f"[anomaly] train_anomaly_detection: {n_params} params, {ANOMALY_EPOCHS} epochs of "
+        f"{ANOMALY_TRAIN_VIDEOS // 2 // p.batch_size} steps, epoch wall time (train + evaluation, "
+        f"first includes warm-up) {json.dumps(walls)} s, ROC AUC {json.dumps(h['test_AUC'])}, PR AUC "
+        f"{json.dumps(h['test_PR'])}, loss {json.dumps(h['loss'])}, peak device memory "
+        f"{peak / 2**20:.1f} MiB, kernel launches {json.dumps(launches)} | {card}")
+    aucs = h["test_AUC"] + h["test_PR"]
+    if not (len(h["epoch"]) == ANOMALY_EPOCHS and all(0.0 <= a <= 1.0 for a in aucs)
+            and all(np.isfinite(h["loss"]))):
+        raise AssertionError(f"anomaly stage history out of range: {h}")
+    for path in (res["best_path"], res["final_path"]):
+        if not (path and os.path.exists(path)):
+            raise AssertionError(f"missing checkpoint {path}")
+
+    normal = FeatureDataset(train_list, "UCF", is_normal=True)
+    abnormal = FeatureDataset(train_list, "UCF", is_normal=False)
+    batch, control = list(paired_train_batches(normal, abnormal, p.batch_size))[:2]
+    anomaly_step_gate(device, p, batch, control, card)
+
+    # Train-step time at the real configuration (dropout 0.7), from CUDA events.
+    timed = load_mgfn_model(p, saved_model_file=res["final_path"], device=device).requires_grad_(True)
+    gen = torch.Generator(device=device).manual_seed(p.seed)
+    step = make_train_step(timed, make_optimizer(timed, p), p, generator=gen, device=device)
+    dev_batch = [torch.as_tensor(x).to(device) for x in batch]
+    step_ms = time_ms(lambda: step(*dev_batch), reps=7, inner=1)
+    log(f"[anomaly] train step ({2 * p.batch_size} videos x {p.seg_length} segments, forward + "
+        f"backward + Adam): {step_ms:.3f} ms, median of 7 after 3 warm-up steps | {card}")
+    log("[anomaly] where a train step's time goes:")
+    profile_step(lambda: step(*dev_batch), steps=3)
+
+    # Evaluation on the card against the CPU, from the final checkpoint.
+    test_ds = TestFeatureDataset(test_list, "UCF")
+    card_model = load_mgfn_model(p, saved_model_file=res["final_path"], device=device)
+    cpu_model = load_mgfn_model(p, saved_model_file=res["final_path"], device="cpu")
+    evaluate(make_score_fn(card_model, device=device), test_ds, gt)  # warm-up
+    t0 = time.perf_counter()
+    card_auc = evaluate(make_score_fn(card_model, device=device), test_ds, gt)
+    eval_s = time.perf_counter() - t0
+    cpu_auc = evaluate(make_score_fn(cpu_model, device="cpu"), test_ds, gt)
+    d_roc, d_pr = abs(card_auc[0] - cpu_auc[0]), abs(card_auc[1] - cpu_auc[1])
+    log(f"[anomaly] evaluate (buckets of 64, eval_batch 8, {len(test_ds)} videos, prefetched "
+        f"loads included): {eval_s * 1e3 / len(test_ds):.3f} ms per video = "
+        f"{len(test_ds) / eval_s:.2f} videos/s; card ROC/PR AUC {card_auc[0]:.8f} / "
+        f"{card_auc[1]:.8f}, CPU {cpu_auc[0]:.8f} / {cpu_auc[1]:.8f}, |d| {d_roc:.3e} / "
+        f"{d_pr:.3e} (limit {EVAL_AUC_ATOL}) | {card}")
+    if not (d_roc <= EVAL_AUC_ATOL and d_pr <= EVAL_AUC_ATOL):
+        raise AssertionError("evaluation on the card disagrees with the CPU")
+    log("[anomaly] where an evaluation's time goes:")
+    profile_step(lambda: evaluate(make_score_fn(card_model, device=device), test_ds, gt), steps=1)
+
+    # Checkpoint round trip: the reloaded model scores phase 4's features bit-equal.
+    path = os.path.join(root, "roundtrip.ckpt")
+    t0 = time.perf_counter()
+    save_checkpoint(path, {"mgfn_model_state_dict": state_dict_to_flax(model)})
+    save_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    reloaded = load_mgfn_model(p, saved_model_file=res["final_path"], device=device)
+    torch.cuda.synchronize(device)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    live_fn, reloaded_fn = make_score_fn(model, device=device), make_score_fn(reloaded, device=device)
+    for feat_path in serving_features:
+        video, mask, t = padded_test_batch(with_magnitude(np.load(feat_path)))
+        a, b = live_fn(video, mask)[0, :t], reloaded_fn(video, mask)[0, :t]
+        if not torch.equal(a, b):
+            raise AssertionError(f"{feat_path}: reloaded checkpoint scores differ "
+                                 f"({float((a - b).abs().max())})")
+    log(f"[anomaly] checkpoint {os.path.getsize(res['final_path']) / 1e6:.3f} MB (flax msgpack), "
+        f"save {save_ms:.1f} ms, load into a card model {load_ms:.1f} ms; reloaded final "
+        f"checkpoint scores the {len(serving_features)} serving videos' features bit-equal to the "
+        f"trained model | {card}")
+    return launches
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -523,6 +755,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         launches = {"unet++": serving_path(device, workdir), "unet": unet_path(device, workdir)}
         serving_cli(workdir)
+        features = sorted(os.path.join(workdir, "features", f)
+                          for f in os.listdir(os.path.join(workdir, "features")) if f.endswith(".npy"))
+        launches["anomaly"] = anomaly_stage(device, workdir, features, card)
+    if any(launches["anomaly"].values()):
+        raise AssertionError(f"the anomaly stage launched a kernel: {launches['anomaly']}")
     # Each kernel's launches on its own main path (K1: the default UNet++ path, K2: the
     # plain-UNet path), and on every path driven.
     for k, name, path in ((k1, "K1 preprocess", "unet++"), (k2, "K2 double_conv", "unet")):

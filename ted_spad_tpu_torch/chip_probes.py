@@ -4,6 +4,7 @@ numbers PERF.md quotes from them can be taken again:
     python -m ted_spad_tpu_torch.chip_probes k1     # kernel K1 alone
     python -m ted_spad_tpu_torch.chip_probes k2     # kernel K2 alone
     python -m ted_spad_tpu_torch.chip_probes gain   # the UNet's outc gain vs the gates
+    python -m ted_spad_tpu_torch.chip_probes mgfn   # where MGFN's card-vs-CPU step error sits
 
 ``k1``: builds K1 and prints each instantiation's registers and spills, holds it
 against its plain version (float32 matmuls, TF32 off) at K1_CASES in f32 and bf16,
@@ -21,10 +22,21 @@ events), with each shape's tile class.
 rounding can swamp the differences between clips. For outc gains 1, 4, 8 and 16 it
 prints the fa output's spread and both fidelity readings of chip_smoke.py (features
 and fa output, bf16 kernel path against the f32 plain path, with their controls).
+
+``mgfn``: one MGFN train step (UCF preset, dropout 0, 16 + 16 synthetic videos pooled
+as the stage pools them) from the same weights on the card, under cuDNN's default
+algorithms, with ``cudnn.deterministic`` and with cuDNN off, and on the CPU, once from
+the seeded init and once from weights moved off it (``perturbed_mgfn``); prints the
+smallest gap between a video's k-th and (k+1)-th token magnitude, how many videos'
+top-k picks differ from the CPU's, each variant's worst gradients against the CPU's
+(||d|| / ||g||), and for ``to_tokens.weight`` each side's error against a float64
+weight gradient computed from that side's own upstream gradient, which separates the
+weight-gradient convolution's rounding from the rounding of everything above it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import re
 import sys
 import time
@@ -390,17 +402,149 @@ def gain(device) -> None:
         torch.cuda.empty_cache()
 
 
+def mgfn_batch(p, seed: int = 0):
+    """(nfeat, nlabel, afeat, alabel): ``p.batch_size`` normal and abnormal videos of
+    40-240 clips of ``p.feature_size``-d features (the abnormal ones with a span of 4
+    clips scaled by 6), pooled to ``p.seg_length`` segments with the magnitude channel."""
+    import numpy as np
+
+    from ted_spad_tpu_torch.ops.temporal import segment_train_features
+
+    rng = np.random.default_rng(seed)
+    halves = []
+    for abnormal in (False, True):
+        videos = []
+        for _ in range(p.batch_size):
+            t = int(rng.integers(40, 241))
+            x = rng.normal(0, 1, (t, p.feature_size)).astype(np.float32)
+            if abnormal:
+                s = int(rng.integers(0, t - 4))
+                x[s:s + 4] *= 6.0
+            videos.append(segment_train_features(x, p.seg_length))
+        halves += [np.stack(videos), np.full(p.batch_size, float(abnormal), np.float32)]
+    return tuple(halves)
+
+
+def perturbed_mgfn(p, device, seed: int = 0, dtype=None):
+    """The MGFN of ``p`` (its seeded init) with every weight and BN statistic moved off
+    its init from a numpy seed, as the CPU parity tests move theirs (x * U(0.8, 1.2) +
+    0.05 N(0, 1); variances U(0.5, 1.5)), on ``device`` in ``dtype`` (float32 unless
+    given; float64 for a reference step), with gradients on. At the
+    init (LayerNorm scale 1, bias 0) every token leaves ``to_logits_norm`` with the
+    same magnitude, sqrt(dims[-1]), so the top-k selection picks on rounding noise and
+    the gradient through the magnitudes is zero up to rounding; moved weights make
+    both well-conditioned, so a card-vs-CPU comparison reads rounding."""
+    import numpy as np
+    import torch
+
+    from ted_spad_tpu_torch.models import load_mgfn_model
+    from ted_spad_tpu_torch.utils.jax_weights import load_jax_variables, state_dict_to_flax
+
+    model = load_mgfn_model(p, device="cpu")
+    rng = np.random.default_rng(seed)
+
+    def move(tree, name=""):
+        if isinstance(tree, dict):
+            return {k: move(v, k) for k, v in tree.items()}
+        if name == "var":
+            return rng.uniform(0.5, 1.5, tree.shape).astype(np.float32)
+        return (tree * rng.uniform(0.8, 1.2, tree.shape)
+                + 0.05 * rng.standard_normal(tree.shape)).astype(np.float32)
+
+    load_jax_variables(model, move(state_dict_to_flax(model)))
+    return model.to(device, dtype or torch.float32).requires_grad_(True)
+
+
+def mgfn_step(model, p, batch, device):
+    """One ``make_train_step`` call: (loss, gradients and BN statistics as float64 CPU
+    tensors by name, the top-k picks per video (sorted), the smallest relative gap
+    between each video's k-th and (k+1)-th token magnitude, the upstream gradient of
+    ``to_tokens``' output)."""
+    import torch
+
+    from ted_spad_tpu_torch.stages.anomaly_detection import make_optimizer, make_train_step
+
+    seen = {}
+
+    def keep_tokens(mod, inp, out) -> None:
+        seen["tokens"] = out.detach()
+
+    def keep_upstream(mod, inp, out) -> None:
+        out.register_hook(lambda g: seen.setdefault("dy", g))
+
+    hooks = [model.to_logits_norm.register_forward_hook(keep_tokens),
+             model.to_tokens.register_forward_hook(keep_upstream)]
+    loss = make_train_step(model, make_optimizer(model, p), p, device=device)(*batch)
+    for h in hooks:
+        h.remove()
+    grads = {n: q.grad.double().cpu() for n, q in model.named_parameters()}
+    stats = {n: t.double().cpu() for n, t in model.named_buffers() if "running" in n}
+    mag = torch.linalg.vector_norm(seen["tokens"].double(), dim=2).cpu()
+    top = torch.topk(mag, p.k + 1, dim=1)
+    margin = (top.values[:, p.k - 1] - top.values[:, p.k]) / top.values[:, p.k - 1]
+    picks = top.indices[:, :p.k].sort(dim=1).values
+    return float(loss), grads, stats, picks, float(margin.min()), seen["dy"].double().cpu()
+
+
+def mgfn(device) -> None:
+    import torch
+
+    from ted_spad_tpu_torch.config.params import MGFNParams
+
+    p = MGFNParams.for_dataset("UCF", dropout_rate=0.0)
+    batch = mgfn_batch(p)
+
+    def rel(a, b) -> float:
+        return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+    video = torch.cat([torch.as_tensor(batch[0]), torch.as_tensor(batch[2])])
+    x = video.reshape(-1, *video.shape[2:])[..., :p.feature_size].transpose(1, 2).double()
+    w_shape = (p.dims[0], p.feature_size, 3)
+
+    def w_error(grads, dy) -> float:  # against float64 from the same upstream gradient
+        exact = torch.nn.grad.conv1d_weight(x, w_shape, dy, padding=1)
+        return rel(grads["to_tokens.weight"], exact)
+
+    for weights, seed in (("seeded init", None), ("moved off the init", 0)):
+        def model_on(dev):
+            if seed is None:
+                from ted_spad_tpu_torch.models import load_mgfn_model
+
+                return load_mgfn_model(p, device=dev).requires_grad_(True)
+            return perturbed_mgfn(p, dev, seed)
+
+        cpu_loss, cpu_grads, _, cpu_picks, cpu_margin, cpu_dy = mgfn_step(
+            model_on("cpu"), p, batch, "cpu")
+        print(f"[mgfn] {weights}, CPU: loss {cpu_loss:.8f}; smallest top-k magnitude gap "
+              f"{cpu_margin:.3e}; to_tokens.weight vs float64 from its own upstream gradient "
+              f"{w_error(cpu_grads, cpu_dy):.3e}")
+        # flags() sets every flag it is not given to its own default: name them all.
+        for name, cudnn in (("cuDNN default", {}),
+                            ("cudnn.deterministic", dict(enabled=True, deterministic=True,
+                                                         allow_tf32=False)),
+                            ("cuDNN off", dict(enabled=False, allow_tf32=False))):
+            with torch.backends.cudnn.flags(**cudnn) if cudnn else contextlib.nullcontext():
+                loss, grads, _, picks, margin, dy = mgfn_step(model_on(device), p, batch, device)
+            worst = sorted(((rel(grads[k], cpu_grads[k]), k) for k in grads), reverse=True)[:3]
+            print(f"[mgfn] {weights}, card, {name}: loss rel {abs(loss - cpu_loss) / abs(cpu_loss):.3e};"
+                  f" videos whose top-k picks differ from the CPU's "
+                  f"{int((picks != cpu_picks).any(dim=1).sum())}; worst gradients vs CPU "
+                  f"{', '.join(f'{k} {e:.3e}' for e, k in worst)}; to_tokens upstream gradient vs "
+                  f"CPU {rel(dy, cpu_dy):.3e}; to_tokens.weight vs float64 from its own upstream "
+                  f"gradient {w_error(grads, dy):.3e}")
+
+
 def main() -> int:
     import torch
 
-    if len(sys.argv) != 2 or sys.argv[1] not in ("k1", "k2", "gain"):
+    if len(sys.argv) != 2 or sys.argv[1] not in ("k1", "k2", "gain", "mgfn"):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_probes: needs a CUDA card", file=sys.stderr)
         return 1
     t0 = time.perf_counter()
-    {"k1": k1, "k2": k2, "gain": gain}[sys.argv[1]](torch.device("cuda", 0))
+    {"k1": k1, "k2": k2, "gain": gain, "mgfn": mgfn}[sys.argv[1]](torch.device("cuda", 0))
     print(f"{sys.argv[1]} done in {time.perf_counter() - t0:.1f}s on "
           f"{torch.cuda.get_device_name(0)}")
     return 0

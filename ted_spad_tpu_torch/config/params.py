@@ -1,6 +1,6 @@
-"""Typed configuration of the serving path: the fields of ted_spad_tpu's
-``StageParams`` / ``FeatureExtractionParams`` / ``MGFNParams`` that the port reads,
-with the same names and defaults so one configuration reads the same in both."""
+"""Typed configuration of the port: the fields of ted_spad_tpu's ``StageParams`` /
+``FeatureExtractionParams`` / ``MGFNParams`` that the port reads, with the same names
+and defaults so one configuration reads the same in both."""
 
 from __future__ import annotations
 
@@ -54,35 +54,74 @@ class FeatureExtractionParams(StageParams):
 
 @dataclasses.dataclass
 class MGFNParams:
-    """MGFN anomaly model (anomaly_detection_mgfn/option.py:4-65), inference fields."""
+    """MGFN anomaly stage (anomaly_detection_mgfn/option.py:4-65, config.py:4-12):
+    the model, its training and its datasets."""
 
     feature_size: int = 2048
     mag_ratio: float = 0.1
+    seg_length: int = 32
     depths: tuple[int, int, int] = (3, 3, 2)
     mgfn_types: tuple[str, str, str] = ("gb", "fb", "fb")
     dims: tuple[int, int, int] = (64, 128, 1024)
     dim_head: int = 64
     ff_repe: int = 4
     local_kernel: int = 5
+    dropout_rate: float = 0.7  # magnitude dropout before the top-k selection (train only)
     k: int = 3  # top-k snippet selection (mgfn.py:184)
-    datasetname: str = "UCF"  # 'UCF' | 'ST'
+
+    # Training (option.py:26-31; main.py:72). ``lr_schedule`` is config.py:6's per-epoch
+    # LR list, stepped per epoch (main.py:91-93); None keeps ``lr``.
+    lr: float = 1e-3
+    lr_schedule: tuple | None = None
+    batch_size: int = 16  # videos per half-batch (normal and abnormal)
+    weight_decay: float = 5e-4
+    max_epoch: int = 1000
+
+    # Loss weights (train.py:74, 96-100).
+    contrastive_margin: float = 200.0
+    lambda_smooth: float = 8e-4
+    lambda_sparse: float = 8e-3
+
+    # Dataset (option.py:33-58; datasets/dataset.py:26-48).
+    datasetname: str = "UCF"  # 'UCF' | 'ST' | 'XD'
+    rgb_list: str = "data/ucf-i3d.list"
+    test_rgb_list: str = "data/ucf-i3d-test.list"
+    gt: str = "data/gt-ucf.npy"
+    model_name: str = "mgfn_ucf"
+    # Original frames per extracted clip when clip scores are expanded to the frame gt:
+    # UCF/XD 32 (make_gt_ucf.py:25, make_gt_xd.py:26), ST 16 (make_gt_sh.py:32).
+    frames_per_clip: int = 32
     seed: int = 0
 
-    # The presets on 2048-d I3Res50 features, the port's ft (XD-Violence's 1024-d
-    # preset waits for a port of its feature extractor).
+    # The per-dataset blocks of option.py:33-58. XD's 1024-d features come from an
+    # ft the port does not have yet, so only this stage (which reads features from
+    # files) takes the XD preset; the serving CLI offers UCF and ST.
     DATASET_PRESETS = {
-        "UCF": dict(datasetname="UCF", feature_size=2048),
-        "ST": dict(datasetname="ST", feature_size=2048),
+        "UCF": dict(
+            datasetname="UCF", feature_size=2048, frames_per_clip=32,
+            rgb_list="data/ucf-i3d.list", test_rgb_list="data/ucf-i3d-test.list",
+            gt="data/gt-ucf.npy", model_name="mgfn_ucf",
+        ),
+        "ST": dict(
+            datasetname="ST", feature_size=2048, frames_per_clip=16,
+            rgb_list="data/shanghai-i3d.list", test_rgb_list="data/shanghai-i3d-test.list",
+            gt="data/gt-sh.npy", model_name="mgfn_sh",
+        ),
+        "XD": dict(
+            datasetname="XD", feature_size=1024, frames_per_clip=32,
+            rgb_list="data/xd-i3d.list", test_rgb_list="data/xd-i3d-test.list",
+            gt="data/gt-xd.npy", model_name="mgfn_xd",
+        ),
     }
 
     @classmethod
     def for_dataset(cls, name: str, **overrides: Any) -> "MGFNParams":
         """Preset constructor mirroring option.py:33-58's per-dataset blocks."""
-        key = {"ucf": "UCF", "st": "ST", "sh": "ST", "shanghai": "ST"}.get(
+        key = {"ucf": "UCF", "st": "ST", "sh": "ST", "shanghai": "ST", "xd": "XD"}.get(
             name.lower(), name.upper()
         )
         if key not in cls.DATASET_PRESETS:
-            raise ValueError(f"unknown MGFN dataset {name!r}; expected UCF or ST")
+            raise ValueError(f"unknown MGFN dataset {name!r}; expected UCF, ST or XD")
         return cls(**{**cls.DATASET_PRESETS[key], **overrides})
 
     def replace(self, **kw: Any):

@@ -1,4 +1,4 @@
-"""MGFN (Magnitude-Contrastive Glance-and-Focus Network), inference path
+"""MGFN (Magnitude-Contrastive Glance-and-Focus Network), train and inference
 (counterpart of ted_spad_tpu/models/mgfn.py; reference
 anomaly_detection_mgfn/models/mgfn.py and utils/utils.py).
 
@@ -7,6 +7,12 @@ public input keeps the JAX layout ``(B, ncrops, T, F+1)``: F features plus the
 feature-magnitude channel. A validity ``mask`` (B, T) makes a bucket-padded forward
 equal to the native-length one: padded keys leave the softmax and padded positions
 are re-zeroed between layers, so zero-padding bleed matches a native run.
+
+Train mode follows flax, not torch: ``train`` is an argument of ``forward`` (the
+module's ``training`` flag is not read), Focus's BatchNorm normalises with the
+biased batch variance and moves its running statistics as flax's
+``BatchNorm(momentum=0.9)`` does, and the magnitude dropout draws its mask from an
+explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -17,6 +23,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ted_spad_tpu_torch.utils.device import at_least_f32
 
 
 def _conv1d(in_ch: int, out_ch: int, kernel: int, generator: torch.Generator,
@@ -45,7 +53,7 @@ class ChannelLayerNorm(nn.Module):
         self.b = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
+        xf = at_least_f32(x)
         mean = xf.mean(dim=1, keepdim=True)
         std = xf.var(dim=1, unbiased=False, keepdim=True).sqrt()
         out = (xf - mean) / (std + self.eps) * self.g[:, None] + self.b[:, None]
@@ -76,7 +84,9 @@ class Glance(nn.Module):
         self.to_qkv = _conv1d(dim, inner * 3, 1, generator, use_bias=False)
         self.to_out = _conv1d(inner, dim, 1, generator)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
+                train: bool = False) -> torch.Tensor:
+        del train  # no attention dropout (attention_dropout 0.0, as in the JAX package)
         b, _, t = x.shape
         q, k, v = self.to_qkv(self.norm(x)).chunk(3, dim=1)  # each (B, inner, T)
 
@@ -84,12 +94,30 @@ class Glance(nn.Module):
             return z.reshape(b, self.heads, self.dim_head, t).transpose(2, 3)
 
         q, k, v = heads_view(q) * self.dim_head ** -0.5, heads_view(k), heads_view(v)
-        sim = torch.matmul(q, k.transpose(2, 3)).float()
+        sim = at_least_f32(torch.matmul(q, k.transpose(2, 3)))
         if mask is not None:
             sim = sim.masked_fill(~mask[:, None, None, :], float("-inf"))
         attn = sim.softmax(dim=-1).to(v.dtype)
         out = torch.matmul(attn, v)  # (B, heads, T, dim_head)
         return self.to_out(out.transpose(2, 3).reshape(b, self.heads * self.dim_head, t))
+
+
+def flax_batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor, momentum: float = 0.9) -> torch.Tensor:
+    """flax ``nn.BatchNorm(use_running_average=False, momentum=0.9)`` on (B, C, T):
+    normalise with the batch mean and the *biased* batch variance over (B, T), taken
+    as E[x^2] - E[x]^2 (flax's fast variance), and move the running statistics as
+    ``ra = momentum * ra + (1 - momentum) * stat`` with that biased variance. torch's
+    train-mode BatchNorm would store the unbiased variance, with momentum meaning
+    the reverse. The statistics see every position: the mask is not applied here,
+    as in flax (training batches are the fixed 32 segments)."""
+    xf = at_least_f32(x)
+    mean = xf.mean(dim=(0, 2))
+    var = torch.clamp((xf * xf).mean(dim=(0, 2)) - mean * mean, min=0.0)
+    with torch.no_grad():
+        bn.running_mean.copy_(momentum * bn.running_mean + (1.0 - momentum) * mean)
+        bn.running_var.copy_(momentum * bn.running_var + (1.0 - momentum) * var)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return ((xf - mean[:, None]) * mul[:, None] + bn.bias[:, None]).to(x.dtype)
 
 
 class Focus(nn.Module):
@@ -108,11 +136,15 @@ class Focus(nn.Module):
         self.rel_pos = _conv1d(heads, heads, kernel, generator, groups=heads)
         self.to_out = _conv1d(inner, dim, 1, generator)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
+                train: bool = False) -> torch.Tensor:
         b, _, t = x.shape
         # Eval BN maps zero pads to a nonzero constant; re-zero them before the
         # kernel-5 rel_pos conv so pad taps act as a native run's zero padding.
-        h = _rezero(self.norm(x), mask)
+        bn = self.norm
+        h = (flax_batch_norm(bn, x) if train else
+             F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias, False, 0.0, bn.eps))
+        h = _rezero(h, mask)
         v = self.to_v(h).reshape(b * self.dim_head, self.heads, t)
         out = self.rel_pos(v).reshape(b, self.heads * self.dim_head, t)
         return self.to_out(out)
@@ -135,38 +167,80 @@ class Backbone(nn.Module):
             self.add_module(f"attn{i}", attn)
             self.add_module(f"ff{i}", FeedForward(dim, ff_repe, generator=g))
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
+                train: bool = False) -> torch.Tensor:
         for i in range(self.depth):
             x = _rezero(getattr(self, f"scc{i}")(x) + x, mask)
-            x = _rezero(getattr(self, f"attn{i}")(x, mask) + x, mask)
+            x = _rezero(getattr(self, f"attn{i}")(x, mask, train) + x, mask)
             x = _rezero(getattr(self, f"ff{i}")(x) + x, mask)
         return x
 
 
-def msnsd(features: torch.Tensor, scores: torch.Tensor, ncrops: int, k: int):
-    """Magnitude Selection aNd Score prediction (mgfn.py:18-86), inference branch:
-    the normal branch is reused for both halves (mgfn.py:54-57).
+def magnitude_dropout(shape, rate: float, generator: torch.Generator | None,
+                      device: torch.device) -> torch.Tensor | None:
+    """flax ``Dropout(rate)`` applied to ones (mgfn.py:217-219): each entry is kept
+    with probability 1 - rate and then reads 1 / (1 - rate), else 0. The mask comes
+    from ``generator`` (on ``device``), never from torch's global RNG. None at rate 0,
+    where flax's Dropout is the identity."""
+    if rate == 0.0:
+        return None
+    if generator is None:
+        raise ValueError("the magnitude dropout needs an explicit torch.Generator in train mode")
+    keep = 1.0 - rate
+    draw = torch.rand(shape, generator=generator, device=generator.device).to(device)
+    return torch.where(draw < keep, torch.full_like(draw, 1.0 / keep), torch.zeros_like(draw))
+
+
+def msnsd(features: torch.Tensor, scores: torch.Tensor, ncrops: int, k: int, *,
+          inference: bool = True, dropout_rate: float = 0.0,
+          generator: torch.Generator | None = None):
+    """Magnitude Selection aNd Score prediction (mgfn.py:18-86).
 
     ``features`` (bs*ncrops, T, F) last-stage tokens; ``scores`` (bs*ncrops, T, 1).
-    Returns (score_abnormal (bs,1), score_normal (bs,1), abn_feamagnitude
-    (ncrops*bs, k, F), nor_feamagnitude, scores (bs, T, 1))."""
+    Train (``inference=False``): bs = 2*batch, the first half normal, the second
+    abnormal; each half picks its top-k snippets by feature magnitude times a
+    magnitude-dropout mask (abnormal half drawn first, as in JAX). Inference: the
+    normal branch is reused for both halves (mgfn.py:54-57), with no dropout.
+
+    Returns (score_abnormal (batch,1), score_normal (batch,1), abn_feamagnitude
+    (ncrops*batch, k, F), nor_feamagnitude, scores (bs, T, 1)).
+
+    Ties: where fewer than k positions survive the dropout (a few videos in a
+    thousand at T = 32, rate 0.7), zeros tie. ``lax.top_k`` then takes the lowest
+    indices; ``torch.topk`` promises no order among ties, so the picks may differ
+    from JAX's there. Not emulated."""
     bc, t, f = features.shape
     bs = bc // ncrops
+    batch = bs if inference else bs // 2
     scores = scores.reshape(bs, ncrops, t).mean(dim=1)[..., None]  # (bs, T, 1)
-    feat_mag = torch.linalg.vector_norm(features.float(), dim=2)  # (bs*ncrops, T)
+    feat_mag = torch.linalg.vector_norm(at_least_f32(features), dim=2)  # (bs*ncrops, T)
     feat_mag = feat_mag.reshape(bs, ncrops, t).mean(dim=1)  # (bs, T)
     feats = features.reshape(bs, ncrops, t, f)
-    idx = torch.topk(feat_mag, k, dim=1).indices  # (bs, k); dropout is identity in eval
-    # Crop-major concat ordering as the reference's per-crop loop (mgfn.py:61-66).
-    sel = torch.gather(feats, 2, idx[:, None, :, None].expand(bs, ncrops, k, f))
-    sel = sel.transpose(0, 1).reshape(ncrops * bs, k, f)
-    sel_scores = torch.gather(scores, 1, idx[..., None]).mean(dim=1)  # (bs, 1)
-    return sel_scores, sel_scores, sel, sel, scores
+
+    def select(lo: int, hi: int):
+        mag = feat_mag[lo:hi]
+        if not inference:
+            drop = magnitude_dropout(mag.shape, dropout_rate, generator, mag.device)
+            mag = mag if drop is None else mag * drop
+        idx = torch.topk(mag, k, dim=1).indices  # (batch, k)
+        # Crop-major concat ordering as the reference's per-crop loop (mgfn.py:61-66).
+        sel = torch.gather(feats[lo:hi], 2, idx[:, None, :, None].expand(hi - lo, ncrops, k, f))
+        sel = sel.transpose(0, 1).reshape(ncrops * (hi - lo), k, f)
+        return sel, torch.gather(scores[lo:hi], 1, idx[..., None]).mean(dim=1)  # (batch, 1)
+
+    if inference:
+        sel, sel_scores = select(0, batch)
+        return sel_scores, sel_scores, sel, sel, scores
+    abn, score_abnormal = select(batch, bs)
+    nor, score_normal = select(0, batch)
+    return score_abnormal, score_normal, abn, nor, scores
 
 
 class MGFN(nn.Module):
-    """mgfn.py:130-202, inference. ``forward(video (B, ncrops, T, F+1), mask)`` ->
-    (score_abnormal, score_normal, abn_feamagnitude, nor_feamagnitude, scores)."""
+    """mgfn.py:130-202. ``forward(video (B, ncrops, T, F+1), mask=None, *, train=False,
+    inference=None, generator=None)`` -> (score_abnormal, score_normal,
+    abn_feamagnitude, nor_feamagnitude, scores). ``inference`` defaults to ``not
+    train``; a train batch is ``[normal; abnormal]``."""
 
     def __init__(
         self,
@@ -178,6 +252,7 @@ class MGFN(nn.Module):
         ff_repe: int = 4,
         dim_head: int = 64,
         mag_ratio: float = 0.1,
+        dropout_rate: float = 0.7,
         k: int = 3,
         *,
         generator: torch.Generator,
@@ -185,6 +260,7 @@ class MGFN(nn.Module):
         super().__init__()
         g = generator
         self.feature_size, self.mag_ratio, self.k = feature_size, mag_ratio, k
+        self.dropout_rate = dropout_rate
         self.n_stages = len(dims)
         self.to_tokens = _conv1d(feature_size, dims[0], 3, g)
         self.to_mag = _conv1d(1, dims[0], 3, g)
@@ -200,7 +276,9 @@ class MGFN(nn.Module):
         nn.init.normal_(self.fc.weight, 0.0, math.sqrt(1.0 / dims[-1]), generator=g)
         nn.init.zeros_(self.fc.bias)
 
-    def forward(self, video: torch.Tensor, mask: torch.Tensor | None = None):
+    def forward(self, video: torch.Tensor, mask: torch.Tensor | None = None, *,
+                train: bool = False, inference: bool | None = None,
+                generator: torch.Generator | None = None):
         bs, ncrops, t, c = video.shape
         if c != self.feature_size + 1:
             raise ValueError(f"expected {self.feature_size + 1} channels (F+1), got {c}")
@@ -214,10 +292,12 @@ class MGFN(nn.Module):
             x[:, self.feature_size :])
         x_f = _rezero(x_f, cmask)
         for i in range(self.n_stages):
-            x_f = getattr(self, f"stage{i}")(x_f, cmask)
+            x_f = getattr(self, f"stage{i}")(x_f, cmask, train)
             if i < self.n_stages - 1:
                 x_f = getattr(self, f"transition_norm{i}")(x_f)
                 x_f = _rezero(getattr(self, f"transition_conv{i}")(x_f), cmask)
         tokens = self.to_logits_norm(x_f.transpose(1, 2))  # (B', T, C)
-        scores = torch.sigmoid(self.fc(tokens).float())  # (B', T, 1)
-        return msnsd(tokens.float(), scores, ncrops, self.k)
+        scores = torch.sigmoid(at_least_f32(self.fc(tokens)))  # (B', T, 1)
+        return msnsd(at_least_f32(tokens), scores, ncrops, self.k,
+                     inference=not train if inference is None else inference,
+                     dropout_rate=self.dropout_rate if train else 0.0, generator=generator)

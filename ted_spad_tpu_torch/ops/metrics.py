@@ -1,9 +1,75 @@
-"""Score expansion to the frame timeline (counterpart of ``frame_level_scores`` in
-ted_spad_tpu/ops/metrics.py; reference test.py:32-43)."""
+"""Frame-level anomaly metrics in numpy (counterpart of ted_spad_tpu/ops/metrics.py;
+reference test.py:32-48): ROC AUC, PR AUC (trapezoidal, as the reference's
+``auc(recall, precision)``) and average precision with scikit-learn's conventions,
+and the expansion of clip scores to the frame timeline."""
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def _trapezoid(y: np.ndarray, x: np.ndarray) -> float:
+    """``np.trapezoid(y, x)``'s arithmetic, spelled out (numpy 1.x has no trapezoid)."""
+    return float((np.diff(x) * (y[1:] + y[:-1]) / 2.0).sum())
+
+
+def _binary_curve_counts(labels: np.ndarray, scores: np.ndarray):
+    """Cumulative TP/FP counts at each distinct score threshold, descending score order."""
+    labels = np.asarray(labels).astype(np.float64).ravel()
+    scores = np.asarray(scores).astype(np.float64).ravel()
+    order = np.argsort(-scores, kind="mergesort")
+    scores = scores[order]
+    labels = labels[order]
+    # Index of the last occurrence of each distinct score.
+    threshold_idx = np.r_[np.where(np.diff(scores))[0], labels.size - 1]
+    tps = np.cumsum(labels)[threshold_idx]
+    fps = 1 + threshold_idx - tps
+    return tps, fps, scores[threshold_idx]
+
+
+def roc_curve(labels: np.ndarray, scores: np.ndarray):
+    """(fpr, tpr, thresholds) with sklearn's conventions (a leading (0, 0) point)."""
+    tps, fps, thr = _binary_curve_counts(labels, scores)
+    tps = np.r_[0.0, tps]
+    fps = np.r_[0.0, fps]
+    thr = np.r_[np.inf, thr]
+    p, n = tps[-1], fps[-1]
+    tpr = tps / p if p > 0 else np.zeros_like(tps)
+    fpr = fps / n if n > 0 else np.zeros_like(fps)
+    return fpr, tpr, thr
+
+
+def roc_auc(labels: np.ndarray, scores: np.ndarray) -> float:
+    fpr, tpr, _ = roc_curve(labels, scores)
+    return _trapezoid(tpr, fpr)
+
+
+def precision_recall_curve(labels: np.ndarray, scores: np.ndarray):
+    """(precision, recall, thresholds) with sklearn's conventions (from the highest
+    threshold down, then a trailing (1, 0) point)."""
+    tps, fps, thr = _binary_curve_counts(labels, scores)
+    p = tps[-1]
+    precision = tps / np.maximum(tps + fps, 1)
+    recall = tps / p if p > 0 else np.zeros_like(tps)
+    return np.r_[precision[::-1], 1.0], np.r_[recall[::-1], 0.0], thr[::-1]
+
+
+def pr_auc(labels: np.ndarray, scores: np.ndarray) -> float:
+    """Trapezoidal area under the PR curve: the reference's ``auc(recall, precision)``
+    (test.py:47-48), not average precision."""
+    precision, recall, _ = precision_recall_curve(labels, scores)
+    return _trapezoid(precision[::-1], recall[::-1])  # recall ascending
+
+
+def average_precision(labels: np.ndarray, scores: np.ndarray) -> float:
+    """sklearn ``average_precision_score``: the sum over thresholds of dRecall * precision."""
+    tps, fps, _ = _binary_curve_counts(labels, scores)
+    p = tps[-1]
+    if p == 0:
+        return 0.0
+    precision = tps / np.maximum(tps + fps, 1)
+    recall = tps / p
+    return float(np.sum((recall - np.r_[0.0, recall[:-1]]) * precision))
 
 
 def frame_level_scores(

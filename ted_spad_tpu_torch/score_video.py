@@ -16,8 +16,11 @@ Configuration: ``--params FILE`` overlays a reference-style ``params_*.py`` file
 ``FeatureExtractionParams`` (e.g. ``arch_fa = "unet"`` selects the plain UNet fa,
 whose DoubleConvs run kernel K2).
 
-Weights: ``--*_weights`` take ``.npz`` files of flax variables keyed by
-'/'-joined paths (utils/jax_weights.load_npz_variables); without them the models
+Weights: ``--saved_model_fa`` / ``--saved_model_ft`` / ``--mgfn_ckpt`` take the
+checkpoints the JAX package's stages write (flax msgpack, read under
+``fa_/ft_/mgfn_model_state_dict``; ``python -m ted_spad_tpu_torch.train_mgfn`` writes
+the MGFN one too), ``--*_weights`` take ``.npz`` files of flax variables keyed by
+'/'-joined paths (utils/jax_weights.load_npz_variables); without either the models
 draw random weights from ``--seed`` (smoke runs only).
 
 Synthetic smoke on the CPU: ``python -m ted_spad_tpu_torch.score_video --synthetic --device cpu``.
@@ -86,7 +89,7 @@ def run(args) -> list[dict]:
         decode_hw = tuple(args.decode_hw) if args.decode_hw else (240, 320)
 
     cfg = (f"{p!r}|rgb|{decode_hw}|params={args.params}|fa={args.fa_weights}"
-           f"|ft={args.ft_weights}")
+           f"|ft={args.ft_weights}|fa_ckpt={args.saved_model_fa}|ft_ckpt={args.saved_model_ft}")
     feat_dir = os.path.join(args.out_dir, "features", hashlib.sha1(cfg.encode()).hexdigest()[:12])
     score_dir = os.path.join(args.out_dir, "scores")
     os.makedirs(feat_dir, exist_ok=True)
@@ -96,17 +99,19 @@ def run(args) -> list[dict]:
 
     fa = None
     if p.anonymized:
-        fa = load_fa_model(p.arch_fa, seed=p.seed, dtype=p.compute_dtype, device=device)
+        fa = load_fa_model(p.arch_fa, seed=p.seed, dtype=p.compute_dtype, device=device,
+                           saved_model_file=args.saved_model_fa)
         if args.fa_weights:
             load_jax_variables(fa, load_npz_variables(args.fa_weights))
-    ft = load_ft_model(p.arch_ft, seed=p.seed, dtype=p.compute_dtype, device=device)
+    ft = load_ft_model(p.arch_ft, seed=p.seed, dtype=p.compute_dtype, device=device,
+                       saved_model_file=args.saved_model_ft)
     if args.ft_weights:
         load_jax_variables(ft, load_npz_variables(args.ft_weights), skip=FT_HEADS)
     res = extract_features(p, uris, feat_dir, fa=fa, ft=ft, batch_size=args.batch,
                            decode_hw=decode_hw, num_workers=args.num_workers, device=device)
     feat_paths = {**res["existing"], **res["saved"]}
 
-    model = load_mgfn_model(mp, device=device)
+    model = load_mgfn_model(mp, saved_model_file=args.mgfn_ckpt, device=device)
     if args.mgfn_weights:
         load_jax_variables(model, load_npz_variables(args.mgfn_weights))
     score_fn = make_score_fn(model, device=device)
@@ -158,6 +163,12 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--decode_hw", type=int, nargs=2, default=None, metavar=("H", "W"),
                     help="decode resolution (default 240 320)")
     ap.add_argument("--num_workers", type=int, default=8, help="host decode threads")
+    ap.add_argument("--saved_model_fa", type=str, default=None,
+                    help="fa checkpoint (fa_model_state_dict), as the JAX stages write it")
+    ap.add_argument("--saved_model_ft", type=str, default=None,
+                    help="ft checkpoint (ft_model_state_dict), as the JAX stages write it")
+    ap.add_argument("--mgfn_ckpt", type=str, default=None,
+                    help="trained MGFN checkpoint (mgfn_model_state_dict)")
     ap.add_argument("--fa_weights", type=str, default=None, help="fa variables (.npz)")
     ap.add_argument("--ft_weights", type=str, default=None, help="ft variables (.npz)")
     ap.add_argument("--mgfn_weights", type=str, default=None, help="MGFN variables (.npz)")

@@ -27,15 +27,21 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
 def tf32_off():
     """Full float32 convolutions and matmuls on the card inside the block: TF32 off
     for both cuDNN and cuBLAS, the caller's settings restored on exit. The
-    extraction step and the MGFN scorer run their forwards inside it, so their
-    float32 work (MGFN scoring, the f32 extraction used for fidelity checks)
-    matches the CPU reference to float32 rounding; bf16 work is unaffected."""
+    extraction step, the MGFN scorer and the MGFN train step run inside it, so their
+    float32 work (MGFN scoring and training, the f32 extraction used for fidelity
+    checks) matches the CPU reference to float32 rounding; bf16 work is unaffected."""
     saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     try:
         yield
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or left in float64: the JAX package's ``astype(float32)``
+    where its input is bf16 or f32, without narrowing a float64 reference run."""
+    return x if x.dtype == torch.float64 else x.float()
 
 
 def torch_dtype(name: str | None) -> torch.dtype:

@@ -1,5 +1,5 @@
-"""flax variables -> port ``state_dict`` (the inverse of the layout rules of
-ted_spad_tpu/utils/torch_convert.py).
+"""flax variables <-> port ``state_dict`` (the inverse of the layout rules of
+ted_spad_tpu/utils/torch_convert.py, and back).
 
 The port's modules carry the flax modules' names, so a variables tree
 ``{"params": ..., "batch_stats": ...}`` of numpy arrays maps onto a module's
@@ -14,6 +14,10 @@ The port's modules carry the flax modules' names, so a variables tree
 Loading is strict: a key the module does not have, a module key the tree does not
 fill, or a shape that differs raises. ``skip`` names subtrees the port's module
 does not hold (e.g. the ft classifier and MLP head, which its feature path never runs).
+
+``state_dict_to_flax`` applies the rules the other way, so the port writes variables
+trees that the JAX package restores (``utils/checkpoint.py`` writes them as flax
+msgpack); ``load_jax_checkpoint`` reads such a file into a module.
 """
 
 from __future__ import annotations
@@ -48,6 +52,8 @@ def flax_to_state_dict(variables: Mapping[str, Any], skip: Iterable[str] = ()) -
             dotted = ".".join(path)
             if any(dotted == s or dotted.startswith(s + ".") for s in skip):
                 continue
+            if isinstance(leaf, torch.Tensor):  # bfloat16 leaves of a msgpack checkpoint
+                leaf = leaf.float().numpy()
             a = np.asarray(leaf, dtype=np.float32)
             if path[-1] == "kernel":
                 if a.ndim not in _KERNEL_PERM:
@@ -97,3 +103,48 @@ def load_npz_variables(path: str) -> dict[str, Any]:
                 node = node.setdefault(part, {})
             node[leaf] = data[key]
     return tree
+
+
+_KERNEL_MODULES = (nn.Conv1d, nn.Conv2d, nn.Conv3d, nn.Linear)
+_SCALE_MODULES = (nn.modules.batchnorm._NormBase, nn.LayerNorm)
+_STAT_NAMES = {"running_mean": "mean", "running_var": "var"}
+
+
+def state_dict_to_flax(module: nn.Module) -> dict[str, Any]:
+    """The flax variables tree ``{"params": ..., "batch_stats": ...}`` of ``module``'s
+    weights: fresh float32 numpy arrays (host copies that later in-place updates of
+    the module cannot reach), laid out as the JAX package's module holds them.
+    ``batch_stats`` is left out when the module has no running statistics."""
+    tree: dict[str, dict] = {"params": {}, "batch_stats": {}}
+    for prefix, sub in module.named_modules():
+        path = tuple(prefix.split(".")) if prefix else ()
+        leaves = [(n, t, "params") for n, t in sub.named_parameters(recurse=False)]
+        leaves += [(n, t, "batch_stats") for n, t in sub.named_buffers(recurse=False)
+                   if n != "num_batches_tracked"]
+        for name, tensor, collection in leaves:
+            a = tensor.detach().float().cpu().numpy().copy()
+            if collection == "batch_stats":
+                if name not in _STAT_NAMES:
+                    raise KeyError(f"{prefix}.{name}: no flax counterpart for this buffer")
+                name = _STAT_NAMES[name]
+            elif name == "weight" and isinstance(sub, _KERNEL_MODULES):
+                name = "kernel"
+                a = np.ascontiguousarray(a.transpose(np.argsort(_KERNEL_PERM[a.ndim])))
+            elif name == "weight" and isinstance(sub, _SCALE_MODULES):
+                name = "scale"
+            node = tree[collection]
+            for part in path:
+                node = node.setdefault(part, {})
+            node[name] = a
+    return {k: v for k, v in tree.items() if v or k == "params"}
+
+
+def load_jax_checkpoint(module: nn.Module, path: str, key: str,
+                        skip: Iterable[str] = ()) -> nn.Module:
+    """Replace every weight of ``module`` with the variables stored under ``key`` of
+    a flax-msgpack checkpoint (``{fa,ft,mgfn}_model_state_dict``), as the JAX
+    package's loaders do; a file holding bare variables is accepted too."""
+    from ted_spad_tpu_torch.utils.checkpoint import load_checkpoint
+
+    state = load_checkpoint(path)
+    return load_jax_variables(module, state.get(key, state), skip)

@@ -29,14 +29,16 @@ from ted_spad_tpu.ops.metrics import frame_level_scores as jax_frame_level_score
 from ted_spad_tpu.ops.temporal import test_features as jax_with_magnitude
 from ted_spad_tpu.stages.anomaly_detection import make_score_fn as jax_make_score_fn
 from ted_spad_tpu.utils.naming import dedup_names as jax_dedup_names
-from ted_spad_tpu_torch import score_video
+from ted_spad_tpu_torch import score_video, train_mgfn
 from ted_spad_tpu_torch.config.params import FeatureExtractionParams, MGFNParams
 from ted_spad_tpu_torch.data.features import padded_test_batch
 from ted_spad_tpu_torch.models import load_fa_model, load_ft_model, load_mgfn_model
 from ted_spad_tpu_torch.ops.metrics import frame_level_scores
 from ted_spad_tpu_torch.ops.temporal import test_features as with_magnitude
 from ted_spad_tpu_torch.stages import feature_extraction as fe
-from ted_spad_tpu_torch.stages.anomaly_detection import make_score_fn
+from ted_spad_tpu_torch.stages.anomaly_detection import (
+    make_optimizer, make_score_fn, make_train_step, train_anomaly_detection,
+)
 from ted_spad_tpu_torch.utils.jax_weights import FT_HEADS, load_jax_variables
 from ted_spad_tpu_torch.utils.naming import dedup_names
 
@@ -232,15 +234,21 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch, tmp_path):
         lambda: fe.extract_features(p, URIS[:1], str(tmp_path)),
         lambda: score_video.run(score_video.parser().parse_args(
             ["--synthetic", "--out_dir", str(tmp_path)])),
+        lambda: train_anomaly_detection(MGFNParams(), save_dir=str(tmp_path)),
+        lambda: train_mgfn.run(train_mgfn.parser().parse_args(
+            ["--synthetic", "--save_dir", str(tmp_path)])),
     ):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     ft = load_ft_model(tiny=True, dtype="float32", device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         fe.make_extract_step(ft, p)
-    model = load_mgfn_model(MGFNParams(dims=(16, 32, 64), dim_head=16), device="cpu")
+    mp = MGFNParams(dims=(16, 32, 64), dim_head=16)
+    model = load_mgfn_model(mp, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_score_fn(model)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_train_step(model, make_optimizer(model, mp), mp)
 
 
 def test_cuda_device_resolves_to_an_index(monkeypatch):
@@ -260,7 +268,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import sys\n"
         "for m in [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax')]:\n"
         "    del sys.modules[m]\n"
-        "sys.modules['jax'] = sys.modules['flax'] = None  # any import of them now fails\n"
+        "for name in ('jax', 'flax', 'msgpack'):  # any import of them now fails\n"
+        "    sys.modules[name] = None\n"
         "import importlib, pkgutil, ted_spad_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(ted_spad_tpu_torch.__path__,"
         " 'ted_spad_tpu_torch.')]\n"
@@ -273,7 +282,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                          timeout=300, env={**os.environ, "PYTHONPATH": ROOT})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 20
+    assert int(out.stdout.strip().splitlines()[-1]) >= 30
 
 
 def test_score_video_cli_synthetic_on_cpu(tmp_path):
