@@ -40,7 +40,18 @@ Phases, each fatal on failure:
      same step on the CPU in float64, with another batch as the control, and the
      float32 step against it, with a TF32 step as the control; evaluate on the card against the CPU; the final checkpoint
      reloaded and scoring phase 4's features bit-equal to the in-memory model; the
-     stage's times, checkpoint size and peak memory printed. It launches no kernel.
+     stage's times, checkpoint size and peak memory printed. It launches no kernel;
+  9. the extraction stage's other configurations at full model width, each read for
+     its kernel launches: XD-Violence serving (UNet++ fa, InceptionI3d ft ->
+     extract_features -> 1024-d .npy -> XD-preset MGFN scores; K1 once per batch,
+     bf16 features gated against the f32 plain path with both controls; step ms,
+     clips/s, busy share, peak memory); ten-crop (ncrops=10 on UNet++ + I3Res50 ->
+     (clips, 10, 2048) files scored by MGFN; K1's crops held against its plain version
+     at the serving, 480x856 and a ragged frame, five crops at an odd address and the
+     square window, and its ten windows timed beside the plain version and
+     F.interpolate); no_ar_distortion (one batch, gated); quirk_compat (one batch in
+     float32 on the card against the same step on the CPU, the unscrambled step as
+     the control); r3d_18 and mvitv2 (one 16-clip batch each, gated, ms and clips/s).
 
 Prints the kernel table as one JSON line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero, printing no result,
@@ -84,6 +95,15 @@ UNET_VIDEOS = 2  # 240x320 synthetic videos of SERVING_FRAMES frames, 10 clips e
 # saturation, error / spread 0.17 (python -m ted_spad_tpu_torch.chip_probes gain
 # sweeps gains 1/4/8/16).
 UNET_OUTC_GAIN = 8.0
+
+# Phase 9: the other extraction configurations.
+XD_VIDEOS = 4  # 240x320 synthetic videos of SERVING_FRAMES frames, 10 clips each
+TEN_CROP_BATCH = 4  # clips per step: 4 x 10 crops x 16 frames = 640 UNet++ frames
+QUIRK_CLIPS = 2  # the CPU's float32 step through the full-width UNet++ and I3Res50 is the cost
+# quirk_compat, card float32 step vs the CPU's: ||card - cpu|| / ||cpu||. The card's step
+# without the scramble (the control) must exceed it.
+QUIRK_RTOL = 1e-3
+OPTION_FEATURES = {"i3d": 1024, "r3d_18": 512, "mvitv2": 768}
 
 # Phase 8: the anomaly stage's data, cut from UCF-Crime's 1,610 training and 290 test
 # videos; 3 steps per epoch at 16 videos per half.
@@ -258,6 +278,29 @@ def profile_step(fn, steps: int) -> None:
         log(f"[profile]   {t / steps / 1e3:8.3f} ms/step {t / total:6.3f}  {name[:90]}")
 
 
+def launch_counts() -> dict:
+    from ted_spad_tpu_torch.ops.doubleconv import fused_double_conv
+    from ted_spad_tpu_torch.ops.preprocess import fused_preprocess
+
+    return {"K1 preprocess": fused_preprocess.launches, "K2 double_conv": fused_double_conv.launches}
+
+
+def zero_launch_counts() -> None:
+    from ted_spad_tpu_torch.ops.doubleconv import fused_double_conv
+    from ted_spad_tpu_torch.ops.preprocess import fused_preprocess
+
+    fused_preprocess.launches = fused_double_conv.launches = 0
+
+
+def first_batch(uris: list, p, device):
+    import torch
+
+    from ted_spad_tpu_torch.stages.feature_extraction import iter_clip_batches
+
+    batch, _, _ = next(iter_clip_batches(uris, p, p.batch_size, num_workers=8))
+    return torch.from_numpy(batch).to(device)
+
+
 def serving_path(device, workdir: str) -> dict:
     """Drive the port's serving path at full width, the way a user would, and check
     its outputs. Returns the kernels' launch counts from this run."""
@@ -266,10 +309,8 @@ def serving_path(device, workdir: str) -> dict:
     from ted_spad_tpu_torch.chip_probes import time_ms
     from ted_spad_tpu_torch.config.params import FeatureExtractionParams
     from ted_spad_tpu_torch.models import load_fa_model, load_ft_model
-    from ted_spad_tpu_torch.ops.doubleconv import fused_double_conv
-    from ted_spad_tpu_torch.ops.preprocess import fused_preprocess
     from ted_spad_tpu_torch.stages.feature_extraction import (
-        extract_features, iter_clip_batches, make_extract_step, video_clip_starts,
+        extract_features, make_extract_step, video_clip_starts,
     )
 
     p = FeatureExtractionParams(batch_size=16)  # the default serving configuration, bf16
@@ -283,7 +324,7 @@ def serving_path(device, workdir: str) -> dict:
         f"{len(uris)} videos x {clips_per_video} clips, batch {p.batch_size}")
 
     torch.cuda.reset_peak_memory_stats(device)
-    fused_preprocess.launches = fused_double_conv.launches = 0
+    zero_launch_counts()
     res = extract_features(p, uris, os.path.join(workdir, "features"), fa=fa, ft=ft,
                            decode_hw=(240, 320), num_workers=8, device=device, log_fn=log)
     peak = torch.cuda.max_memory_allocated(device)
@@ -293,11 +334,9 @@ def serving_path(device, workdir: str) -> dict:
     if len(res["saved"]) != len(uris) or res["skipped"]:
         raise AssertionError(f"expected {len(uris)} .npy files, got {res}")
 
-    score_videos(res["saved"], clips_per_video, p.clip_step, device, "[serve]")
+    score_videos(res["saved"], (clips_per_video, FEATURE_DIM), p.clip_step, device, "[serve]")
 
-    # The main path ends here: read every kernel's launch count.
-    launches = {"K1 preprocess": fused_preprocess.launches,
-                "K2 double_conv": fused_double_conv.launches}
+    launches = launch_counts()  # the main path ends here
     log(f"[serve] kernel launches on the main path: {json.dumps(launches)}")
     if launches["K1 preprocess"] <= 0:
         raise AssertionError("the serving path never launched K1")
@@ -305,8 +344,7 @@ def serving_path(device, workdir: str) -> dict:
         raise AssertionError("the UNet++ path launched K2, which only the plain UNet runs")
 
     # Device time of one extraction step at the serving batch (decode excluded).
-    batch, _, _ = next(iter_clip_batches(uris, p, p.batch_size, num_workers=8))
-    batch = torch.from_numpy(batch).to(device)
+    batch = first_batch(uris, p, device)
     step = make_extract_step(ft, p, fa, device=device)
     step_ms = time_ms(lambda: step(batch), reps=5, inner=2)
     log(f"[serve] extract step device time {step_ms:.3f} ms per {p.batch_size}-clip batch = "
@@ -324,9 +362,11 @@ def serving_path(device, workdir: str) -> dict:
     return launches
 
 
-def score_videos(saved: dict, clips_per_video: int, clip_step: int, device, tag: str) -> None:
-    """Every video's .npy -> UCF MGFN clip scores -> frame timeline, checked: finite
-    (clips, 2048) features, SERVING_FRAMES frame scores in [0, 1]."""
+def score_videos(saved: dict, shape: tuple, clip_step: int, device, tag: str,
+                 dataset: str = "UCF") -> None:
+    """Every video's .npy -> ``dataset``'s MGFN clip scores -> frame timeline, checked:
+    finite features of ``shape`` ((clips, F) or (clips, ncrops, F)), SERVING_FRAMES
+    frame scores in [0, 1]."""
     import numpy as np
 
     from ted_spad_tpu_torch.config.params import MGFNParams
@@ -336,12 +376,12 @@ def score_videos(saved: dict, clips_per_video: int, clip_step: int, device, tag:
     from ted_spad_tpu_torch.ops.temporal import test_features as with_magnitude
     from ted_spad_tpu_torch.stages.anomaly_detection import make_score_fn
 
-    mgfn = load_mgfn_model(MGFNParams.for_dataset("UCF"), device=device)
+    mgfn = load_mgfn_model(MGFNParams.for_dataset(dataset), device=device)
     score_fn = make_score_fn(mgfn, device=device)
     latencies = []
     for uri, path in saved.items():
         feats = np.load(path)
-        if feats.shape != (clips_per_video, FEATURE_DIM) or not np.isfinite(feats).all():
+        if feats.shape != tuple(shape) or not np.isfinite(feats).all():
             raise AssertionError(f"{path}: features {feats.shape}, finite={np.isfinite(feats).all()}")
         t0 = time.perf_counter()
         video, mask, t = padded_test_batch(with_magnitude(feats))
@@ -350,7 +390,7 @@ def score_videos(saved: dict, clips_per_video: int, clip_step: int, device, tag:
         latencies.append(time.perf_counter() - t0)
         if frames.shape != (SERVING_FRAMES,) or not ((frames >= 0) & (frames <= 1)).all():
             raise AssertionError(f"{uri}: frame scores {frames.shape} outside [0, 1]")
-    log(f"{tag} MGFN UCF scoring: {len(latencies)} videos, latency per video "
+    log(f"{tag} MGFN {dataset} scoring of {tuple(shape)} features: {len(latencies)} videos, latency per video "
         f"{json.dumps([round(x * 1e3, 3) for x in latencies])} ms (first includes warm-up), "
         f"scores in [0, 1]")
 
@@ -386,10 +426,9 @@ def unet_path(device, workdir: str) -> dict:
     from ted_spad_tpu_torch.chip_probes import time_ms
     from ted_spad_tpu_torch.config.params import FeatureExtractionParams
     from ted_spad_tpu_torch.models import load_fa_model, load_ft_model
-    from ted_spad_tpu_torch.ops.doubleconv import fused_double_conv
-    from ted_spad_tpu_torch.ops.preprocess import fused_preprocess, fused_preprocess_reference
+    from ted_spad_tpu_torch.ops.preprocess import fused_preprocess_reference
     from ted_spad_tpu_torch.stages.feature_extraction import (
-        extract_features, iter_clip_batches, make_extract_step, video_clip_starts,
+        extract_features, make_extract_step, video_clip_starts,
     )
     from ted_spad_tpu_torch.utils.device import tf32_off
 
@@ -412,11 +451,10 @@ def unet_path(device, workdir: str) -> dict:
         f"batch {p.batch_size}")
 
     torch.cuda.reset_peak_memory_stats(device)
-    fused_preprocess.launches = fused_double_conv.launches = 0
+    zero_launch_counts()
     res = extract_features(p, uris, os.path.join(workdir, "features_unet"), fa=fa, ft=ft,
                            decode_hw=(240, 320), num_workers=8, device=device, log_fn=log)
-    launches = {"K1 preprocess": fused_preprocess.launches,
-                "K2 double_conv": fused_double_conv.launches}
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated(device)
     batches = -(-res["clips"] // p.batch_size)
     log(f"[unet] extract_features: {res['clips']} clips in {res['elapsed_s']:.3f}s = "
@@ -427,10 +465,9 @@ def unet_path(device, workdir: str) -> dict:
         raise AssertionError(f"expected {len(uris)} .npy files, got {res}")
     if launches != {"K1 preprocess": batches, "K2 double_conv": 9 * batches}:
         raise AssertionError(f"expected K1 x{batches} and K2 x{9 * batches}: {launches}")
-    score_videos(res["saved"], clips_per_video, p.clip_step, device, "[unet]")
+    score_videos(res["saved"], (clips_per_video, FEATURE_DIM), p.clip_step, device, "[unet]")
 
-    batch, _, _ = next(iter_clip_batches(uris, p, p.batch_size, num_workers=8))
-    batch = torch.from_numpy(batch).to(device)
+    batch = first_batch(uris, p, device)
     step = make_extract_step(ft, p, fa, device=device)
     step_ms = time_ms(lambda: step(batch), reps=3, inner=1)
     log(f"[unet] extract step device time {step_ms:.3f} ms per {p.batch_size}-clip batch = "
@@ -607,8 +644,6 @@ def anomaly_stage(device, workdir: str, serving_features: list[str], card: str) 
         FeatureDataset, TestFeatureDataset, padded_test_batch, paired_train_batches,
     )
     from ted_spad_tpu_torch.models import load_mgfn_model
-    from ted_spad_tpu_torch.ops.doubleconv import fused_double_conv
-    from ted_spad_tpu_torch.ops.preprocess import fused_preprocess
     from ted_spad_tpu_torch.ops.temporal import test_features as with_magnitude
     from ted_spad_tpu_torch.stages.anomaly_detection import (
         evaluate, make_optimizer, make_score_fn, make_train_step, train_anomaly_detection,
@@ -641,11 +676,10 @@ def anomaly_stage(device, workdir: str, serving_features: list[str], card: str) 
         log(f"[anomaly] {msg}")
 
     torch.cuda.reset_peak_memory_stats(device)
-    fused_preprocess.launches = fused_double_conv.launches = 0
+    zero_launch_counts()
     res = train_anomaly_detection(p, save_dir=save_dir, gt=gt, max_epochs=ANOMALY_EPOCHS,
                                   log_fn=epoch_log, device=device)
-    launches = {"K1 preprocess": fused_preprocess.launches,
-                "K2 double_conv": fused_double_conv.launches}
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated(device)
     model = res["model"]
     h = res["history"]
@@ -723,6 +757,223 @@ def anomaly_stage(device, workdir: str, serving_features: list[str], card: str) 
     return launches
 
 
+def option_step(device, tag: str, p, fa, ft, fa32, ft32, batch, card: str,
+                profile: bool = False) -> dict:
+    """One batch of configuration ``p`` through make_extract_step on the card (bf16,
+    K1), read for its launches (K1 once, K2 never), timed (``profile``: and profiled),
+    and gated against the f32 plain path (plain preprocess, TF32 off) with both
+    controls."""
+    import torch
+
+    from ted_spad_tpu_torch.chip_probes import time_ms
+    from ted_spad_tpu_torch.stages.feature_extraction import make_extract_step
+
+    step = make_extract_step(ft, p, fa, device=device)
+    zero_launch_counts()
+    got = step(batch)
+    torch.cuda.synchronize(device)
+    launches = launch_counts()
+    log(f"{tag} kernel launches for one {batch.shape[0]}-clip batch: {json.dumps(launches)}")
+    if launches != {"K1 preprocess": 1, "K2 double_conv": 0}:
+        raise AssertionError(f"{tag}: expected one K1 launch and no K2: {launches}")
+    ms = time_ms(lambda: step(batch), reps=3, inner=1)
+    log(f"{tag} extract step device time {ms:.3f} ms per {batch.shape[0]}-clip batch = "
+        f"{batch.shape[0] / ms * 1e3:.2f} clips/s, features {tuple(got.shape)} | {card}")
+    if profile:
+        profile_step(lambda: step(batch), steps=2)
+    ref_step = make_extract_step(ft32, p.replace(compute_dtype="float32"), fa32, use_kernel=False,
+                                 device=device)
+    feature_gate(got.double(), ref_step(batch).double(),
+                 step(batch.flip(-1).contiguous()).double(), tag)
+    return launches
+
+
+def xd_path(device, workdir: str, fa, fa32, card: str) -> dict:
+    """XD-Violence serving at full width through extract_features: UNet++ fa,
+    InceptionI3d ft, 1024-d .npy files, XD-preset MGFN scores; K1 once per batch."""
+    import torch
+
+    from ted_spad_tpu_torch.chip_probes import time_ms
+    from ted_spad_tpu_torch.config.params import FeatureExtractionParams
+    from ted_spad_tpu_torch.models import load_ft_model
+    from ted_spad_tpu_torch.stages.feature_extraction import (
+        extract_features, make_extract_step, video_clip_starts,
+    )
+
+    p = FeatureExtractionParams(batch_size=16, arch_ft="i3d")
+    uris = [f"synthetic://n={SERVING_FRAMES},h=240,w=320,seed={200 + i}" for i in range(XD_VIDEOS)]
+    clips_per_video = len(video_clip_starts(SERVING_FRAMES, p.num_frames, p.clip_stride, p.clip_step))
+    ft = load_ft_model("i3d", seed=0, device=device)
+    log(f"[xd] UNet++ fa, InceptionI3d ft {sum(x.numel() for x in ft.parameters())} params, "
+        f"{p.compute_dtype}, {len(uris)} videos x {clips_per_video} clips, batch {p.batch_size}")
+    torch.cuda.reset_peak_memory_stats(device)
+    zero_launch_counts()
+    res = extract_features(p, uris, os.path.join(workdir, "features_xd"), fa=fa, ft=ft,
+                           decode_hw=(240, 320), num_workers=8, device=device, log_fn=log)
+    launches = launch_counts()
+    batches = -(-res["clips"] // p.batch_size)
+    log(f"[xd] extract_features: {res['clips']} clips in {res['elapsed_s']:.3f}s = "
+        f"{res['clips_per_sec']:.2f} clips/s end to end (decode included); kernel launches "
+        f"{json.dumps(launches)} for {batches} batches")
+    if len(res["saved"]) != len(uris) or res["skipped"]:
+        raise AssertionError(f"expected {len(uris)} .npy files, got {res}")
+    if launches != {"K1 preprocess": batches, "K2 double_conv": 0}:
+        raise AssertionError(f"[xd] expected K1 x{batches} and no K2: {launches}")
+    score_videos(res["saved"], (clips_per_video, OPTION_FEATURES["i3d"]), p.clip_step, device,
+                 "[xd]", dataset="XD")
+
+    batch = first_batch(uris, p, device)
+    step = make_extract_step(ft, p, fa, device=device)
+    torch.cuda.reset_peak_memory_stats(device)
+    step_ms = time_ms(lambda: step(batch), reps=5, inner=2)
+    log(f"[xd] extract step device time {step_ms:.3f} ms per {p.batch_size}-clip batch = "
+        f"{p.batch_size / step_ms * 1e3:.2f} clips/s, peak device memory "
+        f"{torch.cuda.max_memory_allocated(device) / 2**20:.1f} MiB | {card}")
+    profile_step(lambda: step(batch), steps=3)
+    ft32 = load_ft_model("i3d", seed=0, dtype="float32", device=device)
+    ref_step = make_extract_step(ft32, p.replace(compute_dtype="float32"), fa32, use_kernel=False,
+                                 device=device)
+    feature_gate(step(batch).double(), ref_step(batch).double(),
+                 step(batch.flip(-1).contiguous()).double(), "[xd fidelity]")
+    return launches
+
+
+def ten_crop_kernel(device, card: str) -> dict:
+    """K1 over crops against its plain version (chip_probes.K1_CROP_CASES), the
+    F.interpolate yardstick against the plain version, then K1's ten windows of one
+    serving batch timed beside its bound, the plain version and the yardstick."""
+    import torch
+
+    from ted_spad_tpu_torch.chip_probes import (
+        HBM_BYTES_PER_S, F32_FLOPS, K1_INTERPOLATE_TOL, k1_clips, k1_crop_check, k1_crops_bound,
+        time_ms,
+    )
+    from ted_spad_tpu_torch.ops import preprocess as pp
+    from ted_spad_tpu_torch.ops.augment import multi_crop_resize
+    from ted_spad_tpu_torch.utils.device import tf32_off
+
+    worst = k1_crop_check(device, log)
+    shape = (16, 16, 240, 320, 3)
+    clips = k1_clips(device, shape, seed=97)
+    crops = pp.multi_crops(240, 320, 0.8, 10)
+    with tf32_off():
+        ref = pp.fused_preprocess_reference(clips, crops=crops, out_dtype=torch.float32)
+    interp_err = float((multi_crop_resize(clips, 0.8, 224, 224, 10) - ref).abs().max())
+    log(f"[ten-crop] multi_crop_resize (F.interpolate, antialias) vs plain at {shape}: max abs "
+        f"error {interp_err:.3e} (tolerance {K1_INTERPOLATE_TOL:.0e})")
+    if not interp_err <= K1_INTERPOLATE_TOL:
+        raise AssertionError(f"the interpolate yardstick does not compute K1's function: {interp_err}")
+    del ref
+    ms = time_ms(lambda: pp.fused_preprocess(clips, crops=crops))
+    device_ms = time_ms(lambda: pp.fused_preprocess(clips, crops=crops), queued=True)
+    with tf32_off():
+        plain_ms = time_ms(lambda: pp.fused_preprocess_reference(clips, crops=crops), reps=5, inner=1)
+    library_ms = time_ms(lambda: multi_crop_resize(clips, 0.8, 224, 224, 10).to(torch.bfloat16),
+                         reps=5, inner=1)
+    bytes_moved, flops = k1_crops_bound(shape, crops, 224, 224, out_bytes=2)
+    by_bytes, by_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    bound_ms = max(by_bytes, by_ops)
+    log(f"[ten-crop] K1, the ten windows of {shape} in one launch, bf16: kernel {ms:.4f} ms (device "
+        f"only {device_ms:.4f}) = {bytes_moved / ms * 1e-6:.1f} GB/s, {ms / bound_ms:.2f}x the bound "
+        f"{bound_ms:.4f} ms ({bytes_moved} B: the windows' union read, ten 224x224 written; "
+        f"{flops} f32 FLOP = {by_ops:.4f} ms); plain {plain_ms:.4f} ms, F.interpolate + bf16 cast "
+        f"{library_ms:.4f} ms | {card}")
+    return {"ms": ms, "device_only_ms": device_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations", "library_ms": library_ms,
+            "max_abs_err": worst}
+
+
+def ten_crop_path(device, workdir: str, fa, card: str) -> dict:
+    """ncrops=10 on UNet++ + I3Res50 through extract_features: (clips, 10, 2048) files,
+    scored by MGFN; K1 once per batch; peak memory."""
+    import torch
+
+    from ted_spad_tpu_torch.config.params import FeatureExtractionParams
+    from ted_spad_tpu_torch.models import load_ft_model
+    from ted_spad_tpu_torch.stages.feature_extraction import extract_features, video_clip_starts
+
+    p = FeatureExtractionParams(batch_size=TEN_CROP_BATCH, ncrops=10)
+    uris = [f"synthetic://n={SERVING_FRAMES},h=240,w=320,seed=300"]
+    clips_per_video = len(video_clip_starts(SERVING_FRAMES, p.num_frames, p.clip_stride, p.clip_step))
+    ft = load_ft_model(seed=0, device=device)
+    torch.cuda.reset_peak_memory_stats(device)
+    zero_launch_counts()
+    res = extract_features(p, uris, os.path.join(workdir, "features_ten_crop"), fa=fa, ft=ft,
+                           decode_hw=(240, 320), num_workers=8, device=device, log_fn=log)
+    launches = launch_counts()
+    batches = -(-res["clips"] // p.batch_size)
+    log(f"[ten-crop] extract_features, {p.batch_size} clips x 10 crops per batch: {res['clips']} "
+        f"clips in {res['elapsed_s']:.3f}s = {res['clips_per_sec']:.2f} clips/s end to end, peak "
+        f"device memory {torch.cuda.max_memory_allocated(device) / 2**20:.1f} MiB; kernel launches "
+        f"{json.dumps(launches)} for {batches} batches | {card}")
+    if len(res["saved"]) != len(uris) or launches != {"K1 preprocess": batches, "K2 double_conv": 0}:
+        raise AssertionError(f"[ten-crop] expected {len(uris)} files and K1 x{batches}: {res}, {launches}")
+    score_videos(res["saved"], (clips_per_video, 10, FEATURE_DIM), p.clip_step, device, "[ten-crop]")
+    return launches
+
+
+def quirk_path(device, fa32, card: str) -> dict:
+    """quirk_compat: one batch in float32 on the card (K1, TF32 off) against the same
+    step on the CPU; the card's step without the scramble must read beyond the limit."""
+    import torch
+
+    from ted_spad_tpu_torch.config.params import FeatureExtractionParams
+    from ted_spad_tpu_torch.models import load_fa_model, load_ft_model
+    from ted_spad_tpu_torch.stages.feature_extraction import make_extract_step
+
+    p = FeatureExtractionParams(batch_size=QUIRK_CLIPS, quirk_compat=True, compute_dtype="float32")
+    batch = first_batch([f"synthetic://n={SERVING_FRAMES},h=240,w=320,seed=400"], p, device)
+    ft32 = load_ft_model(seed=0, dtype="float32", device=device)
+    step = make_extract_step(ft32, p, fa32, device=device)
+    zero_launch_counts()
+    got = step(batch).double()
+    torch.cuda.synchronize(device)
+    launches = launch_counts()
+    if launches != {"K1 preprocess": 1, "K2 double_conv": 0}:
+        raise AssertionError(f"[quirk] expected one K1 launch and no K2: {launches}")
+    control = make_extract_step(ft32, p.replace(quirk_compat=False), fa32, device=device)(batch).double()
+    t0 = time.perf_counter()
+    cpu_step = make_extract_step(load_ft_model(seed=0, dtype="float32", device="cpu"), p,
+                                 load_fa_model(seed=0, dtype="float32", device="cpu"), device="cpu")
+    ref = cpu_step(batch.cpu()).double().to(device)
+    cpu_s = time.perf_counter() - t0
+    err = float(torch.linalg.norm(got - ref) / torch.linalg.norm(ref))
+    control_err = float(torch.linalg.norm(control - ref) / torch.linalg.norm(ref))
+    log(f"[quirk] quirk_compat, {QUIRK_CLIPS} clips in float32: card (K1 {json.dumps(launches)}) vs "
+        f"the CPU's step ({cpu_s:.1f}s): ||d|| / ||cpu|| {err:.3e} (limit {QUIRK_RTOL}); control, the "
+        f"card's step without the scramble: {control_err:.3e} | {card}")
+    if not err <= QUIRK_RTOL < control_err:
+        raise AssertionError(f"[quirk] card {err} / control {control_err} against limit {QUIRK_RTOL}")
+    return launches
+
+
+def extraction_options(device, workdir: str, card: str) -> tuple[dict, dict]:
+    """Phase 9. Returns the kernels' launch counts by path and K1's ten-crop timing."""
+    from ted_spad_tpu_torch.config.params import FeatureExtractionParams
+    from ted_spad_tpu_torch.models import load_fa_model, load_ft_model
+
+    fa = load_fa_model(seed=0, device=device)
+    fa32 = load_fa_model(seed=0, dtype="float32", device=device)
+    launches = {"xd": xd_path(device, workdir, fa, fa32, card)}
+    ten_crop = ten_crop_kernel(device, card)
+    launches["ten_crop"] = ten_crop_path(device, workdir, fa, card)
+    serving_uris = [f"synthetic://n={SERVING_FRAMES},h=240,w=320,seed={i}" for i in range(2)]
+    p = FeatureExtractionParams(batch_size=16)
+    batch = first_batch(serving_uris, p, device)
+    ft, ft32 = (load_ft_model(seed=0, dtype=d, device=device) for d in ("bfloat16", "float32"))
+    launches["no_ar"] = option_step(device, "[no_ar]", p.replace(no_ar_distortion=True), fa, ft,
+                                    fa32, ft32, batch, card)
+    del ft, ft32
+    launches["quirk"] = quirk_path(device, fa32, card)
+    for arch in ("r3d_18", "mvitv2"):
+        ft, ft32 = (load_ft_model(arch, seed=0, dtype=d, device=device) for d in ("bfloat16", "float32"))
+        log(f"[{arch}] {sum(x.numel() for x in ft.parameters())} params, UNet++ fa, one "
+            f"{p.batch_size}-clip batch, {OPTION_FEATURES[arch]}-d features")
+        launches[arch] = option_step(device, f"[{arch}]", p.replace(arch_ft=arch), fa, ft, fa32, ft32,
+                                     batch, card, profile=True)
+    return launches, ten_crop
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -758,13 +1009,16 @@ def main() -> int:
         features = sorted(os.path.join(workdir, "features", f)
                           for f in os.listdir(os.path.join(workdir, "features")) if f.endswith(".npy"))
         launches["anomaly"] = anomaly_stage(device, workdir, features, card)
-    if any(launches["anomaly"].values()):
-        raise AssertionError(f"the anomaly stage launched a kernel: {launches['anomaly']}")
+        if any(launches["anomaly"].values()):
+            raise AssertionError(f"the anomaly stage launched a kernel: {launches['anomaly']}")
+        options, ten_crop = extraction_options(device, workdir, card)
+        launches.update(options)
     # Each kernel's launches on its own main path (K1: the default UNet++ path, K2: the
     # plain-UNet path), and on every path driven.
     for k, name, path in ((k1, "K1 preprocess", "unet++"), (k2, "K2 double_conv", "unet")):
         k["launches"] = launches[path][name]
         k["launches_by_path"] = {where: counts[name] for where, counts in launches.items()}
+    k1["ten_crop"] = ten_crop
 
     log(json.dumps({"kernels": [k1, k2]}))
     log(f"[card] {card}")

@@ -7,8 +7,8 @@ numbers PERF.md quotes from them can be taken again:
     python -m ted_spad_tpu_torch.chip_probes mgfn   # where MGFN's card-vs-CPU step error sits
 
 ``k1``: builds K1 and prints each instantiation's registers and spills, holds it
-against its plain version (float32 matmuls, TF32 off) at K1_CASES in f32 and bf16,
-then times it alone at the serving shape, bf16 out (``time_ms``, as chip_smoke.py
+against its plain version (float32 matmuls, TF32 off) at K1_CASES and over the crops
+of K1_CROP_CASES in f32 and bf16, then times it alone at the serving shape, bf16 out (``time_ms``, as chip_smoke.py
 times every kernel, and its device-only reading beside), next to its byte bound, the
 plain version and both library yardsticks, and at K1_FRAME_SIZES.
 
@@ -75,6 +75,17 @@ K1_CASES = (
     ("serving at base + 1 B", (16, 16, 240, 320, 3), 224, 224, 1),
     ("runtime taps", (1, 2, 200, 300, 3), 16, 16, 0),
 )
+# K1 over crops against its plain version: (name, clip batch shape, out_h, out_w, byte
+# offset, crops as (kind, argument)): torchvision's ten crops at the serving frame, at
+# ShanghaiTech's and at a ragged frame (odd offsets, a short last run mirrored), the
+# five crops at an odd base address, and no_ar_distortion's square window.
+K1_CROP_CASES = (
+    ("ten-crop serving", (16, 16, 240, 320, 3), 224, 224, 0, ("multi", 10)),
+    ("ten-crop 480x856", (1, 4, 480, 856, 3), 224, 224, 0, ("multi", 10)),
+    ("ten-crop ragged", (2, 3, 61, 83, 3), 56, 44, 0, ("multi", 10)),
+    ("five-crop at base + 1 B", (2, 16, 240, 320, 3), 224, 224, 1, ("multi", 5)),
+    ("square window", (16, 16, 240, 320, 3), 224, 224, 0, ("square", None)),
+)
 # K1 timed beside the serving batch: ShanghaiTech's native frames and 1080p, bf16 out.
 K1_FRAME_SIZES = ((16, 16, 480, 856, 3), (4, 16, 1080, 1920, 3))
 K1_F32_TOL = 1e-5  # float32 rounding on [0, 1] images
@@ -86,24 +97,26 @@ F32_FLOPS = 67e12  # H100 SXM f32 rate outside the tensor cores
 
 def k1_register_report(nvcc_out: str, log=print) -> dict[str, dict[str, int]]:
     """Each K1 instantiation's registers and spill bytes from nvcc's ptxas report,
-    logged and keyed "bf16 K1<KY, SPAN>" (``k1_plan(...).kernel`` with the output type);
-    raises if one needs more registers than the blocks per SM that the plan counts on
-    for it (``K1_TAPS``) allow."""
+    logged and keyed "bf16 K1<KY, SPAN>" (``k1_plan(...).kernel`` with the output type),
+    "bf16 K1<KY, SPAN> mirror" for the instantiation that stores mirrored crops; raises if
+    one needs more registers than the blocks per SM that the plan counts on for it
+    (``K1_TAPS``) allow."""
     from ted_spad_tpu_torch.ops import preprocess as pp
     from ted_spad_tpu_torch.utils import cuda_build
 
     blocks = {f"K1<{k}, {s}>": b for k, s, b in pp.K1_TAPS} | {"K1<runtime>": pp.K1_BLOCKS_PER_SM}
     report = {}
     for name, r in cuda_build.ptxas_report(nvcc_out).items():
-        m = re.search(r"preprocess_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", name)
+        m = re.search(r"preprocess_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELb([01])E", name)
         if not m:
             continue
-        taps = "runtime" if m.group(2) == "0" else f"{m.group(2)}, {m.group(3)}"
-        label = f"{'f32' if m.group(1) == 'f' else 'bf16'} K1<{taps}>"
+        kernel = "K1<runtime>" if m.group(2) == "0" else f"K1<{m.group(2)}, {m.group(3)}>"
+        label = (f"{'f32' if m.group(1) == 'f' else 'bf16'} {kernel}"
+                 + (" mirror" if m.group(4) == "1" else ""))
         report[label] = r
         log(f"[K1 build] {label}: {r['registers']} registers, spill stores "
             f"{r['spill_stores']} B, spill loads {r['spill_loads']} B")
-        n = blocks[label.split(" ", 1)[1]]  # 256 threads a block, registers taken in eights
+        n = blocks[kernel]  # 256 threads a block, registers taken in eights
         if n * 256 * (-(-r["registers"] // 8) * 8) > pp.REGISTERS_PER_SM:
             raise AssertionError(f"K1 {label} needs {r['registers']} registers: the {n} blocks "
                                  f"per SM its plan counts on do not fit")
@@ -150,22 +163,85 @@ def k1_check(device, log=print) -> float:
     return worst
 
 
+def k1_crops(shape, kind: str, arg) -> list:
+    """The crops of a K1_CROP_CASES entry (cropping factor 0.8)."""
+    from ted_spad_tpu_torch.ops import preprocess as pp
+
+    h, w = shape[2:4]
+    if kind == "multi":
+        return pp.multi_crops(h, w, 0.8, arg)
+    return [pp.center_crop(h, w, 0.8, square=True)]
+
+
+def k1_crop_check(device, log=print) -> float:
+    """K1 over crops (one launch for all crops of a batch) against
+    fused_preprocess_reference with the same crops (TF32 off), f32 within K1_F32_TOL and
+    bf16 within K1_BF16_TOL of max|plain|, at every K1_CROP_CASES entry. Returns the
+    worst max abs error."""
+    import torch
+
+    from ted_spad_tpu_torch.ops import preprocess as pp
+    from ted_spad_tpu_torch.utils.device import tf32_off
+
+    worst = 0.0
+    for i, (name, shape, oh, ow, offset, (kind, arg)) in enumerate(K1_CROP_CASES):
+        clips = k1_clips(device, shape, offset, seed=20 + i)
+        crops = k1_crops(shape, kind, arg)
+        plan = pp.k1_plan(*shape[2:4], oh, ow, window=crops[0].window)
+        for dtype, tol in ((torch.float32, K1_F32_TOL), (torch.bfloat16, K1_BF16_TOL)):
+            launches = pp.fused_preprocess.launches
+            got = pp.fused_preprocess(clips, out_h=oh, out_w=ow, crops=crops, out_dtype=dtype)
+            if pp.fused_preprocess.launches != launches + 1:
+                raise AssertionError("K1 took more than one launch for the crops of a batch")
+            with tf32_off():
+                ref = pp.fused_preprocess_reference(clips, out_h=oh, out_w=ow, crops=crops,
+                                                    out_dtype=dtype)
+            torch.cuda.synchronize()
+            err = float((got.float() - ref.float()).abs().max())
+            scale = float(ref.float().abs().max())
+            log(f"[K1 crops] {name} {tuple(shape)} x{len(crops)} -> {oh}x{ow} {str(dtype)[6:]} "
+                f"({plan.kernel}, {plan.band_rows} rows): max|kernel - plain| = {err:.3e}, "
+                f"{err / scale:.3e} of max|plain| (tolerance {tol:.3e})")
+            if not (got.shape == ref.shape and err <= tol * scale):
+                raise AssertionError(f"K1 disagrees with its plain version at {name}: {err}")
+            worst = max(worst, err)
+    return worst
+
+
 def k1_bound(clips_shape, out_h: int, out_w: int, out_bytes: int):
     """(bytes, f32 FLOP, (window rows, cols)) that the preprocess of one clip batch
-    needs: each input byte that R_y and R_x use (the crop window) read once, each
-    output written once, and one multiply-add per nonzero tap of the two matrices."""
+    needs: ``k1_crops_bound`` of the 0.8 centre crop, and the crop window's size."""
+    import numpy as np
+
+    from ted_spad_tpu_torch.ops import preprocess as pp
+
+    h, w = clips_shape[2:4]
+    ry, rx = pp.preprocess_matrices(h, w, out_h, out_w, 0.8)
+    bytes_moved, flops = k1_crops_bound(clips_shape, [pp.center_crop(h, w, 0.8)], out_h, out_w,
+                                        out_bytes)
+    window = (np.flatnonzero(ry.any(axis=0)).size, np.flatnonzero(rx.any(axis=0)).size)
+    return bytes_moved, flops, window
+
+
+def k1_crops_bound(clips_shape, crops, out_h: int, out_w: int, out_bytes: int):
+    """(bytes, f32 FLOP) that K1 over ``crops`` of one clip batch needs: each input byte
+    some crop's R_y and R_x use read once (the union of the windows), each crop's
+    output written once, and one multiply-add per nonzero tap of each crop's two
+    matrices."""
     import numpy as np
 
     from ted_spad_tpu_torch.ops import preprocess as pp
 
     b, t, h, w, c = clips_shape
-    ry, rx = pp.preprocess_matrices(h, w, out_h, out_w, 0.8)
-    rows = np.flatnonzero(ry.any(axis=0)).size
-    cols = np.flatnonzero(rx.any(axis=0)).size
+    used = np.zeros((h, w), bool)
+    flops = 0
+    for crop in crops:
+        ry, rx = pp.window_matrices(h, w, out_h, out_w, crop.window)
+        rows, cols = ry.any(axis=0), rx.any(axis=0)
+        used |= rows[:, None] & cols[None, :]
+        flops += c * 2 * (np.count_nonzero(ry) * int(cols.sum()) + np.count_nonzero(rx) * out_h)
     n = b * t
-    bytes_moved = n * (rows * cols * c + out_h * out_w * c * out_bytes)
-    flops = n * c * 2 * (np.count_nonzero(ry) * cols + np.count_nonzero(rx) * out_h)
-    return int(bytes_moved), int(flops), (rows, cols)
+    return int(n * (int(used.sum()) * c + len(crops) * out_h * out_w * c * out_bytes)), int(n * flops)
 
 
 def time_ms(fn, reps: int = 20, inner: int = 5, queued: bool = False) -> float:
@@ -255,6 +331,7 @@ def k1(device) -> None:
     registers = k1_register_report(nvcc_out)
     print(f"build {seconds:.2f}s", flush=True)
     print(f"worst max abs error {k1_check(device):.3e}", flush=True)
+    print(f"worst max abs error over crops {k1_crop_check(device):.3e}", flush=True)
     k1_timing(device)
     for shape in K1_FRAME_SIZES:
         clips = k1_clips(device, shape, seed=98)

@@ -36,11 +36,9 @@ class FeatureExtractionParams(StageParams):
     anonymized: bool = True
     arch_fa: str = "unet++"
     arch_ft: str = "largei3d"
-    # Options of the JAX package that the port implements at their defaults only;
-    # any other value (and no_ar_distortion=True) raises NotImplementedError.
-    quirk_compat: bool = False
-    ncrops: int = 1
-    quant: str = "none"
+    quirk_compat: bool = False  # the reference's fa-return reshape (stages/feature_extraction.py)
+    ncrops: int = 1  # 1, 5 or 10 crops per clip
+    quant: str = "none"  # "int8" is not ported: NotImplementedError
 
     # DALI-equivalent windowing (dali_extraction.py:72-73): 16 frames, stride 2, step 32.
     @property
@@ -93,9 +91,8 @@ class MGFNParams:
     frames_per_clip: int = 32
     seed: int = 0
 
-    # The per-dataset blocks of option.py:33-58. XD's 1024-d features come from an
-    # ft the port does not have yet, so only this stage (which reads features from
-    # files) takes the XD preset; the serving CLI offers UCF and ST.
+    # The per-dataset blocks of option.py:33-58. XD's 1024-d features come from the
+    # "i3d" ft (InceptionI3d).
     DATASET_PRESETS = {
         "UCF": dict(
             datasetname="UCF", feature_size=2048, frames_per_clip=32,

@@ -3,10 +3,26 @@
 // Replaces the TPU kernel `_preprocess_kernel` (ted_spad_tpu/ops/pallas_preprocess.py:62,
 // launched by `fused_preprocess`). Both compute, per frame and channel,
 //     out = R_y @ img @ R_x^T      (f32 accumulation)
-// where R_y (out_h, H) and R_x (out_w, W) come from `resize_matrix`: center-crop
-// window, antialiased triangle filter, 1/255 folded into R_y. Input (N, H, W, 3)
-// uint8; output (N, out_h, out_w, 3) bf16 or f32, channels interleaved, which is an
-// NCHW tensor in channels_last format for the anonymizer's first convolution.
+// where R_y (out_h, H) and R_x (out_w, W) come from `resize_matrix`: crop window,
+// antialiased triangle filter, 1/255 folded into R_y. Input (N, H, W, 3) uint8;
+// output (N, out_h, out_w, 3) bf16 or f32, channels interleaved, which is an NCHW
+// tensor in channels_last format for the anonymizer's first convolution.
+//
+// Crops. The TPU kernel baked in the centre crop; the JAX stage sent its other crops
+// (torchvision's five and ten crops, the square window of no_ar_distortion) through
+// XLA. Here one launch serves up to kMaxCrops windows of one size: the tables are
+// planned for the first window, and a window of the same size at another place has
+// the same matrices shifted by its offset (dy, dx), so a crop only moves the rows and
+// columns a block stages. A mirrored crop (the ten-crop's flipped five) reverses each
+// run in registers and stores it at output column out_w - 1 - x: no flip pass, and
+// the band tables keep their rising starts. The crop is the grid's y index and its
+// offsets are read by that index from the parameters; the mirrored store lives in its
+// own instantiation (MIRROR), launched only when a crop is mirrored. Measured (PERF.md,
+// section 6): a first form with the mirror compiled into every kernel and the crop
+// decoded from blockIdx.x cost the centre crop 21% of its time; this one is within 1%
+// of the kernel without crops at the serving frame, 2% slower at 480x856 and 1080p.
+// Output frame (clip, crop, t) of (clips, n_crops, clip_frames, out_h, out_w, 3): the
+// crop axis sits before time.
 //
 // Bound. At the serving shape (16 clips x 16 frames of 240x320x3 uint8 -> 224x224x3
 // bf16) the function must read the 0.8 crop window, 192x256x3 bytes per frame
@@ -69,6 +85,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRun = 8;  // output pixels per thread (ops/preprocess.py: K1_RUN)
+constexpr int kMaxCrops = 16;  // windows of one launch (ops/preprocess.py: K1_MAX_CROPS)
 
 struct Params {
   const uint8_t* in;
@@ -79,6 +96,9 @@ struct Params {
   int ky, span;  // taps as padded by the plan (the template's, unless it is <0, 0>)
   int n_frames, h, w, col0, n_cols, out_h, out_w, runs;
   int band_rows, n_bands, rows_buf, row_pitch;
+  int n_crops, clip_frames;  // crops per frame; frames per clip of the output layout
+  int crop_dy[kMaxCrops], crop_dx[kMaxCrops];  // each crop's offset from the planned window
+  unsigned mirror_mask;  // bit c: crop c is mirrored
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -116,6 +136,9 @@ __device__ __forceinline__ void store_run(float* dst, const float* v, int n) {
       if (i < n * 3) dst[i] = v[i];
   }
 }
+__device__ __forceinline__ float to_out(float v, float*) { return v; }
+__device__ __forceinline__ __nv_bfloat16 to_out(float v, __nv_bfloat16*) { return __float2bfloat16_rn(v); }
+
 __device__ __forceinline__ void store_run(__nv_bfloat16* dst, const float* v, int n) {
   if (n == kRun && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
     uint4* d = reinterpret_cast<uint4*>(dst);
@@ -130,9 +153,30 @@ __device__ __forceinline__ void store_run(__nv_bfloat16* dst, const float* v, in
   }
 }
 
+// A run of n outputs mirrored: v's pixel q goes to dst pixel n - 1 - q, where dst is the
+// run's first pixel in the mirrored row. Constant indices into v keep it in registers.
+template <typename OutT>
+__device__ __forceinline__ void store_run_mirrored(OutT* dst, const float* v, int n) {
+  if (n == kRun) {
+    float r[kRun * 3];
+#pragma unroll
+    for (int q = 0; q < kRun; ++q)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) r[q * 3 + c] = v[(kRun - 1 - q) * 3 + c];
+    store_run(dst, r, kRun);
+  } else {
+#pragma unroll
+    for (int q = 0; q < kRun; ++q)
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        if (q < n) dst[(n - 1 - q) * 3 + c] = to_out(v[q * 3 + c], dst);
+  }
+}
+
 // KY > 0: compile-time taps (KY rows, SPAN columns per run), tables in shared memory.
 // KY == 0: runtime taps (p.ky, p.span), tables read from device memory.
-template <typename OutT, int KY, int SPAN>
+// MIRROR: the crops of p.mirror_mask are stored mirrored.
+template <typename OutT, int KY, int SPAN, bool MIRROR>
 __global__ void __launch_bounds__(kThreads) preprocess_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr bool kStatic = KY > 0;
@@ -144,15 +188,19 @@ __global__ void __launch_bounds__(kThreads) preprocess_kernel(const Params p) {
   const uintptr_t in_lo = reinterpret_cast<uintptr_t>(p.in);
   const uintptr_t in_hi = in_lo + p.in_bytes;
 
-  // This block's work item: one band of output rows of one frame.
+  // This block's work item: one band of output rows of one frame (x), one crop (y).
   const int frame = blockIdx.x / p.n_bands;
   const int oy0 = (blockIdx.x - frame * p.n_bands) * p.band_rows;
   const int n_out = min(p.band_rows, p.out_h - oy0);
+  const int crop = blockIdx.y;
+  const int dy = p.crop_dy[crop], dx = p.crop_dx[crop];
+  const bool mirror = MIRROR && ((p.mirror_mask >> crop) & 1u);
   const int* vstart_g = reinterpret_cast<const int*>(p.tables + p.vstart_off);
-  const int r0 = __ldg(vstart_g + oy0);
-  const int n_in = min(__ldg(vstart_g + oy0 + n_out - 1) + ky, p.h) - r0;
+  const int v0 = __ldg(vstart_g + oy0);  // the band's first row in the planned window
+  const int r0 = v0 + dy;
+  const int n_in = min(__ldg(vstart_g + oy0 + n_out - 1) + ky + dy, p.h) - r0;
   const uintptr_t first = in_lo + (static_cast<size_t>(frame) * p.h + r0) * w3 +
-                          static_cast<size_t>(p.col0) * 3;
+                          static_cast<size_t>(p.col0 + dx) * 3;
 
   // 1. Copies, all in flight together: the tables (compile-time taps only) and the
   //    band's input rows, window columns only, each row as the 16-byte-aligned
@@ -191,10 +239,13 @@ __global__ void __launch_bounds__(kThreads) preprocess_kernel(const Params p) {
   const int* xs = reinterpret_cast<const int*>(tab + p.xs_off);
   const int* vstart = reinterpret_cast<const int*>(tab + p.vstart_off);
   const uint32_t first_lo = static_cast<uint32_t>(first);
-  OutT* out = static_cast<OutT*>(p.out) + (static_cast<size_t>(frame) * p.out_h + oy0) * p.out_w * 3;
+  const int clip = frame / p.clip_frames;
+  const size_t out_frame = (static_cast<size_t>(clip) * p.n_crops + crop) * p.clip_frames +
+                           (frame - clip * p.clip_frames);
+  OutT* out = static_cast<OutT*>(p.out) + (out_frame * p.out_h + oy0) * p.out_w * 3;
   for (int u = threadIdx.x; u < n_out * p.runs; u += kThreads) {
     const int ty = u / p.runs, run = u - ty * p.runs;
-    const int vs = vstart[oy0 + ty] - r0;
+    const int vs = vstart[oy0 + ty] - v0;
     const float* wy = vw + (oy0 + ty) * ky;
     const float* wr = wrun + run * rstride;
     const uint32_t x3 = 3u * xs[run];
@@ -234,17 +285,22 @@ __global__ void __launch_bounds__(kThreads) preprocess_kernel(const Params p) {
           for (int c = 0; c < 3; ++c) acc[q * 3 + c] = fmaf(wx[q], v[jj * 3 + c], acc[q * 3 + c]);
       }
     }
-    store_run(out + (static_cast<size_t>(ty) * p.out_w + run * kRun) * 3, acc,
-              min(kRun, p.out_w - run * kRun));
+    const int n = min(kRun, p.out_w - run * kRun);
+    if (mirror)
+      store_run_mirrored(out + (static_cast<size_t>(ty) * p.out_w + p.out_w - run * kRun - n) * 3,
+                         acc, n);
+    else
+      store_run(out + (static_cast<size_t>(ty) * p.out_w + run * kRun) * 3, acc, n);
   }
 }
 
 template <typename OutT, int KY, int SPAN>
 int launch(const Params& p, int smem, cudaStream_t stream) {
-  auto kernel = preprocess_kernel<OutT, KY, SPAN>;
+  auto kernel = p.mirror_mask ? preprocess_kernel<OutT, KY, SPAN, true>
+                              : preprocess_kernel<OutT, KY, SPAN, false>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<p.n_frames * p.n_bands, kThreads, smem, stream>>>(p);
+  kernel<<<dim3(p.n_frames * p.n_bands, p.n_crops), kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -263,18 +319,29 @@ int dispatch(const Params& p, bool is_static, int smem, cudaStream_t s) {
 }  // namespace
 
 // Plain C entry point (bound with ctypes). `in` is (n_frames, h, w, 3) uint8 spanning
-// in_bytes; `out` is (n_frames, out_h, out_w, 3) float32 (out_bf16 == 0) or bfloat16.
-// `tables` and the geometry come from ops/preprocess.py:k1_plan, `smem` is the plan's
-// shared bytes; one block per (frame, band). Returns the cudaError_t of the launch.
+// in_bytes; `out` is (n_frames / clip_frames, n_crops, clip_frames, out_h, out_w, 3)
+// float32 (out_bf16 == 0) or bfloat16. `tables` and the geometry come from
+// ops/preprocess.py:k1_plan for the first crop's window, `smem` is the plan's shared
+// bytes; `crops` holds (dy, dx, mirror) per crop, host memory read here. One block per
+// (frame and band, crop). Returns the cudaError_t of the launch.
 extern "C" int ted_preprocess_u8(const uint8_t* in, long long in_bytes, void* out, int out_bf16,
                                  const float* tables, int table_words, int wrun_off, int vw_off,
                                  int xs_off, int vstart_off, int ky, int span, int is_static,
                                  int n_frames, int h, int w, int col0, int n_cols, int out_h,
                                  int out_w, int runs, int band_rows, int rows_buf, int row_pitch,
-                                 int smem, void* stream) {
+                                 int smem, void* stream, const int* crops, int n_crops,
+                                 int clip_frames) {
+  if (n_crops < 1 || n_crops > kMaxCrops || clip_frames < 1 || n_frames % clip_frames != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   Params p{in, static_cast<unsigned long long>(in_bytes), out, tables, table_words, wrun_off,
            vw_off, xs_off, vstart_off, ky, span, n_frames, h, w, col0, n_cols, out_h, out_w,
-           runs, band_rows, (out_h + band_rows - 1) / band_rows, rows_buf, row_pitch};
+           runs, band_rows, (out_h + band_rows - 1) / band_rows, rows_buf, row_pitch,
+           n_crops, clip_frames, {}, {}, 0u};
+  for (int c = 0; c < n_crops; ++c) {
+    p.crop_dy[c] = crops[3 * c];
+    p.crop_dx[c] = crops[3 * c + 1];
+    if (crops[3 * c + 2]) p.mirror_mask |= 1u << c;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return out_bf16 ? dispatch<__nv_bfloat16>(p, is_static, smem, s)
                   : dispatch<float>(p, is_static, smem, s);

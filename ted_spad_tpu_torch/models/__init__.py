@@ -13,16 +13,23 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ted_spad_tpu_torch.models.i3d import InceptionI3d
 from ted_spad_tpu_torch.models.i3res50 import I3Res50, WrapperI3D
 from ted_spad_tpu_torch.models.mgfn import MGFN
+from ted_spad_tpu_torch.models.mvit import MViTv2S
+from ted_spad_tpu_torch.models.r3d import R3D18
 from ted_spad_tpu_torch.models.resnet2d import ResNet2D
 from ted_spad_tpu_torch.models.unet import UNet, UNetPlusPlus
 from ted_spad_tpu_torch.utils.device import resolve_device, torch_dtype
 from ted_spad_tpu_torch.utils.jax_weights import FT_HEADS, load_jax_checkpoint
 
 __all__ = [
+    "FT_FEATURE_DIMS",
     "I3Res50",
+    "InceptionI3d",
     "MGFN",
+    "MViTv2S",
+    "R3D18",
     "ResNet2D",
     "UNet",
     "UNetPlusPlus",
@@ -35,6 +42,10 @@ __all__ = [
 # Reduced widths/depths for CPU tests: the same architectures, never used for weight parity
 # with a trained model.
 _TINY_FT_SPECS = ((8, 1, 1, (1,)), (16, 1, 2, (1,)), (32, 1, 2, (1,)), (64, 1, 2, (0,)))
+
+# Width of each ft architecture's clip feature (extract_features), as the extraction
+# stage writes it and MGFN's feature_size must match.
+FT_FEATURE_DIMS = {"largei3d": 2048, "i3d": 1024, "r3d_18": 512, "mvitv2": 768}
 
 
 def _place(model: nn.Module, device, dtype: torch.dtype, channels_last: str | None) -> nn.Module:
@@ -78,22 +89,44 @@ def load_ft_model(
     arch: str = "largei3d",
     *,
     saved_model_file: str | None = None,
+    num_classes: int = 400,
+    dropout_rate: float | None = None,
+    clip_shape: tuple[int, int, int] = (16, 224, 224),
     seed: int = 0,
     dtype: str | None = "bfloat16",
     tiny: bool = False,
     device: str | torch.device = "cuda",
-) -> WrapperI3D:
-    """Utility model factory (model_loaders.py:56-91), feature path. Only
-    ``arch='largei3d'`` is ported. A checkpoint's classifier and MLP head
-    (``FT_HEADS``) are not read: the feature path does not hold them."""
-    if arch != "largei3d":
-        raise NotImplementedError(f"ft architecture {arch!r} is not ported; use 'largei3d'")
+) -> WrapperI3D | InceptionI3d | R3D18 | MViTv2S:
+    """Utility model factory (model_loaders.py:56-91): ``"largei3d"`` (I3Res50, the
+    default), ``"i3d"`` (InceptionI3d), ``"r3d_18"`` or ``"mvitv2"`` (MViTv2-S, built
+    for ``clip_shape``, (T, H, W), which sizes its rel-pos tables). Each has
+    ``extract_features`` (FT_FEATURE_DIMS wide). The last three hold their classifier
+    (``num_classes``; ``dropout_rate`` is InceptionI3d's) as the JAX modules do, and
+    read it from a checkpoint too; the port's I3Res50 holds the feature path only, so
+    a checkpoint's classifier and MLP head (``FT_HEADS``) are not read, and
+    ``num_classes`` / ``dropout_rate`` do not apply to it. ``tiny`` exists for
+    ``"largei3d"`` only, as in the JAX package."""
+    if tiny and arch != "largei3d":
+        raise ValueError(f"tiny variant only exists for 'largei3d', not {arch!r}")
     g = torch.Generator().manual_seed(seed)
-    kw = dict(layer_specs=_TINY_FT_SPECS, stem_width=8) if tiny else {}
-    model = WrapperI3D(generator=g, **kw)
+    skip: tuple = ()
+    if arch == "largei3d":
+        kw = dict(layer_specs=_TINY_FT_SPECS, stem_width=8) if tiny else {}
+        model, skip = WrapperI3D(generator=g, **kw), FT_HEADS
+    elif arch == "i3d":
+        kw = {"dropout_rate": dropout_rate} if dropout_rate is not None else {}
+        model = InceptionI3d(num_classes, generator=g, **kw)
+    elif arch == "r3d_18":
+        model = R3D18(num_classes, generator=g)
+    elif arch == "mvitv2":
+        model = MViTv2S(num_classes, clip_shape=tuple(clip_shape), generator=g)
+    else:
+        raise ValueError(f"Architecture {arch!r} invalid for ft_model. Try 'i3d', 'largei3d', "
+                         f"'mvitv2', or 'r3d_18'")
     if saved_model_file:
-        load_jax_checkpoint(model, saved_model_file, "ft_model_state_dict", skip=FT_HEADS)
-    return _place(model, device, torch_dtype(dtype), "channels_last_3d")
+        load_jax_checkpoint(model, saved_model_file, "ft_model_state_dict", skip=skip)
+    # MViT works on token sequences; its only convs are the patch embed and the poolings.
+    return _place(model, device, torch_dtype(dtype), None if arch == "mvitv2" else "channels_last_3d")
 
 
 def load_mgfn_model(params=None, saved_model_file: str | None = None, *,

@@ -92,3 +92,35 @@ def max_pool_valid(x: torch.Tensor, window: Sequence[int], strides: Sequence[int
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """Mean over all spatial dims in float32: (B, C, ...) -> (B, C)."""
     return x.float().mean(dim=tuple(range(2, x.dim())))
+
+
+def tf_same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
+    """TF's dynamic SAME padding of one dim (i3d.py:15-19, 89-111): ``pad // 2`` in
+    front, the rest behind."""
+    pad = max(kernel - (stride if size % stride == 0 else size % stride), 0)
+    return pad // 2, pad - pad // 2
+
+
+def pad_tf_same(x: torch.Tensor, window: Sequence[int], strides: Sequence[int],
+                value: float = 0.0) -> torch.Tensor:
+    """``x`` (B, C, *spatial) padded as TF's dynamic SAME padding asks for ``window``
+    and ``strides`` over the spatial dims (asymmetric where the pad is odd)."""
+    pads = [tf_same_pads(x.shape[2 + d], k, s) for d, (k, s) in enumerate(zip(window, strides))]
+    if not any(lo or hi for lo, hi in pads):
+        return x
+    return F.pad(x, [p for pair in reversed(pads) for p in pair], value=value)
+
+
+def max_pool_same(x: torch.Tensor, window: Sequence[int], strides: Sequence[int]) -> torch.Tensor:
+    """MaxPool3dSamePadding (i3d.py:13-45): TF-SAME padding with the dtype's lowest
+    finite value, then a VALID max pool over the spatial dims of (B, C, *spatial)."""
+    x = pad_tf_same(x, window, strides, value=torch.finfo(x.dtype).min)
+    return max_pool_valid(x, window, strides)
+
+
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator, std: float | None = None) -> None:
+    """Normal weights of std 1/sqrt(fan_in) (flax's default kernel init), or ``std``,
+    drawn from ``generator``."""
+    fan_in = math.prod(weight.shape[1:])
+    with torch.no_grad():
+        weight.normal_(0.0, std if std is not None else 1.0 / math.sqrt(fan_in), generator=generator)

@@ -1,23 +1,27 @@
-"""Fused uint8 clip preprocess: center crop -> antialiased bilinear resize -> /255.
+"""Fused uint8 clip preprocess: crop -> antialiased bilinear resize -> /255 (-> mirror).
 
-Counterpart of ted_spad_tpu/ops/pallas_preprocess.py. The separable resample is
+Counterpart of ted_spad_tpu/ops/pallas_preprocess.py, and of the crops of
+ted_spad_tpu/ops/augment.py that the JAX extraction stage sends through XLA
+(5/10-crop, the square window of ``no_ar_distortion``). The separable resample is
 ``R_y @ img @ R_x^T`` per image plane, where ``resize_matrix`` bakes the crop
-window, the triangle filter and the 1/255 gain into the matrices.
+window, the triangle filter and the 1/255 gain into the matrices; a crop is a
+``Crop`` (window and mirror flag), the centre crop being the default one.
 
 - ``fused_preprocess_reference``: the plain version, two f32 ``torch.matmul``s per
-  plane with the dense matrices.
+  plane with the dense matrices, then a flip for a mirrored crop.
 - ``fused_preprocess``: the kernel wrapper (K1, csrc/preprocess.cu). On a CUDA
-  tensor it launches the hand-written kernel; on a CPU tensor it runs the plain
-  version. Its ``launches`` attribute counts kernel launches.
+  tensor it launches the hand-written kernel once for all crops of a batch; on a CPU
+  tensor it runs the plain version. Its ``launches`` attribute counts kernel launches.
 - ``k1_plan``: the kernel's instantiation, padded band tables and launch geometry for
-  a shape, computed as the kernel reads them; raises ``ValueError`` where nothing fits.
+  a shape and window, computed as the kernel reads them; raises ``ValueError`` where
+  nothing fits.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -59,21 +63,68 @@ def resize_matrix(
     return out * scale_gain
 
 
-def crop_window(size: int, cropping_factor: float) -> tuple[int, int]:
-    """(start, length) of the center crop along one axis. ``cropping_factor > 1``
-    means no crop. The start rounds half to even, as torchvision's center_crop."""
-    length = int(size * cropping_factor) if cropping_factor <= 1 else size
+def crop_window(size: int, cropping_factor: float, length: int | None = None) -> tuple[int, int]:
+    """(start, length) of the center crop along one axis: ``length`` if given, else
+    ``cropping_factor`` of ``size``, where ``cropping_factor > 1`` means no crop. The
+    start rounds half to even, as torchvision's center_crop."""
+    if length is None:
+        length = int(size * cropping_factor) if cropping_factor <= 1 else size
     return int(round((size - length) / 2.0)), length
 
 
-@functools.lru_cache(maxsize=16)
-def preprocess_matrices(h: int, w: int, out_h: int, out_w: int, cropping_factor: float):
-    """(R_y with the 1/255 gain, R_x) for one input/output shape, as numpy f32."""
-    y0, ch = crop_window(h, cropping_factor)
-    x0, cw = crop_window(w, cropping_factor)
+class Crop(NamedTuple):
+    """A window of a frame (top row, left column, rows, columns) resized to the output,
+    and whether the output is mirrored left to right."""
+    y0: int
+    x0: int
+    h: int
+    w: int
+    mirror: bool = False
+
+    @property
+    def window(self) -> tuple[int, int, int, int]:
+        return self.y0, self.x0, self.h, self.w
+
+
+def center_crop(h: int, w: int, cropping_factor: float, square: bool = False) -> Crop:
+    """The centre window of an h x w frame: ``cropping_factor`` of each side, or with
+    ``square`` (``no_ar_distortion``) a square of that factor of the shorter side;
+    the whole frame when ``cropping_factor > 1``."""
+    side = int(min(h, w) * cropping_factor) if square and cropping_factor <= 1 else None
+    y0, ch = crop_window(h, cropping_factor, side)
+    x0, cw = crop_window(w, cropping_factor, side)
+    return Crop(y0, x0, ch, cw)
+
+
+def multi_crops(h: int, w: int, cropping_factor: float, ncrops: int) -> list[Crop]:
+    """torchvision's five_crop / ten_crop windows of ``cropping_factor`` of each side:
+    top-left, top-right, bottom-left, bottom-right, centre; for ten, then the five of
+    the mirrored frame, which are the mirrored (tr, tl, br, bl, centre) views."""
+    if ncrops not in (5, 10):
+        raise ValueError(f"ncrops must be 5 or 10, got {ncrops}")
+    if cropping_factor > 1:
+        raise ValueError(f"multi-crop takes cropping_factor <= 1, got {cropping_factor}")
+    c = center_crop(h, w, cropping_factor)
+    five = [Crop(0, 0, c.h, c.w), Crop(0, w - c.w, c.h, c.w), Crop(h - c.h, 0, c.h, c.w),
+            Crop(h - c.h, w - c.w, c.h, c.w), c]
+    if ncrops == 5:
+        return five
+    return five + [five[i]._replace(mirror=True) for i in (1, 0, 3, 2, 4)]
+
+
+@functools.lru_cache(maxsize=32)
+def window_matrices(h: int, w: int, out_h: int, out_w: int, window: tuple[int, int, int, int]):
+    """(R_y with the 1/255 gain, R_x) of one window (y0, x0, rows, columns) of an
+    h x w frame resized to out_h x out_w, as numpy f32."""
+    y0, x0, ch, cw = window
     ry = resize_matrix(h, out_h, y0, ch, scale_gain=1.0 / 255.0)
     rx = resize_matrix(w, out_w, x0, cw)
     return ry, rx
+
+
+def preprocess_matrices(h: int, w: int, out_h: int, out_w: int, cropping_factor: float):
+    """``window_matrices`` of the centre crop."""
+    return window_matrices(h, w, out_h, out_w, center_crop(h, w, cropping_factor).window)
 
 
 def band(m: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -97,17 +148,25 @@ def fused_preprocess_reference(
     out_h: int = 224,
     out_w: int = 224,
     cropping_factor: float = 0.8,
+    crops: Sequence[Crop] | None = None,
     out_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
     """Plain version: (B, T, H, W, 3) uint8 -> (B, T, out_h, out_w, 3) ``out_dtype``
-    as two f32 matmuls per plane with the dense resample matrices."""
+    (the centre crop of ``cropping_factor``), or with ``crops`` (B, len(crops), T,
+    out_h, out_w, 3), as two f32 matmuls per plane with each window's dense resample
+    matrices, then a flip of the mirrored crops."""
     b, t, h, w, c = clips_u8.shape
-    ry, rx = preprocess_matrices(h, w, out_h, out_w, float(cropping_factor))
-    ry = torch.from_numpy(ry).to(clips_u8.device)
-    rxt = torch.from_numpy(rx).to(clips_u8.device).T
     planes = clips_u8.reshape(b * t, h, w, c).permute(0, 3, 1, 2).float()  # (BT, 3, H, W)
-    out = torch.matmul(torch.matmul(ry, planes), rxt)  # (BT, 3, out_h, out_w)
-    return out.permute(0, 2, 3, 1).reshape(b, t, out_h, out_w, c).to(out_dtype)
+    views = []
+    for crop in crops or [center_crop(h, w, float(cropping_factor))]:
+        ry, rx = window_matrices(h, w, out_h, out_w, crop.window)
+        ry = torch.from_numpy(ry).to(clips_u8.device)
+        rxt = torch.from_numpy(rx).to(clips_u8.device).T
+        out = torch.matmul(torch.matmul(ry, planes), rxt)  # (BT, 3, out_h, out_w)
+        if crop.mirror:
+            out = out.flip(-1)
+        views.append(out.permute(0, 2, 3, 1).reshape(b, t, out_h, out_w, c).to(out_dtype))
+    return torch.stack(views, dim=1) if crops else views[0]
 
 
 K1_RUN = 8  # output pixels per thread (csrc/preprocess.cu: kRun)
@@ -148,7 +207,7 @@ class K1Plan(NamedTuple):
     vw: np.ndarray  # (out_h, ky) float32: the band's weights (R_y, 1/255 folded in)
     xs: np.ndarray  # (runs,) int32: first input column of each run, from col0
     wrun: np.ndarray  # (runs, span, K1_RUN) float32: R_x over each run's columns
-    key: tuple  # k1_plan's arguments, which key the device copy of the tables
+    key: tuple  # (h, w, out_h, out_w, window): keys the device copy of the tables
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -202,14 +261,22 @@ def _table_words(plan: K1Plan) -> tuple[np.ndarray, tuple[int, ...]]:
     return words, tuple(int(x) for x in np.cumsum([0] + sizes[:-1]))
 
 
-@functools.lru_cache(maxsize=32)
-def k1_plan(h: int, w: int, out_h: int, out_w: int, cropping_factor: float = 0.8) -> K1Plan:
-    """K1's instantiation, tables and launch geometry for one shape. The taps are the
-    first K1_TAPS entry that holds R_y's band and every run's columns, else the
+def k1_plan(h: int, w: int, out_h: int, out_w: int, cropping_factor: float = 0.8, *,
+            window: tuple[int, int, int, int] | None = None) -> K1Plan:
+    """K1's instantiation, tables and launch geometry for one shape and window
+    (y0, x0, rows, columns; default the centre crop of ``cropping_factor``). The taps
+    are the first K1_TAPS entry that holds R_y's band and every run's columns, else the
     runtime-taps instantiation. The band is the largest of K1_BANDS whose block fits
     as many to an SM as the instantiation's registers allow, else the largest that fits
     one. Raises ValueError where nothing fits."""
-    ry, rx = preprocess_matrices(h, w, out_h, out_w, float(cropping_factor))
+    if window is None:
+        window = center_crop(h, w, float(cropping_factor)).window
+    return _window_plan(h, w, out_h, out_w, tuple(window))
+
+
+@functools.lru_cache(maxsize=32)
+def _window_plan(h: int, w: int, out_h: int, out_w: int, window: tuple) -> K1Plan:
+    ry, rx = window_matrices(h, w, out_h, out_w, window)
     xstart, xw = band(rx)
     ky_used, kx = band(ry)[1].shape[1], xw.shape[1]
     col0 = int(xstart.min())
@@ -236,15 +303,15 @@ def k1_plan(h: int, w: int, out_h: int, out_w: int, cropping_factor: float = 0.8
                     name = f"K1<{ky}, {span}>" if static else "K1<runtime>"
                     return K1Plan(name, ky, span, static, rows, _cdiv(out_h, rows), rows_buf,
                                   row_pitch, smem, blocks, col0, n_cols, runs, vstart, vw, xs,
-                                  wrun, (h, w, out_h, out_w, float(cropping_factor)))
+                                  wrun, (h, w, out_h, out_w, window))
     raise ValueError(f"fused_preprocess: a {h}x{w} frame does not fit the kernel's shared "
                      f"memory (one staged input row is {row_pitch} B)")
 
 
 @functools.lru_cache(maxsize=16)
 def _device_tables(key: tuple, device: torch.device) -> tuple[torch.Tensor, tuple[int, ...]]:
-    """The tables of ``k1_plan(*key)`` on ``device`` and their word offsets."""
-    words, offsets = _table_words(k1_plan(*key))
+    """The tables of the plan keyed ``key`` on ``device`` and their word offsets."""
+    words, offsets = _table_words(_window_plan(*key))
     return torch.from_numpy(words).to(device), offsets
 
 
@@ -255,8 +322,29 @@ def _library():
     lib = load("preprocess")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.ted_preprocess_u8.restype = i
-    lib.ted_preprocess_u8.argtypes = [p, ctypes.c_longlong, p, i, p] + [i] * 20 + [p]
+    lib.ted_preprocess_u8.argtypes = [p, ctypes.c_longlong, p, i, p] + [i] * 20 + [p, p, i, i]
     return lib
+
+
+K1_MAX_CROPS = 16  # csrc/preprocess.cu: kMaxCrops
+
+
+def _crop_table(plan: K1Plan, h: int, w: int, crops: Sequence[Crop]) -> np.ndarray:
+    """(dy, dx, mirror) of each crop against the planned window, the first crop's: the
+    kernel shifts that window's tables, so every crop must have its size and, shifted,
+    read inside the frame."""
+    first = crops[0]
+    rows = []
+    for crop in crops:
+        if (crop.h, crop.w) != (first.h, first.w):
+            raise ValueError(f"fused_preprocess: crops of one launch share a size, got {crops}")
+        if not (0 <= crop.y0 and crop.y0 + crop.h <= h and 0 <= crop.x0 and crop.x0 + crop.w <= w):
+            raise ValueError(f"fused_preprocess: {crop} lies outside a {h}x{w} frame")
+        dy, dx = crop.y0 - first.y0, crop.x0 - first.x0
+        if int(plan.vstart.min()) + dy < 0 or not 0 <= plan.col0 + dx <= w - plan.n_cols:
+            raise ValueError(f"fused_preprocess: {crop} shifts the planned window out of the frame")
+        rows.append((dy, dx, int(crop.mirror)))
+    return np.ascontiguousarray(rows, dtype=np.int32)
 
 
 def fused_preprocess(
@@ -265,32 +353,43 @@ def fused_preprocess(
     out_h: int = 224,
     out_w: int = 224,
     cropping_factor: float = 0.8,
+    crops: Sequence[Crop] | None = None,
     out_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
-    """(B, T, H, W, 3) uint8 -> (B, T, out_h, out_w, 3) normalized [0, 1] ``out_dtype``.
+    """(B, T, H, W, 3) uint8 -> (B, T, out_h, out_w, 3) normalized [0, 1] ``out_dtype``
+    (the centre crop of ``cropping_factor``), or with ``crops`` (windows of one size,
+    each optionally mirrored) -> (B, len(crops), T, out_h, out_w, 3).
 
-    On CUDA this launches kernel K1 on the current stream. Its output memory is
-    (B*T, out_h, out_w, 3), i.e. frames in NCHW ``channels_last`` format after a
-    permute, which costs no copy. On the CPU it runs ``fused_preprocess_reference``.
+    On CUDA this launches kernel K1 once on the current stream, for every crop. Its
+    output memory is (frames, out_h, out_w, 3), i.e. frames in NCHW ``channels_last``
+    format after a permute, which costs no copy. On the CPU it runs
+    ``fused_preprocess_reference``.
     """
     if clips_u8.dtype != torch.uint8 or clips_u8.dim() != 5 or clips_u8.shape[-1] != 3:
         raise ValueError(f"fused_preprocess takes (B, T, H, W, 3) uint8, got "
                          f"{tuple(clips_u8.shape)} {clips_u8.dtype}")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"fused_preprocess writes float32 or bfloat16, not {out_dtype}")
+    if crops is not None and not 0 < len(crops) <= K1_MAX_CROPS:
+        raise ValueError(f"fused_preprocess takes 1 to {K1_MAX_CROPS} crops, got {len(crops)}")
     if clips_u8.device.type == "cpu":
         return fused_preprocess_reference(clips_u8, out_h=out_h, out_w=out_w,
-                                          cropping_factor=cropping_factor, out_dtype=out_dtype)
+                                          cropping_factor=cropping_factor, crops=crops,
+                                          out_dtype=out_dtype)
     if clips_u8.device.type != "cuda":
         raise ValueError(f"fused_preprocess runs on cuda or cpu, not {clips_u8.device}")
     if not clips_u8.is_contiguous():
         raise ValueError("fused_preprocess needs a contiguous clip batch")
     b, t, h, w, c = clips_u8.shape
-    plan = k1_plan(h, w, out_h, out_w, float(cropping_factor))
+    launch_crops = list(crops) if crops is not None else [center_crop(h, w, float(cropping_factor))]
+    plan = k1_plan(h, w, out_h, out_w, window=launch_crops[0].window)
+    table = _crop_table(plan, h, w, launch_crops)
+    n = len(launch_crops)
     if b * t * plan.n_bands >= 2**31:
         raise ValueError(f"fused_preprocess launches one block per frame and band: {b * t} "
                          f"frames x {plan.n_bands} bands exceed the grid's 2**31 - 1")
-    out = torch.empty((b, t, out_h, out_w, c), dtype=out_dtype, device=clips_u8.device)
+    shape = (b, t) if crops is None else (b, n, t)
+    out = torch.empty(shape + (out_h, out_w, c), dtype=out_dtype, device=clips_u8.device)
     tables, (wrun_off, vw_off, xs_off, vstart_off) = _device_tables(plan.key, clips_u8.device)
     with torch.cuda.device(clips_u8.device):
         err = _library().ted_preprocess_u8(
@@ -299,7 +398,7 @@ def fused_preprocess(
             vw_off, xs_off, vstart_off, plan.ky, plan.span, int(plan.static), b * t, h, w,
             plan.col0, plan.n_cols, out_h, out_w, plan.runs, plan.band_rows, plan.rows_buf,
             plan.row_pitch, plan.smem_bytes,
-            torch.cuda.current_stream().cuda_stream,
+            torch.cuda.current_stream().cuda_stream, table.ctypes.data, n, t,
         )
     if err != 0:
         raise RuntimeError(f"fused_preprocess: kernel launch failed with cudaError {err}")

@@ -14,7 +14,8 @@ resumes.
 
 Configuration: ``--params FILE`` overlays a reference-style ``params_*.py`` file on
 ``FeatureExtractionParams`` (e.g. ``arch_fa = "unet"`` selects the plain UNet fa,
-whose DoubleConvs run kernel K2).
+whose DoubleConvs run kernel K2; ``arch_ft = "i3d"`` the InceptionI3d ft, whose 1024-d
+features ``--datasetname XD`` takes). The features' width must be the MGFN preset's.
 
 Weights: ``--saved_model_fa`` / ``--saved_model_ft`` / ``--mgfn_ckpt`` take the
 checkpoints the JAX package's stages write (flax msgpack, read under
@@ -29,7 +30,6 @@ Synthetic smoke on the CPU: ``python -m ted_spad_tpu_torch.score_video --synthet
 from __future__ import annotations
 
 import argparse
-import glob
 import hashlib
 import json
 import os
@@ -55,9 +55,8 @@ def spans_above(frame_scores, threshold: float) -> list[list[int]]:
 def run(args) -> list[dict]:
     """Score every video; returns the per-video summaries (also written to
     ``<out_dir>/summary.json``)."""
-    from ted_spad_tpu_torch.config.params import (
-        FeatureExtractionParams, MGFNParams, apply_params_file,
-    )
+    from ted_spad_tpu_torch.cli import extraction_inputs
+    from ted_spad_tpu_torch.config.params import MGFNParams
     from ted_spad_tpu_torch.data.features import padded_test_batch
     from ted_spad_tpu_torch.data.video_reader import open_video
     from ted_spad_tpu_torch.models import load_fa_model, load_ft_model, load_mgfn_model
@@ -71,22 +70,10 @@ def run(args) -> list[dict]:
     )
 
     device = resolve_device(args.device)
-    p = apply_params_file(FeatureExtractionParams(anonymized=not args.raw, seed=args.seed),
-                          args.params)
+    p, uris, decode_hw = extraction_inputs(args, n_synthetic=2)
     mp = MGFNParams.for_dataset(args.datasetname, seed=args.seed)
-    if args.synthetic:
-        # Tiny shapes and procedural videos; MGFN's internal dims shrink too.
-        p = p.replace(num_frames=8, reso_h=32, reso_w=32, compute_dtype="float32")
-        uris = [f"synthetic://n=120,h=40,w=80,seed={i}" for i in range(2)]
-        decode_hw = (40, 80)
+    if args.synthetic:  # MGFN's internal dims shrink too
         mp = mp.replace(dims=(16, 32, 64), depths=(1, 1, 1), dim_head=16)
-    else:
-        if not args.videos_glob:
-            raise SystemExit("pass --videos_glob or --synthetic")
-        uris = sorted(glob.glob(args.videos_glob))
-        if not uris:
-            raise SystemExit(f"--videos_glob {args.videos_glob!r} matched no files")
-        decode_hw = tuple(args.decode_hw) if args.decode_hw else (240, 320)
 
     cfg = (f"{p!r}|rgb|{decode_hw}|params={args.params}|fa={args.fa_weights}"
            f"|ft={args.ft_weights}|fa_ckpt={args.saved_model_fa}|ft_ckpt={args.saved_model_ft}")
@@ -104,7 +91,8 @@ def run(args) -> list[dict]:
         if args.fa_weights:
             load_jax_variables(fa, load_npz_variables(args.fa_weights))
     ft = load_ft_model(p.arch_ft, seed=p.seed, dtype=p.compute_dtype, device=device,
-                       saved_model_file=args.saved_model_ft)
+                       saved_model_file=args.saved_model_ft,
+                       clip_shape=(p.num_frames, p.reso_h, p.reso_w))
     if args.ft_weights:
         load_jax_variables(ft, load_npz_variables(args.ft_weights), skip=FT_HEADS)
     res = extract_features(p, uris, feat_dir, fa=fa, ft=ft, batch_size=args.batch,
@@ -121,7 +109,15 @@ def run(args) -> list[dict]:
             summaries.append({"video": uri, "error": res["skipped"].get(uri, "no features")})
             print(json.dumps(summaries[-1]))
             continue
-        raw_feats = np.load(feat_paths[uri])  # (T, 2048)
+        raw_feats = np.load(feat_paths[uri])  # (T, F) or (T, ncrops, F)
+        if raw_feats.shape[-1] != mp.feature_size:
+            raise SystemExit(
+                f"extracted features are {raw_feats.shape[-1]}-d but the "
+                f"--datasetname {args.datasetname} MGFN preset (and its checkpoint) "
+                f"expects {mp.feature_size}-d — match the extractor to the "
+                f"checkpoint (e.g. XD's 1024-d presets need an i3d ft: pass a "
+                f"--params file with arch_ft='i3d')"
+            )
         video, mask, t = padded_test_batch(test_features(raw_feats))
         clip_scores = score_fn(video, mask)[0, :t].cpu().numpy()
         # Expand to the real frame timeline: each clip window covers p.clip_step
@@ -151,35 +147,21 @@ def run(args) -> list[dict]:
 
 
 def parser() -> argparse.ArgumentParser:
+    from ted_spad_tpu_torch.cli import add_extraction_args
+
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--videos_glob", type=str, default=None)
-    ap.add_argument("--params", type=str, default=None,
-                    help="reference-style params_*.py overlaid on FeatureExtractionParams")
-    ap.add_argument("--synthetic", action="store_true",
-                    help="two procedural videos at tiny shapes (no media needed)")
-    ap.add_argument("--raw", action="store_true", help="skip anonymization (raw features)")
-    ap.add_argument("--batch", type=int, default=8, help="clips per device step")
-    ap.add_argument("--decode_hw", type=int, nargs=2, default=None, metavar=("H", "W"),
-                    help="decode resolution (default 240 320)")
-    ap.add_argument("--num_workers", type=int, default=8, help="host decode threads")
-    ap.add_argument("--saved_model_fa", type=str, default=None,
-                    help="fa checkpoint (fa_model_state_dict), as the JAX stages write it")
-    ap.add_argument("--saved_model_ft", type=str, default=None,
-                    help="ft checkpoint (ft_model_state_dict), as the JAX stages write it")
+    add_extraction_args(ap)
     ap.add_argument("--mgfn_ckpt", type=str, default=None,
                     help="trained MGFN checkpoint (mgfn_model_state_dict)")
     ap.add_argument("--fa_weights", type=str, default=None, help="fa variables (.npz)")
     ap.add_argument("--ft_weights", type=str, default=None, help="ft variables (.npz)")
     ap.add_argument("--mgfn_weights", type=str, default=None, help="MGFN variables (.npz)")
-    ap.add_argument("--datasetname", type=str, default="UCF", choices=["UCF", "ST"],
+    ap.add_argument("--datasetname", type=str, default="UCF", choices=["UCF", "ST", "XD"],
                     help="MGFN preset the weights were trained with")
     ap.add_argument("--threshold", type=float, default=0.5,
                     help="frame-score threshold for the reported anomaly spans")
     ap.add_argument("--out_dir", type=str, default="scores_out")
-    ap.add_argument("--seed", type=int, default=0, help="seed of random weights")
-    ap.add_argument("--device", type=str, default="cuda",
-                    help="torch device (default cuda; 'cpu' runs the plain versions)")
     return ap
 
 

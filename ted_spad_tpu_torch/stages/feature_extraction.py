@@ -3,19 +3,28 @@ ted_spad_tpu/stages/feature_extraction.py; reference
 feature_extraction/dali_extraction.py).
 
 Windowing: 16-frame clips at stride 2, non-overlapping step 32. Per clip batch:
-uint8 clips -> preprocess (kernel K1 on CUDA: center crop 0.8, antialiased resize
-to 224^2, /255) -> frozen fa per frame (UNet++, or the plain UNet whose DoubleConvs
-run kernel K2 on CUDA; ``arch_fa``) -> I3Res50 ``extract_features`` -> one 2048-d
-feature per clip, stacked into a per-video ``.npy``.
+uint8 clips -> preprocess (kernel K1 on CUDA: crop, antialiased resize to 224^2,
+/255) -> frozen fa per frame (UNet++, or the plain UNet whose DoubleConvs run kernel
+K2 on CUDA; ``arch_fa``) -> ft ``extract_features`` (``arch_ft``: I3Res50 2048-d,
+InceptionI3d 1024-d, R3D-18 512-d, MViTv2-S 768-d) -> one feature per clip, stacked
+into a per-video ``.npy`` of (num_clips, F).
+
+Options (``FeatureExtractionParams``), all through K1 on the card:
+- ``ncrops`` 5 or 10: torchvision's five / ten crops of ``cropping_factor`` in one K1
+  launch (the ten-crop's mirrored five mirrored in the kernel's stores); the crop axis
+  rides through fa and is folded into ft's batch, so files are (num_clips, ncrops, F),
+  the published MGFN layout;
+- ``no_ar_distortion``: a square centre window of ``cropping_factor`` of the shorter
+  side, so the resize keeps the aspect ratio;
+- ``quirk_compat``: the reference extraction's return reshape between fa and ft
+  (``ops/temporal.extraction_return_scramble``).
+``ncrops`` > 1 excludes the other two, as in the JAX package; ``quant="int8"`` is not
+ported (NotImplementedError).
 
 Host/device overlap: host decode threads pack clips from several videos into
 fixed-size batches; each batch is copied from pinned memory with ``non_blocking``
 and enqueued, and the host drains the PREVIOUS batch's features while the card
 computes the current one.
-
-Only the default serving configuration is ported (rgb decode, ncrops=1, no
-quantization, no quirk_compat, aspect-distorting resize); other values raise
-NotImplementedError.
 """
 
 from __future__ import annotations
@@ -31,7 +40,10 @@ import torch
 from ted_spad_tpu_torch.config.params import FeatureExtractionParams
 from ted_spad_tpu_torch.data.video_reader import open_video
 from ted_spad_tpu_torch.models import UNet, load_fa_model, load_ft_model
-from ted_spad_tpu_torch.ops.preprocess import fused_preprocess, fused_preprocess_reference
+from ted_spad_tpu_torch.ops.preprocess import (
+    Crop, center_crop, fused_preprocess, fused_preprocess_reference, multi_crops,
+)
+from ted_spad_tpu_torch.ops.temporal import extraction_return_scramble
 from ted_spad_tpu_torch.utils.device import resolve_device, tf32_off, torch_dtype
 from ted_spad_tpu_torch.utils.naming import dedup_names
 
@@ -50,19 +62,28 @@ def video_clip_starts(num_frames_total: int, num_frames: int, stride: int, step:
 
 
 def check_supported(p: FeatureExtractionParams) -> None:
-    """Raise NotImplementedError for configuration values outside the ported path."""
-    unported = {
-        "ncrops": (p.ncrops, 1),
-        "quant": (p.quant, "none"),
-        "quirk_compat": (p.quirk_compat, False),
-        "no_ar_distortion": (p.no_ar_distortion, False),
-    }
-    for field, (value, ported) in unported.items():
-        if value != ported:
-            raise NotImplementedError(
-                f"FeatureExtractionParams.{field}={value!r} is not ported to "
-                f"ted_spad_tpu_torch; only {field}={ported!r} is"
-            )
+    """Raise NotImplementedError for ``quant`` other than "none" (the int8 mode is not
+    ported) and ValueError where the JAX stage refuses a combination: ``ncrops`` in
+    {1, 5, 10}, and ``ncrops > 1`` with neither ``quirk_compat`` nor
+    ``no_ar_distortion``."""
+    if p.quant != "none":
+        raise NotImplementedError(f"FeatureExtractionParams.quant={p.quant!r} is not ported to "
+                                  f"ted_spad_tpu_torch; only quant='none' is")
+    if p.ncrops not in (1, 5, 10):
+        raise ValueError(f"ncrops must be 1, 5 or 10, got {p.ncrops}")
+    if p.ncrops > 1 and (p.quirk_compat or p.no_ar_distortion):
+        raise ValueError("ncrops > 1 (multi-crop TTA) supports only the plain rgb path — "
+                         "not yuv ingest, quirk_compat, or no_ar_distortion")
+
+
+def extraction_crops(p: FeatureExtractionParams, h: int, w: int) -> list[Crop] | None:
+    """The crops the stage takes of an h x w frame: the five or ten of ``ncrops``, the
+    square window of ``no_ar_distortion``, or None for the centre crop."""
+    if p.ncrops > 1:
+        return multi_crops(h, w, p.cropping_factor, p.ncrops)
+    if p.no_ar_distortion:
+        return [center_crop(h, w, p.cropping_factor, square=True)]
+    return None
 
 
 def iter_clip_batches(
@@ -165,10 +186,12 @@ def make_extract_step(
     use_kernel: bool | None = None,
     device: str | torch.device = "cuda",
 ) -> Callable[[torch.Tensor], torch.Tensor]:
-    """One step: (B, T, H, W, 3) uint8 clips on ``device`` -> (B, 2048) float32.
+    """One step: (B, T, H, W, 3) uint8 clips on ``device`` -> (B, F) float32, or
+    (B, ncrops, F) with ``p.ncrops > 1`` (F: the ft's feature width).
 
-    Preprocess -> (frozen fa per frame) -> ft ``extract_features``, under
-    ``torch.inference_mode()``, in the models' dtype (bf16 on the card by default).
+    Preprocess -> (frozen fa per frame) -> (``quirk_compat``: the return scramble) ->
+    ft ``extract_features`` over clips and crops, under ``torch.inference_mode()``, in
+    the models' dtype (bf16 on the card by default).
     ``use_kernel`` (default: True on CUDA) selects every kernel of the step against
     its plain version, as the JAX package's ``use_pallas``: True runs the preprocess
     through kernel K1 and a UNet fa's DoubleConvs through kernel K2; False runs the
@@ -186,25 +209,34 @@ def make_extract_step(
     fa_kw = {"use_kernel": use_kernel} if isinstance(fa, UNet) else {}
 
     def preprocess(clips_u8: torch.Tensor) -> torch.Tensor:
-        kw = dict(out_h=p.reso_h, out_w=p.reso_w, cropping_factor=p.cropping_factor)
+        """(B, T, h, w, 3), or (B, ncrops, T, h, w, 3) with ``p.ncrops > 1``."""
+        crops = extraction_crops(p, *clips_u8.shape[2:4])
+        kw = dict(out_h=p.reso_h, out_w=p.reso_w, cropping_factor=p.cropping_factor, crops=crops)
         if use_kernel:
-            return fused_preprocess(clips_u8, out_dtype=out_dtype, **kw)
-        return fused_preprocess_reference(clips_u8, out_dtype=torch.float32, **kw)
+            img = fused_preprocess(clips_u8, out_dtype=out_dtype, **kw)
+        else:
+            img = fused_preprocess_reference(clips_u8, out_dtype=torch.float32, **kw)
+        return img[:, 0] if crops is not None and p.ncrops == 1 else img
 
     def extract(clips_u8: torch.Tensor) -> torch.Tensor:
         if clips_u8.device != device:
             raise ValueError(f"clips on {clips_u8.device}, step on {device}")
-        b, t = clips_u8.shape[:2]
         with torch.inference_mode(), tf32_off():
-            img = preprocess(clips_u8)  # (B, T, h, w, 3)
-            # (B*T, 3, h, w) in channels_last memory: a view, no copy.
-            frames = img.reshape((b * t,) + img.shape[2:]).permute(0, 3, 1, 2)
+            img = preprocess(clips_u8)
+            lead, t = img.shape[:-4], img.shape[-4]
+            n = lead.numel()  # clips x crops: folded into ft's batch
+            # (n*T, 3, h, w) in channels_last memory: a view, no copy.
+            frames = img.reshape((n * t,) + img.shape[-3:]).permute(0, 3, 1, 2)
             if fa is not None:
-                frames = fa(frames, **fa_kw)  # (B*T, 3, h, w) float32
-            # (B, 3, T, h, w): channels_last_3d when the frames are channels_last.
-            clips = frames.permute(0, 2, 3, 1).reshape(b, t, *frames.shape[2:], 3).permute(
-                0, 4, 1, 2, 3)
-            return ft_model.extract_features(clips)
+                frames = fa(frames, **fa_kw)  # (n*T, 3, h, w) float32
+            frames = frames.permute(0, 2, 3, 1)
+            if fa is not None and p.quirk_compat:
+                clips = extraction_return_scramble(frames, n, t)
+            else:
+                clips = frames.reshape(n, t, *frames.shape[1:])
+            # (n, 3, T, h, w): channels_last_3d when the frames are channels_last.
+            feats = ft_model.extract_features(clips.permute(0, 4, 1, 2, 3))
+            return feats.reshape(*lead, feats.shape[-1])
 
     return extract
 
@@ -224,7 +256,8 @@ def extract_features(
     device: str | torch.device = "cuda",
     log_fn: Callable[[str], None] = print,
 ) -> dict[str, Any]:
-    """Run the extraction stage. Returns {"saved": {uri: path}, "existing": {uri: path},
+    """Run the extraction stage: one (num_clips, F) ``.npy`` per video, (num_clips,
+    ncrops, F) with ``p.ncrops > 1``. Returns {"saved": {uri: path}, "existing": {uri: path},
     "skipped": {uri: error}, "clips", "elapsed_s", "clips_per_sec"}.
 
     ``fa`` / ``ft``: ready modules on ``device``; when None they are built by
@@ -254,7 +287,8 @@ def extract_features(
     if fa is None and p.anonymized:
         fa = load_fa_model(p.arch_fa, seed=p.seed, dtype=p.compute_dtype, device=device)
     if ft is None:
-        ft = load_ft_model(p.arch_ft, seed=p.seed, dtype=p.compute_dtype, device=device)
+        ft = load_ft_model(p.arch_ft, seed=p.seed, dtype=p.compute_dtype, device=device,
+                           clip_shape=(p.num_frames, p.reso_h, p.reso_w))
     extract = make_extract_step(ft, p, fa if p.anonymized else None, device=device)
 
     bs = batch_size or max(p.batch_size, 1)

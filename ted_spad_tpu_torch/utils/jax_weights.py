@@ -15,6 +15,9 @@ Loading is strict: a key the module does not have, a module key the tree does no
 fill, or a shape that differs raises. ``skip`` names subtrees the port's module
 does not hold (e.g. the ft classifier and MLP head, which its feature path never runs).
 
+Buffers a module does not save (``persistent=False``: MViT's rel-pos index tables) have
+no flax counterpart and are left out both ways.
+
 ``state_dict_to_flax`` applies the rules the other way, so the port writes variables
 trees that the JAX package restores (``utils/checkpoint.py`` writes them as flax
 msgpack); ``load_jax_checkpoint`` reads such a file into a module.
@@ -120,7 +123,7 @@ def state_dict_to_flax(module: nn.Module) -> dict[str, Any]:
         path = tuple(prefix.split(".")) if prefix else ()
         leaves = [(n, t, "params") for n, t in sub.named_parameters(recurse=False)]
         leaves += [(n, t, "batch_stats") for n, t in sub.named_buffers(recurse=False)
-                   if n != "num_batches_tracked"]
+                   if n != "num_batches_tracked" and n not in sub._non_persistent_buffers_set]
         for name, tensor, collection in leaves:
             a = tensor.detach().float().cpu().numpy().copy()
             if collection == "batch_stats":

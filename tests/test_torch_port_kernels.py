@@ -51,6 +51,33 @@ def test_preprocess_kernel_matches_plain_version(cuda_device, shape, oh, ow, off
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,oh,ow,ncrops", [
+    ((2, 16, 240, 320, 3), 224, 224, 10),   # the serving frame's ten crops
+    ((1, 4, 480, 856, 3), 224, 224, 10),    # ShanghaiTech's frame
+    ((2, 3, 61, 83, 3), 56, 44, 10),        # ragged: a mirrored short last run
+    ((2, 3, 240, 320, 3), 224, 224, 1),     # no_ar_distortion's square window
+])
+def test_preprocess_kernel_over_crops_matches_plain_version(cuda_device, shape, oh, ow, ncrops):
+    """K1 over crops in one launch (windows shifted from the first, five mirrored) vs
+    the plain version with the same crops, at K1's tolerances."""
+    h, w = shape[2:4]
+    crops = (pp.multi_crops(h, w, 0.8, ncrops) if ncrops > 1
+             else [pp.center_crop(h, w, 0.8, square=True)])
+    data = torch.from_numpy(np.random.default_rng(4).integers(0, 256, shape, dtype=np.uint8))
+    clips = data.to(cuda_device)
+    launches = pp.fused_preprocess.launches
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)):
+        got = pp.fused_preprocess(clips, out_h=oh, out_w=ow, crops=crops, out_dtype=dtype)
+        with tf32_off():
+            ref = pp.fused_preprocess_reference(clips, out_h=oh, out_w=ow, crops=crops,
+                                                out_dtype=dtype)
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape == (shape[0], len(crops)) + shape[1:2] + (oh, ow, 3)
+        assert float((got.float() - ref.float()).abs().max()) <= tol
+    assert pp.fused_preprocess.launches == launches + 2
+
+
+@pytest.mark.cuda
 def test_preprocess_kernel_rejects_non_contiguous(cuda_device):
     clips = torch.zeros((2, 2, 16, 16, 3), dtype=torch.uint8, device=cuda_device)
     with pytest.raises(ValueError, match="contiguous"):

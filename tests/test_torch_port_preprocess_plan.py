@@ -118,11 +118,14 @@ def test_staged_rows_cover_every_band(shape):
     assert 19 + 3 * (int(plan.xs.max()) + plan.span) <= plan.row_pitch  # the last run's words
 
 
-def emulate_k1(frame: np.ndarray, plan: pp.K1Plan, out_h: int, out_w: int, base: int) -> np.ndarray:
+def emulate_k1(frame: np.ndarray, plan: pp.K1Plan, out_h: int, out_w: int, base: int,
+               dy: int = 0, dx: int = 0, mirror: bool = False) -> np.ndarray:
     """csrc/preprocess.cu on one (H, W, 3) uint8 frame whose first byte lies at address
     ``base``: rows staged as 16-byte-aligned supersets (bytes outside the tensor read
     as 0, the rest of the buffer garbage), 4-byte words realigned by the row's shift,
-    float32 vertical sums over the padded taps, then the run's dense weight tiles."""
+    float32 vertical sums over the padded taps, then the run's dense weight tiles. A
+    crop (``dy``, ``dx``, ``mirror``) shifts the planned window's rows and columns and
+    stores each run reversed at the mirrored columns."""
     h, w, _ = frame.shape
     mem = frame.ravel()
     w3, chunks = 3 * w, (15 + 3 * plan.n_cols + 15) // 16
@@ -131,17 +134,18 @@ def emulate_k1(frame: np.ndarray, plan: pp.K1Plan, out_h: int, out_w: int, base:
     lanes = np.arange(plan.runs)
     for oy0 in range(0, out_h, plan.band_rows):
         n_out = min(plan.band_rows, out_h - oy0)
-        r0 = int(plan.vstart[oy0])
-        n_in = min(int(plan.vstart[oy0 + n_out - 1]) + plan.ky, h) - r0
+        v0 = int(plan.vstart[oy0])
+        r0 = v0 + dy
+        n_in = min(int(plan.vstart[oy0 + n_out - 1]) + plan.ky + dy, h) - r0
         buf = rng.integers(0, 256, (plan.rows_buf, plan.row_pitch), dtype=np.uint8)
-        first = base + r0 * w3 + plan.col0 * 3
+        first = base + r0 * w3 + (plan.col0 + dx) * 3
         for r in range(n_in):
             a0 = (first + r * w3) & ~15
             addr = a0 + np.arange(16 * chunks)
             inside = (addr >= base) & (addr < base + mem.size)
             buf[r, : 16 * chunks] = np.where(inside, mem[np.clip(addr - base, 0, mem.size - 1)], 0)
         for oy in range(oy0, oy0 + n_out):
-            vs = int(plan.vstart[oy]) - r0
+            vs = int(plan.vstart[oy]) - v0
             acc = np.zeros((plan.runs, pp.K1_RUN, 3), np.float32)
             for g in range(plan.span // 4):
                 v = np.zeros((plan.runs, 12), np.float32)
@@ -156,7 +160,8 @@ def emulate_k1(frame: np.ndarray, plan: pp.K1Plan, out_h: int, out_w: int, base:
                 for jj in range(4):
                     wx = plan.wrun[:, 4 * g + jj, :]  # (runs, 8)
                     acc = (acc + wx[:, :, None] * v[:, None, 3 * jj : 3 * jj + 3]).astype(np.float32)
-            out[oy] = acc.reshape(-1, 3)[:out_w]
+            row = acc.reshape(-1, 3)[:out_w]
+            out[oy] = row[::-1] if mirror else row
     return out
 
 

@@ -214,10 +214,10 @@ def test_spans_above_matches_the_jax_cli():
         assert score_video.spans_above(scores, 0.5) == jax_spans_above(scores, 0.5)
 
 
-@pytest.mark.parametrize("field,value", [
-    ("ncrops", 10), ("quant", "int8"), ("quirk_compat", True), ("no_ar_distortion", True),
-])
+@pytest.mark.parametrize("field,value", [("quant", "int8")])
 def test_unported_options_raise(field, value):
+    """The int8 mode is the one option left unported; ncrops, quirk_compat and
+    no_ar_distortion are held against JAX in test_torch_port_extraction_options.py."""
     p = FeatureExtractionParams(**{field: value})
     ft = load_ft_model(tiny=True, dtype="float32", device="cpu")
     with pytest.raises(NotImplementedError, match=field):
@@ -277,12 +277,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] == 'ted_spad_tpu']\n"
         "assert not bad, bad\n"
+        "print(' '.join(mods))\n"
         "print(len(mods))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                          timeout=300, env={**os.environ, "PYTHONPATH": ROOT})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 30
+    *_, names, count = out.stdout.strip().splitlines()
+    assert int(count) >= 41
+    slice7 = {"cli", "data.gt_builders", "extract_features", "make_gt", "models.i3d", "models.mvit",
+              "models.r3d"}  # the extraction options' and gt builders' modules
+    assert {f"ted_spad_tpu_torch.{m}" for m in slice7} <= set(names.split())
 
 
 def test_score_video_cli_synthetic_on_cpu(tmp_path):
