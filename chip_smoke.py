@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. build the port's CUDA kernels (csrc/preprocess.cu: K1, csrc/doubleconv.cu: K2)
-     with nvcc, one process per source, started together;
+  1. build the port's CUDA kernels (csrc/preprocess.cu: K1, csrc/doubleconv.cu: K2,
+     csrc/preprocess_yuv.cu: K3, csrc/int8conv.cu: K4) with nvcc, one process per
+     source, started together;
   2. hold K1 against its plain PyTorch version on the card (chip_probes.K1_CASES: the
      serving shape, a ragged one, 480x856, 1080x1920, an unaligned base address and
      a runtime-taps shape) and time kernel (and its device-only reading), plain version
@@ -51,7 +52,23 @@ Phases, each fatal on failure:
      square window, and its ten windows timed beside the plain version and
      F.interpolate); no_ar_distortion (one batch, gated); quirk_compat (one batch in
      float32 on the card against the same step on the CPU, the unscrambled step as
-     the control); r3d_18 and mvitv2 (one 16-clip batch each, gated, ms and clips/s).
+     the control); r3d_18 and mvitv2 (one 16-clip batch each, gated, ms and clips/s);
+ 10. YUV420 serving at full width: K3 against its plain version (the serving batch with
+     rows of all four colour sets, untagged rows, 480x856, an odd address, a small frame,
+     the refusal of a chroma-misaligned window) and timed beside its bound, the plain
+     version and per-plane F.interpolate + the colour matrix; synthetic videos ->
+     extract_features(decode_mode="yuv") -> .npy -> MGFN scores with K3 once per batch
+     and K1 never; the bf16 features gated against the f32 plain YUV path with both
+     controls; step ms, clips/s, busy share;
+ 11. the int8 W8A8 serving mode (quant="int8", quant_calib_batches=2) at full width:
+     extract_features with K4 79 times per int8 step (fa 27, ft 52) and K3 never; the
+     features' cosine to bf16 >= INT8_COS_MIN; MGFN frame scores from int8 features
+     within INT8_SCORE_ATOL of bf16 ones; the int8 step with K4 bit-equal to the same
+     step with the plain int8 conv; the int8-vs-bf16 error over the between-clip spread
+     beside its two controls; then K4 bit-equal to its plain version at all 79 conv
+     shapes (batch cut) and the ragged chip_probes.K4_CASES, and timed at each shape
+     beside its bound, the plain version, the cuDNN bf16 conv and torch._int_mm + the
+     epilogue at the 1x1 shapes.
 
 Prints the kernel table as one JSON line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero, printing no result,
@@ -105,6 +122,13 @@ QUIRK_CLIPS = 2  # the CPU's float32 step through the full-width UNet++ and I3Re
 QUIRK_RTOL = 1e-3
 OPTION_FEATURES = {"i3d": 1024, "r3d_18": 512, "mvitv2": 768}
 
+# Phases 10 and 11: YUV ingest and the int8 serving mode.
+YUV_VIDEOS = 4  # 240x320 synthetic videos of SERVING_FRAMES frames, 10 clips each
+INT8_VIDEOS = 4
+INT8_CONVS = 79  # per step: fa 14 encoder + 6 skip + 7 decoder conv2; ft 16 x 3 + 4 downsamples
+INT8_COS_MIN = 0.99  # quant_feature_cossim_vs_bf16
+INT8_SCORE_ATOL = 0.05  # MGFN frame scores, int8 vs bf16 features (tests/test_quant_i3d.py:134)
+
 # Phase 8: the anomaly stage's data, cut from UCF-Crime's 1,610 training and 290 test
 # videos; 3 steps per epoch at 16 videos per half.
 ANOMALY_TRAIN_VIDEOS, ANOMALY_TEST_VIDEOS = 96, 24  # the first half of the training list abnormal
@@ -118,6 +142,9 @@ STEP_F32_RTOL = 1e-3
 EVAL_AUC_ATOL = 1e-4
 
 
+T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -125,13 +152,14 @@ def log(msg: str) -> None:
 def phase_build() -> tuple[dict, dict]:
     """nvcc for every kernel source at once (one process each), then each one's
     ptxas lines: registers, spills, shared memory. Returns K1's and K2's registers and
-    spills by instantiation, and fails if a bf16 K2 one spills."""
+    spills by instantiation, and fails if a bf16 K2 one spills (K3's and K4's are
+    logged)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from ted_spad_tpu_torch.chip_probes import k1_register_report, k2_register_report
     from ted_spad_tpu_torch.utils import cuda_build
 
-    names = ("preprocess", "doubleconv")
+    names = ("preprocess", "doubleconv", "preprocess_yuv", "int8conv")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         results = list(pool.map(cuda_build.build, names))
@@ -278,26 +306,37 @@ def profile_step(fn, steps: int) -> None:
         log(f"[profile]   {t / steps / 1e3:8.3f} ms/step {t / total:6.3f}  {name[:90]}")
 
 
-def launch_counts() -> dict:
+def _kernel_wrappers() -> dict:
     from ted_spad_tpu_torch.ops.doubleconv import fused_double_conv
+    from ted_spad_tpu_torch.ops.int8conv import int8_conv
     from ted_spad_tpu_torch.ops.preprocess import fused_preprocess
+    from ted_spad_tpu_torch.ops.yuv import fused_preprocess_yuv
 
-    return {"K1 preprocess": fused_preprocess.launches, "K2 double_conv": fused_double_conv.launches}
+    return {"K1 preprocess": fused_preprocess, "K2 double_conv": fused_double_conv,
+            "K3 preprocess_yuv": fused_preprocess_yuv, "K4 int8_conv": int8_conv}
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in _kernel_wrappers().items()}
 
 
 def zero_launch_counts() -> None:
-    from ted_spad_tpu_torch.ops.doubleconv import fused_double_conv
-    from ted_spad_tpu_torch.ops.preprocess import fused_preprocess
-
-    fused_preprocess.launches = fused_double_conv.launches = 0
+    for fn in _kernel_wrappers().values():
+        fn.launches = 0
 
 
-def first_batch(uris: list, p, device):
+def expected(K1: int = 0, K2: int = 0, K3: int = 0, K4: int = 0) -> dict:  # noqa: N803
+    """Launch counts of the four kernels, the ones not given 0."""
+    return dict(zip(_kernel_wrappers(), (K1, K2, K3, K4)))
+
+
+def first_batch(uris: list, p, device, decode_mode: str = "rgb"):
     import torch
 
     from ted_spad_tpu_torch.stages.feature_extraction import iter_clip_batches
 
-    batch, _, _ = next(iter_clip_batches(uris, p, p.batch_size, num_workers=8))
+    batch, _, _ = next(iter_clip_batches(uris, p, p.batch_size, num_workers=8,
+                                         decode_mode=decode_mode))
     return torch.from_numpy(batch).to(device)
 
 
@@ -340,8 +379,8 @@ def serving_path(device, workdir: str) -> dict:
     log(f"[serve] kernel launches on the main path: {json.dumps(launches)}")
     if launches["K1 preprocess"] <= 0:
         raise AssertionError("the serving path never launched K1")
-    if launches["K2 double_conv"] != 0:
-        raise AssertionError("the UNet++ path launched K2, which only the plain UNet runs")
+    if launches != expected(K1=launches["K1 preprocess"]):
+        raise AssertionError(f"the UNet++ path launched K2, K3 or K4: {launches}")
 
     # Device time of one extraction step at the serving batch (decode excluded).
     batch = first_batch(uris, p, device)
@@ -463,7 +502,7 @@ def unet_path(device, workdir: str) -> dict:
     log(f"[unet] kernel launches on the UNet path: {json.dumps(launches)} for {batches} batches")
     if len(res["saved"]) != len(uris) or res["skipped"]:
         raise AssertionError(f"expected {len(uris)} .npy files, got {res}")
-    if launches != {"K1 preprocess": batches, "K2 double_conv": 9 * batches}:
+    if launches != expected(K1=batches, K2=9 * batches):
         raise AssertionError(f"expected K1 x{batches} and K2 x{9 * batches}: {launches}")
     score_videos(res["saved"], (clips_per_video, FEATURE_DIM), p.clip_step, device, "[unet]")
 
@@ -774,8 +813,8 @@ def option_step(device, tag: str, p, fa, ft, fa32, ft32, batch, card: str,
     torch.cuda.synchronize(device)
     launches = launch_counts()
     log(f"{tag} kernel launches for one {batch.shape[0]}-clip batch: {json.dumps(launches)}")
-    if launches != {"K1 preprocess": 1, "K2 double_conv": 0}:
-        raise AssertionError(f"{tag}: expected one K1 launch and no K2: {launches}")
+    if launches != expected(K1=1):
+        raise AssertionError(f"{tag}: expected one K1 launch and no other: {launches}")
     ms = time_ms(lambda: step(batch), reps=3, inner=1)
     log(f"{tag} extract step device time {ms:.3f} ms per {batch.shape[0]}-clip batch = "
         f"{batch.shape[0] / ms * 1e3:.2f} clips/s, features {tuple(got.shape)} | {card}")
@@ -817,8 +856,8 @@ def xd_path(device, workdir: str, fa, fa32, card: str) -> dict:
         f"{json.dumps(launches)} for {batches} batches")
     if len(res["saved"]) != len(uris) or res["skipped"]:
         raise AssertionError(f"expected {len(uris)} .npy files, got {res}")
-    if launches != {"K1 preprocess": batches, "K2 double_conv": 0}:
-        raise AssertionError(f"[xd] expected K1 x{batches} and no K2: {launches}")
+    if launches != expected(K1=batches):
+        raise AssertionError(f"[xd] expected K1 x{batches} and no other: {launches}")
     score_videos(res["saved"], (clips_per_video, OPTION_FEATURES["i3d"]), p.clip_step, device,
                  "[xd]", dataset="XD")
 
@@ -906,7 +945,7 @@ def ten_crop_path(device, workdir: str, fa, card: str) -> dict:
         f"clips in {res['elapsed_s']:.3f}s = {res['clips_per_sec']:.2f} clips/s end to end, peak "
         f"device memory {torch.cuda.max_memory_allocated(device) / 2**20:.1f} MiB; kernel launches "
         f"{json.dumps(launches)} for {batches} batches | {card}")
-    if len(res["saved"]) != len(uris) or launches != {"K1 preprocess": batches, "K2 double_conv": 0}:
+    if len(res["saved"]) != len(uris) or launches != expected(K1=batches):
         raise AssertionError(f"[ten-crop] expected {len(uris)} files and K1 x{batches}: {res}, {launches}")
     score_videos(res["saved"], (clips_per_video, 10, FEATURE_DIM), p.clip_step, device, "[ten-crop]")
     return launches
@@ -929,8 +968,8 @@ def quirk_path(device, fa32, card: str) -> dict:
     got = step(batch).double()
     torch.cuda.synchronize(device)
     launches = launch_counts()
-    if launches != {"K1 preprocess": 1, "K2 double_conv": 0}:
-        raise AssertionError(f"[quirk] expected one K1 launch and no K2: {launches}")
+    if launches != expected(K1=1):
+        raise AssertionError(f"[quirk] expected one K1 launch and no other: {launches}")
     control = make_extract_step(ft32, p.replace(quirk_compat=False), fa32, device=device)(batch).double()
     t0 = time.perf_counter()
     cpu_step = make_extract_step(load_ft_model(seed=0, dtype="float32", device="cpu"), p,
@@ -974,6 +1013,309 @@ def extraction_options(device, workdir: str, card: str) -> tuple[dict, dict]:
     return launches, ten_crop
 
 
+def yuv_path(device, workdir: str, fa, fa32, card: str) -> tuple[dict, dict]:
+    """Phase 10: YUV420 serving at full width. K3 against its plain version and timed;
+    synthetic videos -> extract_features(decode_mode="yuv") -> .npy -> MGFN scores, K3
+    once per batch and K1 never; the bf16 features gated against the f32 plain YUV
+    path, R/B swapped (K3's output channels reversed) and the previous clip as the
+    controls. Returns (K3's kernel-table entry, the path's launches)."""
+    import contextlib
+
+    import torch
+
+    import ted_spad_tpu_torch.stages.feature_extraction as fe
+    from ted_spad_tpu_torch.chip_probes import k3_check, k3_timing, time_ms
+    from ted_spad_tpu_torch.config.params import FeatureExtractionParams
+    from ted_spad_tpu_torch.models import load_ft_model
+
+    worst = k3_check(device, log)
+    entry = k3_timing(device, log)
+    entry["max_abs_err"] = worst
+
+    p = FeatureExtractionParams(batch_size=16)
+    # The RGB serving path's first videos: the two paths read the same content, where the
+    # R/B swap is a strong control (on seeds 500-503 it read only 0.59-0.71 of the spread).
+    uris = [f"synthetic://n={SERVING_FRAMES},h=240,w=320,seed={i}" for i in range(YUV_VIDEOS)]
+    clips_per_video = len(fe.video_clip_starts(SERVING_FRAMES, p.num_frames, p.clip_stride,
+                                               p.clip_step))
+    ft = load_ft_model(seed=0, device=device)
+    torch.cuda.reset_peak_memory_stats(device)
+    zero_launch_counts()
+    res = fe.extract_features(p, uris, os.path.join(workdir, "features_yuv"), fa=fa, ft=ft,
+                              decode_hw=(240, 320), num_workers=8, decode_mode="yuv",
+                              device=device, log_fn=log)
+    launches = launch_counts()
+    batches = -(-res["clips"] // p.batch_size)
+    log(f"[yuv] extract_features(decode_mode='yuv'): {res['clips']} clips in "
+        f"{res['elapsed_s']:.3f}s = {res['clips_per_sec']:.2f} clips/s end to end (decode "
+        f"included), peak device memory {torch.cuda.max_memory_allocated(device) / 2**20:.1f} "
+        f"MiB; kernel launches {json.dumps(launches)} for {batches} batches | {card}")
+    if len(res["saved"]) != len(uris) or res["skipped"] or launches != expected(K3=batches):
+        raise AssertionError(f"[yuv] expected {len(uris)} files, K3 x{batches} and no other: "
+                             f"{res}, {launches}")
+    score_videos(res["saved"], (clips_per_video, FEATURE_DIM), p.clip_step, device, "[yuv]")
+
+    batch = first_batch(uris, p, device, "yuv")
+    step = fe.make_extract_step(ft, p, fa, device=device, yuv=True, yuv_hw=(240, 320))
+    step_ms = time_ms(lambda: step(batch), reps=5, inner=2)
+    log(f"[yuv] extract step device time {step_ms:.3f} ms per {p.batch_size}-clip batch = "
+        f"{p.batch_size / step_ms * 1e3:.2f} clips/s (packed rows {tuple(batch.shape)}) | {card}")
+    profile_step(lambda: step(batch), steps=3)
+    ft32 = load_ft_model(seed=0, dtype="float32", device=device)
+    ref_step = fe.make_extract_step(ft32, p.replace(compute_dtype="float32"), fa32,
+                                    use_kernel=False, device=device, yuv=True, yuv_hw=(240, 320))
+
+    @contextlib.contextmanager
+    def red_blue_swapped():  # the control: K3's output with its channels reversed
+        saved = fe.fused_preprocess_yuv
+        fe.fused_preprocess_yuv = lambda *a, **k: saved(*a, **k).flip(-1)
+        try:
+            yield
+        finally:
+            fe.fused_preprocess_yuv = saved
+
+    got = step(batch).double()
+    with red_blue_swapped():
+        swapped = step(batch).double()
+    feature_gate(got, ref_step(batch).double(), swapped, "[yuv fidelity]")
+    return entry, launches
+
+
+def record_int8_convs(step, batch) -> list:
+    """The int8 convolutions one call of ``step`` runs, in order: (site key, input shape,
+    kernel shape, strides, pads, lhs dilation)."""
+    from ted_spad_tpu_torch.ops import quant_unetpp
+
+    calls = []
+    original = quant_unetpp._Quantizer.conv
+
+    def conv(self, qx, w, key, *, strides=(1, 1), padding=((1, 1), (1, 1)), lhs_dilation=None):
+        out = original(self, qx, w, key, strides=strides, padding=padding,
+                       lhs_dilation=lhs_dilation)
+        if self.mode == "run":
+            calls.append((key, tuple(qx.data.shape), tuple(self._weights[key].codes.shape),
+                          tuple(strides), tuple(tuple(q) for q in padding), lhs_dilation))
+        return out
+
+    quant_unetpp._Quantizer.conv = conv
+    try:
+        step(batch)
+    finally:
+        quant_unetpp._Quantizer.conv = original
+    return calls
+
+
+def conv_class(call) -> str:
+    """A shape class of an int8 conv: its taps, stride and dilation."""
+    _, xs, ws, st, _, dil = call
+    taps = "x".join(map(str, ws[:-2]))
+    stride = "" if all(v == 1 for v in st) else " s" + "x".join(map(str, st))
+    return f"{len(ws) - 2}D {taps}{stride}{' up2' if dil else ''}"
+
+
+def check_int8_convs(device, calls, card: str) -> dict:
+    """K4 against int8_conv_reference bit for bit at every recorded shape (frame / clip
+    batch cut to 2 / 1) and at chip_probes.K4_CASES; then each conv of one batch timed at
+    its full shape (random codes) beside its bound, the plain version and the yardsticks.
+    Returns K4's kernel-table entry, launches aside."""
+    import torch
+
+    from ted_spad_tpu_torch.chip_probes import (
+        K4_CASES, k4_bound, k4_call, k4_check, k4_library, k4_operands, time_ms,
+    )
+
+    reduced = [(f"{c[0]} ({conv_class(c)})", (2 if len(c[1]) == 4 else 1,) + c[1][1:], *c[2:])
+               for c in calls]
+    n = k4_check(device, reduced, log=lambda m: None)
+    log(f"[K4] the {len(reduced)} convs of the int8 path, batch cut to 2 frames / 1 clip: K4 "
+        f"bit-equal to its plain version in bf16 and f32 ({n} elements)")
+    n_ragged = k4_check(device, K4_CASES, log)
+    rows = []
+    totals = {"ms": 0.0, "device_only_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    mm = {"ms": 0.0, "int_mm_ms": 0.0}
+    by_class: dict = {}
+    for i, call in enumerate(calls):
+        key, xs, ws, st, pads, dil = call
+        x, weight = k4_operands(device, xs, ws, seed=200 + i)
+        out = k4_call(x, weight, st, pads, dil)
+        ms = time_ms(lambda: k4_call(x, weight, st, pads, dil), reps=3, inner=2)
+        device_ms = time_ms(lambda: k4_call(x, weight, st, pads, dil), reps=3, inner=2, queued=True)
+        plain_ms = time_ms(lambda: k4_call(x, weight, st, pads, dil, use_kernel=False),
+                           reps=1, inner=1)
+        cudnn, int_mm = k4_library(x, weight, st, pads, dil)
+        library_ms = time_ms(cudnn, reps=3, inner=2)
+        by_ops, by_bytes = k4_bound(xs, ws, tuple(out.shape))
+        row = {"site": key, "class": conv_class(call), "x": list(xs), "w": list(ws), "ms": ms,
+               "device_only_ms": device_ms, "plain_ms": plain_ms, "bound_ms": max(by_ops, by_bytes),
+               "bound_by": "operations" if by_ops >= by_bytes else "bytes", "library_ms": library_ms}
+        if int_mm is not None:
+            row["int_mm_ms"] = time_ms(int_mm, reps=3, inner=2)
+            mm["ms"] += ms
+            mm["int_mm_ms"] += row["int_mm_ms"]
+        rows.append(row)
+        log(f"[K4] {key} ({row['class']}) x{list(xs)} w{list(ws)}: kernel {ms:.4f} ms (device "
+            f"only {device_ms:.4f}), bound {row['bound_ms']:.4f} ms ({row['bound_by']}), plain "
+            f"{plain_ms:.4f} ms, cuDNN bf16 {library_ms:.4f} ms"
+            + (f", torch._int_mm + epilogue {row['int_mm_ms']:.4f} ms" if "int_mm_ms" in row else ""))
+        for k in totals:
+            totals[k] += row[k]
+        agg = by_class.setdefault(row["class"], {"n": 0, "ms": 0.0, "device_only_ms": 0.0,
+                                                 "bound_ms": 0.0, "library_ms": 0.0})
+        agg["n"] += 1
+        for k in ("ms", "device_only_ms", "bound_ms", "library_ms"):
+            agg[k] += row[k]
+        del x, out
+    torch.cuda.empty_cache()
+    for name, agg in sorted(by_class.items(), key=lambda kv: -kv[1]["ms"]):
+        log(f"[K4] class {name}: {agg['n']} convs, kernel {agg['ms']:.3f} ms (device only "
+            f"{agg['device_only_ms']:.3f}), bound "
+            f"{agg['bound_ms']:.3f} ms ({agg['ms'] / agg['bound_ms']:.1f}x), cuDNN bf16 "
+            f"{agg['library_ms']:.3f} ms ({agg['ms'] / agg['library_ms']:.2f}x cuDNN) | {card}")
+    log(f"[K4] the {len(calls)} int8 convs of one 16-clip batch: kernel {totals['ms']:.3f} ms "
+        f"(device only {totals['device_only_ms']:.3f}), "
+        f"plain (float64 convs of the codes) {totals['plain_ms']:.3f} ms, cuDNN bf16 convs "
+        f"{totals['library_ms']:.3f} ms, bound {totals['bound_ms']:.3f} ms; at the 1x1 / 1x1x1 "
+        f"unstrided shapes kernel {mm['ms']:.3f} ms vs torch._int_mm + epilogue "
+        f"{mm['int_mm_ms']:.3f} ms | {card}")
+    return {"name": "K4 int8_conv", "route": "cuda", "source": "ted_spad_tpu_torch/csrc/int8conv.cu",
+            "replaces": "ted_spad_tpu/ops/quant_unetpp.py:125 (_Quantizer.conv; XLA int8 conv, "
+                        "no Pallas kernel)",
+            "max_abs_err": 0.0, **totals, "bound_by": "operations" if sum(
+                r["bound_by"] == "operations" for r in rows) * 2 >= len(rows) else "bytes",
+            "library_int_mm_ms": mm["int_mm_ms"], "int_mm_shapes_ms": mm["ms"],
+            "checked_elements": n + n_ragged, "classes": by_class}
+
+
+def frame_scores(saved: dict, device) -> dict:
+    """Each video's UCF MGFN frame scores from its .npy (seeded MGFN)."""
+    import numpy as np
+
+    from ted_spad_tpu_torch.config.params import MGFNParams
+    from ted_spad_tpu_torch.data.features import padded_test_batch
+    from ted_spad_tpu_torch.models import load_mgfn_model
+    from ted_spad_tpu_torch.ops.metrics import frame_level_scores
+    from ted_spad_tpu_torch.ops.temporal import test_features as with_magnitude
+    from ted_spad_tpu_torch.stages.anomaly_detection import make_score_fn
+
+    score_fn = make_score_fn(load_mgfn_model(MGFNParams.for_dataset("UCF"), device=device),
+                             device=device)
+    out = {}
+    for uri, path in saved.items():
+        video, mask, t = padded_test_batch(with_magnitude(np.load(path)))
+        out[uri] = frame_level_scores(score_fn(video, mask)[0, :t].cpu().numpy(), SERVING_FRAMES,
+                                      frames_per_clip=32)
+    return out
+
+
+def int8_path(device, workdir: str, fa, card: str) -> tuple[dict, dict]:
+    """Phase 11: the int8 W8A8 serving mode at full width (quant="int8",
+    quant_calib_batches=2, I3Res50 quantized too) through extract_features, read for its
+    launches (K4 79 times per int8 step, K3 never), then K4 against its plain version at
+    every conv shape of the path and timed, and the gates: the int8 step with K4 equals
+    the same step with the plain int8 conv bit for bit; the features' cosine to bf16;
+    the int8-vs-bf16 error over the between-clip spread beside its controls; MGFN frame
+    scores from int8 features against bf16 ones. Returns (K4's entry, the launches)."""
+    import numpy as np
+    import torch
+
+    import ted_spad_tpu_torch.stages.feature_extraction as fe
+    from ted_spad_tpu_torch.chip_probes import time_ms
+    from ted_spad_tpu_torch.config.params import FeatureExtractionParams
+    from ted_spad_tpu_torch.models import load_ft_model
+    from ted_spad_tpu_torch.ops.quant_unetpp import act_scales_from_absmax
+
+    p = FeatureExtractionParams(batch_size=16, quant="int8", quant_calib_batches=2)
+    uris = [f"synthetic://n={SERVING_FRAMES},h=240,w=320,seed={600 + i}" for i in range(INT8_VIDEOS)]
+    clips_per_video = len(fe.video_clip_starts(SERVING_FRAMES, p.num_frames, p.clip_stride,
+                                               p.clip_step))
+    ft = load_ft_model(seed=0, device=device)
+    torch.cuda.reset_peak_memory_stats(device)
+    zero_launch_counts()
+    res = fe.extract_features(p, uris, os.path.join(workdir, "features_int8"), fa=fa, ft=ft,
+                              decode_hw=(240, 320), num_workers=8, device=device, log_fn=log)
+    launches = launch_counts()
+    batches = -(-res["clips"] // p.batch_size)
+    # The int8 step runs once per batch and once more on the first batch for the fidelity
+    # check; calibration runs the schedule in bf16 and launches no int8 conv.
+    steps = batches + 1
+    log(f"[int8] extract_features(quant='int8'): {res['clips']} clips in {res['elapsed_s']:.3f}s = "
+        f"{res['clips_per_sec']:.2f} clips/s end to end (decode, {res['quant_calib_batches_used']} "
+        f"calibration batches and the fidelity check included), peak device memory "
+        f"{torch.cuda.max_memory_allocated(device) / 2**20:.1f} MiB; cosine to bf16 "
+        f"{res['quant_feature_cossim_vs_bf16']} (limit {INT8_COS_MIN}); kernel launches "
+        f"{json.dumps(launches)} for {batches} batches + 1 fidelity step | {card}")
+    if len(res["saved"]) != len(uris) or res["skipped"]:
+        raise AssertionError(f"[int8] expected {len(uris)} .npy files: {res}")
+    if not (launches["K4 int8_conv"] == INT8_CONVS * steps and launches["K3 preprocess_yuv"] == 0
+            and launches["K2 double_conv"] == 0 and launches["K1 preprocess"] > 0):
+        raise AssertionError(f"[int8] expected K4 x{INT8_CONVS * steps}, K3 and K2 never: {launches}")
+    if not res["quant_feature_cossim_vs_bf16"] >= INT8_COS_MIN:
+        raise AssertionError(f"[int8] cosine to bf16 {res['quant_feature_cossim_vs_bf16']}")
+    score_videos(res["saved"], (clips_per_video, FEATURE_DIM), p.clip_step, device, "[int8]")
+    bf16 = fe.extract_features(p.replace(quant="none"), uris,
+                               os.path.join(workdir, "features_int8_ref"), fa=fa, ft=ft,
+                               decode_hw=(240, 320), num_workers=8, device=device,
+                               log_fn=lambda m: None)
+    s_int8, s_bf16 = frame_scores(res["saved"], device), frame_scores(bf16["saved"], device)
+    d_scores = max(float(np.abs(s_int8[u] - s_bf16[u]).max()) for u in uris)
+    log(f"[int8] MGFN frame scores from int8 vs bf16 features, {len(uris)} videos: max |d| "
+        f"{d_scores:.6f} (limit {INT8_SCORE_ATOL})")
+    if not d_scores <= INT8_SCORE_ATOL:
+        raise AssertionError(f"[int8] MGFN scores move {d_scores} with int8 features")
+
+    # The step, with the run's scales recomputed as the stage computes them.
+    b = [torch.from_numpy(c).to(device) for c, _, _ in
+         fe.iter_clip_batches(uris, p, p.batch_size, num_workers=8)][:2]
+    calib = fe.make_fa_calibration_step(p, fa, ft, device=device)
+    absmax: dict = {}
+    for clips in b:
+        for k, v in calib(clips).items():
+            absmax[k] = max(absmax.get(k, 0.0), float(v))
+    scales = act_scales_from_absmax(absmax)
+    batch = b[0]
+    step = fe.make_extract_step(ft, p, fa, device=device, quant_act_scales=scales)
+    twin = fe.make_extract_step(ft, p, fa, device=device, quant_act_scales=scales, int8_kernel=False)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        got, plain = step(batch), twin(batch)
+    torch.cuda.synchronize(device)
+    same = torch.equal(got, plain)
+    log(f"[int8] the int8 step with K4 vs the same step with the plain int8 conv (same scales, "
+        f"cuDNN deterministic): {'bit-equal' if same else 'DIFFERENT'}, max |d| "
+        f"{float((got - plain).abs().max()):.3e}")
+    if not same:
+        raise AssertionError("[int8] the step through K4 differs from its plain-conv twin")
+    calls = record_int8_convs(step, batch)
+    log(f"[int8] one int8 step runs {len(calls)} int8 convs: "
+        f"{json.dumps({c: sum(conv_class(x) == c for x in calls) for c in sorted({conv_class(x) for x in calls})})}")
+    if len(calls) != INT8_CONVS:
+        raise AssertionError(f"[int8] expected {INT8_CONVS} int8 convs per step, got {len(calls)}")
+    step_ms = time_ms(lambda: step(batch), reps=5, inner=2)
+    bf16_step = fe.make_extract_step(ft, p.replace(quant="none"), fa, device=device)
+    bf16_ms = time_ms(lambda: bf16_step(batch), reps=5, inner=2)
+    log(f"[int8] extract step device time {step_ms:.3f} ms per {p.batch_size}-clip batch = "
+        f"{p.batch_size / step_ms * 1e3:.2f} clips/s (the bf16 step in this run: {bf16_ms:.3f} ms) "
+        f"| {card}")
+    profile_step(lambda: step(batch), steps=3)
+
+    # Fidelity: int8 against bf16 features, over the spread between clips, with controls.
+    ref = bf16_step(batch).double()
+    readings = {"int8": got.double(), "control R/B swapped": step(batch.flip(-1).contiguous()).double(),
+                "control previous clip": got.double().roll(1, dims=0)}
+    errs = {}
+    for name, x in readings.items():
+        cos_min, errs[name] = fidelity(x, ref)
+        log(f"[int8 fidelity] {name} vs the bf16 path, {got.shape[0]} clips: min cosine "
+            f"{cos_min:.8f}, error / between-clip spread {errs[name]:.6f}")
+    reading = errs.pop("int8")
+    for name, err in errs.items():
+        if not err > reading:
+            raise AssertionError(f"[int8] the {name} reads {err}, not above the int8 reading {reading}")
+
+    entry = check_int8_convs(device, calls, card)
+    return entry, launches
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -994,6 +1336,8 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: run from a checkout of the repository ({e})", file=sys.stderr)
         return 1
+    from ted_spad_tpu_torch.models import load_fa_model
+
     device = torch.device("cuda", 0)
     card = card_line()
     log(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
@@ -1013,14 +1357,21 @@ def main() -> int:
             raise AssertionError(f"the anomaly stage launched a kernel: {launches['anomaly']}")
         options, ten_crop = extraction_options(device, workdir, card)
         launches.update(options)
+        fa = load_fa_model(seed=0, device=device)
+        fa32 = load_fa_model(seed=0, dtype="float32", device=device)
+        k3, launches["yuv"] = yuv_path(device, workdir, fa, fa32, card)
+        del fa32
+        k4, launches["int8"] = int8_path(device, workdir, fa, card)
     # Each kernel's launches on its own main path (K1: the default UNet++ path, K2: the
-    # plain-UNet path), and on every path driven.
-    for k, name, path in ((k1, "K1 preprocess", "unet++"), (k2, "K2 double_conv", "unet")):
+    # plain-UNet path, K3: the YUV path, K4: the int8 path), and on every path driven.
+    for k, name, path in ((k1, "K1 preprocess", "unet++"), (k2, "K2 double_conv", "unet"),
+                          (k3, "K3 preprocess_yuv", "yuv"), (k4, "K4 int8_conv", "int8")):
         k["launches"] = launches[path][name]
         k["launches_by_path"] = {where: counts[name] for where, counts in launches.items()}
     k1["ten_crop"] = ten_crop
 
-    log(json.dumps({"kernels": [k1, k2]}))
+    log(f"[card] command time {time.perf_counter() - T0:.1f}s")
+    log(json.dumps({"kernels": [k1, k2, k3, k4]}))
     log(f"[card] {card}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -3,6 +3,8 @@ numbers PERF.md quotes from them can be taken again:
 
     python -m ted_spad_tpu_torch.chip_probes k1     # kernel K1 alone
     python -m ted_spad_tpu_torch.chip_probes k2     # kernel K2 alone
+    python -m ted_spad_tpu_torch.chip_probes k3     # kernel K3 (YUV420 preprocess) alone
+    python -m ted_spad_tpu_torch.chip_probes k4     # kernel K4 (int8 conv) alone
     python -m ted_spad_tpu_torch.chip_probes gain   # the UNet's outc gain vs the gates
     python -m ted_spad_tpu_torch.chip_probes mgfn   # where MGFN's card-vs-CPU step error sits
 
@@ -17,6 +19,16 @@ the bf16 kernels spill), holds it against its plain version (float32 convs, TF32
 at the plain UNet's nine DoubleConv shapes with two frames and at one ragged shape per
 bf16 tile class, in f32 and bf16, then times the kernel alone at 256 frames (CUDA
 events), with each shape's tile class.
+
+``k3``: builds K3, prints its registers, holds it against its plain version (float32
+matmuls, TF32 off) at K3_CASES in f32 and bf16 and checks its refusal of a
+chroma-misaligned window, then times it at the serving batch and at K3_FRAME_SIZES beside
+its byte bound, the plain version and the per-plane F.interpolate yardstick.
+
+``k4``: builds K4, prints its registers, holds it bit for bit against its plain version
+(float64 convolutions of the codes, exact) at K4_CASES in bf16 and f32, then times it
+alone at three serving shapes beside its bound and the cuDNN bf16 conv (and
+``torch._int_mm`` + the epilogue at the 1x1x1 shape).
 
 ``gain``: the random-init UNet's sigmoid output sits near 0.5, so the bf16 ft's own
 rounding can swamp the differences between clips. For outc gains 1, 4, 8 and 16 it
@@ -611,17 +623,365 @@ def mgfn(device) -> None:
                   f"gradient {w_error(grads, dy):.3e}")
 
 
+# K3 against its plain version: (name, (clips, frames, H, W), rows carry the tag byte,
+# byte offset of the batch in its buffer). The serving batch with rows mixing all four
+# colour sets; rows without a tag; ShanghaiTech's native frame (runtime taps); the
+# serving batch at an odd base address (every row unaligned); a small frame.
+K3_CASES = (
+    ("serving, four colour sets", (16, 16, 240, 320), True, 0),
+    ("serving, untagged rows", (2, 16, 240, 320), False, 0),
+    ("480x856", (2, 8, 480, 856), True, 0),
+    ("serving at base + 1 B", (2, 16, 240, 320), True, 1),
+    ("40x80", (2, 3, 40, 80), True, 0),
+)
+K3_MISALIGNED = (1, 2, 50, 70)  # 0.8 of 50 rows starts at row 5: refused
+K3_FRAME_SIZES = ((16, 16, 480, 856),)
+# F.interpolate's own filter arithmetic on 0..255 planes, through the colour matrix.
+K3_INTERPOLATE_TOL = 5e-4
+
+# K4 against its plain version, bit for bit: (name, x shape NHWC / NDHWC, kernel shape
+# HWIO / DHWIO, strides, pads, lhs dilation). The ragged cases of the int8 path beside the
+# shapes chip_smoke.py records from it: Cin 3 (the I3Res50 stem through K4), odd H/W, stride
+# 2, the (3, 1, 1) temporal taps, the up2_int8 4x4 form, a ragged Cout and Cin 48, wide
+# Cout, asymmetric pads.
+K4_CASES = (
+    ("3x3 64->64 at 56^2", (2, 56, 56, 64), (3, 3, 64, 64), (1, 1), ((1, 1), (1, 1)), None),
+    ("stem Cin 3 (5,7,7) s2", (1, 8, 32, 32, 3), (5, 7, 7, 3, 64), (2, 2, 2),
+     ((2, 2), (3, 3), (3, 3)), None),
+    ("odd H/W, Cin 48, Cout 40", (2, 13, 17, 48), (3, 3, 48, 40), (1, 1), ((1, 1), (1, 1)), None),
+    ("3x3 stride 2", (2, 57, 55, 64), (3, 3, 64, 128), (2, 2), ((1, 1), (1, 1)), None),
+    ("1x1 stride 2", (2, 28, 28, 64), (1, 1, 64, 128), (2, 2), ((0, 0), (0, 0)), None),
+    ("(3,1,1) temporal", (2, 8, 14, 14, 256), (3, 1, 1, 256, 64), (1, 1, 1),
+     ((1, 1), (0, 0), (0, 0)), None),
+    ("(1,3,3) stride 2", (2, 4, 15, 15, 128), (1, 3, 3, 128, 128), (1, 2, 2),
+     ((0, 0), (1, 1), (1, 1)), None),
+    ("up2_int8 4x4 dilated", (2, 28, 28, 64), (4, 4, 64, 32), (1, 1), ((2, 2), (2, 2)), (2, 2)),
+    ("1x1x1 512->2048", (1, 2, 7, 7, 512), (1, 1, 1, 512, 2048), (1, 1, 1),
+     ((0, 0), (0, 0), (0, 0)), None),
+    ("asymmetric pads", (1, 9, 10, 32), (3, 3, 32, 24), (1, 1), ((0, 2), (1, 0)), None),
+)
+INT8_TOPS = 1979e12  # H100 SXM dense int8 tensor-core rate
+
+
+def yuv_rows(device, shape, tagged: bool, offset: int = 0, seed: int = 0):
+    """Seeded packed [Y | U | V (| tag)] rows (clips, frames, L) on the card; with
+    ``tagged`` clip i's rows carry tag i % 4 (all four colour sets); ``offset`` > 0 puts
+    the batch that many bytes into a buffer."""
+    import numpy as np
+    import torch
+
+    from ted_spad_tpu_torch.ops.yuv import packed_row_bytes
+
+    b, t, h, w = shape
+    rng = np.random.default_rng(seed)
+    data = rng.integers(0, 256, (b, t, packed_row_bytes(h, w) + int(tagged)), dtype=np.uint8)
+    if tagged:
+        data[:, :, -1] = (np.arange(b) % 4)[:, None]
+    buf = torch.empty(data.size + offset, dtype=torch.uint8, device=device)
+    rows = buf[offset:].view(data.shape)
+    rows.copy_(torch.from_numpy(data))
+    return rows
+
+
+def yuv_plain(rows, hw, out_dtype, out_h: int = 224, out_w: int = 224):
+    from ted_spad_tpu_torch.ops import yuv
+
+    y, u, v, bt709, full = yuv.unpack_yuv(rows, hw)
+    return yuv.fused_preprocess_yuv_reference(y, u, v, out_h=out_h, out_w=out_w,
+                                              out_dtype=out_dtype, bt709=bt709, full=full)
+
+
+def k3_check(device, log=print) -> float:
+    """K3 against fused_preprocess_yuv_reference (TF32 off) at every K3_CASES entry, f32
+    within K1_F32_TOL and bf16 within K1_BF16_TOL of max|plain|, and its refusal of a
+    chroma-misaligned window. Returns the worst max abs error."""
+    import torch
+
+    from ted_spad_tpu_torch.ops import yuv
+    from ted_spad_tpu_torch.utils.device import tf32_off
+
+    worst = 0.0
+    for i, (name, shape, tagged, offset) in enumerate(K3_CASES):
+        rows = yuv_rows(device, shape, tagged, offset, seed=40 + i)
+        hw = shape[2:]
+        plan = yuv.k3_plan(*hw)
+        for dtype, tol in ((torch.float32, K1_F32_TOL), (torch.bfloat16, K1_BF16_TOL)):
+            got = yuv.fused_preprocess_yuv(rows, hw, out_dtype=dtype)
+            with tf32_off():
+                ref = yuv_plain(rows, hw, dtype)
+            torch.cuda.synchronize()
+            err = float((got.float() - ref.float()).abs().max())
+            scale = float(ref.float().abs().max())
+            log(f"[K3] {name} {shape} {str(dtype)[6:]} ({plan.kernel}, {plan.band_rows} rows, "
+                f"{plan.smem_bytes} B): max|kernel - plain| = {err:.3e}, {err / scale:.3e} of "
+                f"max|plain| (tolerance {tol:.3e})")
+            if not (got.shape == ref.shape and err <= tol * scale):
+                raise AssertionError(f"K3 disagrees with its plain version at {name}: {err}")
+            worst = max(worst, err)
+    rows = yuv_rows(device, K3_MISALIGNED, True)
+    try:
+        yuv.fused_preprocess_yuv(rows, K3_MISALIGNED[2:])
+    except ValueError as e:
+        log(f"[K3] {K3_MISALIGNED}: refused, as the plain version is ({e})")
+    else:
+        raise AssertionError("K3 took a chroma-misaligned window")
+    return worst
+
+
+def k3_bound(shape, out_bytes: int, out_h: int = 224, out_w: int = 224):
+    """(bytes, f32 FLOP) of the YUV preprocess of one batch: each window byte of the
+    three planes read once, the output written once; per plane one multiply-add per
+    nonzero tap of R_y over the window's columns and of R_x over the output rows, and
+    the colour transform's ~12 operations per output pixel."""
+    import numpy as np
+
+    from ted_spad_tpu_torch.ops import yuv
+
+    b, t, h, w = shape
+    ry, rx, cry, crx = yuv.yuv_matrices(h, w, out_h, out_w, 0.8)
+    read = flops = 0
+    for my, mx, planes in ((ry, rx, 1), (cry, crx, 2)):
+        rows, cols = int(my.any(axis=0).sum()), int(mx.any(axis=0).sum())
+        read += planes * rows * cols
+        flops += planes * 2 * (np.count_nonzero(my) * cols + np.count_nonzero(mx) * out_h)
+    n = b * t
+    return n * (read + out_h * out_w * 3 * out_bytes), n * (flops + 12 * out_h * out_w)
+
+
+def yuv_interpolate(rows, hw, out_h: int = 224, out_w: int = 224, out_dtype=None):
+    """The library yardstick of K3: each plane's window resized by F.interpolate
+    (antialiased bilinear), then the same colour transform, in ``out_dtype`` (bf16 by
+    default). Never called by the port."""
+    import torch
+    import torch.nn.functional as F
+
+    from ted_spad_tpu_torch.ops import yuv
+
+    y, u, v, bt709, full = yuv.unpack_yuv(rows, hw)
+    y0, x0, ch, cw = yuv.yuv_window(*hw, 0.8)
+
+    def resize(p, top, left, hh, ww):
+        b, t = p.shape[:2]
+        win = p[..., top : top + hh, left : left + ww].reshape(b * t, 1, hh, ww).float()
+        out = F.interpolate(win, size=(out_h, out_w), mode="bilinear", align_corners=False,
+                            antialias=True)
+        return out.reshape(b, t, out_h, out_w)
+
+    yf = resize(y, y0, x0, ch, cw)
+    uf = resize(u, y0 // 2, x0 // 2, ch // 2, cw // 2) - 128.0
+    vf = resize(v, y0 // 2, x0 // 2, ch // 2, cw // 2) - 128.0
+    idx = (bt709.long() + 2 * full.long()) if bt709 is not None else torch.zeros(
+        y.shape[0], dtype=torch.long, device=y.device)
+    c = {k: torch.tensor([s[k] for s in yuv.COLOR_SETS], device=y.device)[idx].view(-1, 1, 1, 1)
+         for k in yuv.BT601_LIMITED}
+    yy = c["ky"] * (yf - c["y_off"])
+    rgb = torch.stack([yy + c["rv"] * vf, yy + c["gu"] * uf + c["gv"] * vf, yy + c["bu"] * uf],
+                      dim=-1) / 255.0
+    return rgb.clamp(0.0, 1.0).to(out_dtype or torch.bfloat16)
+
+
+def k3_timing(device, log=print, shape=K3_CASES[0][1]) -> dict:
+    """K3 alone at ``shape`` (the serving batch, rows mixing the four colour sets), bf16
+    out, beside its bound, its plain version and the F.interpolate yardstick (held
+    against the plain version first). Returns K3's entry of the kernel table, launches
+    aside."""
+    import torch
+
+    from ted_spad_tpu_torch.ops import yuv
+    from ted_spad_tpu_torch.utils.device import tf32_off
+
+    rows = yuv_rows(device, shape, True, seed=99)
+    hw = shape[2:]
+    with tf32_off():
+        ref = yuv_plain(rows, hw, torch.float32)
+    interp_err = float((yuv_interpolate(rows, hw, out_dtype=torch.float32) - ref).abs().max())
+    log(f"[K3] per-plane F.interpolate + colour matrix (f32) vs plain at {shape}: max abs error "
+        f"{interp_err:.3e} (tolerance {K3_INTERPOLATE_TOL:.0e})")
+    if not interp_err <= K3_INTERPOLATE_TOL:
+        raise AssertionError(f"the interpolate yardstick does not compute K3's function: {interp_err}")
+    del ref
+    ms = time_ms(lambda: yuv.fused_preprocess_yuv(rows, hw))
+    device_ms = time_ms(lambda: yuv.fused_preprocess_yuv(rows, hw), queued=True)
+    with tf32_off():
+        plain_ms = time_ms(lambda: yuv_plain(rows, hw, torch.bfloat16), reps=5, inner=1)
+    library_ms = time_ms(lambda: yuv_interpolate(rows, hw), reps=5, inner=1)
+    bytes_moved, flops = k3_bound(shape, out_bytes=2)
+    by_bytes, by_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    bound_ms = max(by_bytes, by_ops)
+    plan = yuv.k3_plan(*hw)
+    log(f"[K3] {shape} bf16 ({plan.kernel}, {plan.band_rows} rows, {plan.smem_bytes} B): kernel "
+        f"{ms:.4f} ms (device only {device_ms:.4f}) = {bytes_moved / ms * 1e-6:.1f} GB/s, "
+        f"{ms / bound_ms:.2f}x the bound {bound_ms:.4f} ms ({bytes_moved} B; {flops} f32 FLOP = "
+        f"{by_ops:.4f} ms); plain {plain_ms:.4f} ms, F.interpolate per plane + colour matrix "
+        f"{library_ms:.4f} ms")
+    return {
+        "name": "K3 preprocess_yuv", "route": "cuda",
+        "source": "ted_spad_tpu_torch/csrc/preprocess_yuv.cu",
+        "replaces": "ted_spad_tpu/ops/yuv.py:42 (fused_preprocess_yuv; XLA, no Pallas kernel)",
+        "ms": ms, "device_only_ms": device_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": "bytes" if by_bytes >= by_ops else "operations", "library_ms": library_ms,
+        "kernel": plan.kernel,
+    }
+
+
+def k3(device) -> None:
+    from ted_spad_tpu_torch.utils import cuda_build
+
+    seconds, nvcc_out = cuda_build.build("preprocess_yuv")
+    for name, r in cuda_build.ptxas_report(nvcc_out).items():
+        print(f"[K3 build] {name}: {r}", flush=True)
+    print(f"build {seconds:.2f}s", flush=True)
+    print(f"worst max abs error {k3_check(device):.3e}", flush=True)
+    k3_timing(device)
+    for shape in K3_FRAME_SIZES:
+        k3_timing(device, shape=shape)
+
+
+def k4_operands(device, x_shape, w_shape, seed: int = 0):
+    """Seeded int8 activations (codes in [-127, 127]) and a float kernel quantized and
+    packed for K4, on the card."""
+    import numpy as np
+    import torch
+
+    from ted_spad_tpu_torch.ops.int8conv import int8_weight
+
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.integers(-127, 128, x_shape, dtype=np.int8)).to(device)
+    w = torch.from_numpy(rng.standard_normal(w_shape).astype(np.float32)).to(device)
+    return x, int8_weight(w)
+
+
+def k4_call(x, weight, strides, padding, dilation, use_kernel: bool = True, scale: float = 0.05,
+            out_dtype=None):
+    import torch
+
+    from ted_spad_tpu_torch.ops.int8conv import int8_conv
+
+    return int8_conv(x, weight, scale, strides=strides, padding=padding, lhs_dilation=dilation,
+                     out_dtype=out_dtype or torch.bfloat16, use_kernel=use_kernel)
+
+
+def k4_check(device, cases, log=print, tag: str = "[K4]") -> int:
+    """K4 against int8_conv_reference on the card, bf16 and f32 out, bit for bit, at each
+    (name, x shape, kernel shape, strides, pads, dilation) of ``cases``. Returns the
+    number of elements compared."""
+    import torch
+
+    n = 0
+    for i, (name, xs, ws, st, pads, dil) in enumerate(cases):
+        x, weight = k4_operands(device, xs, ws, seed=60 + i)
+        for dtype in (torch.bfloat16, torch.float32):
+            got = k4_call(x, weight, st, pads, dil, out_dtype=dtype)
+            ref = k4_call(x, weight, st, pads, dil, use_kernel=False, out_dtype=dtype)
+            torch.cuda.synchronize()
+            same = got.shape == ref.shape and torch.equal(got, ref)
+            diff = int((got != ref).sum()) if got.shape == ref.shape else -1
+            log(f"{tag} {name} x{tuple(xs)} w{tuple(ws)} s{tuple(st)} p{tuple(pads)} "
+                f"d{dil} {str(dtype)[6:]}: {'bit-equal' if same else f'{diff} elements differ'} "
+                f"({got.numel()} elements)")
+            if not same:
+                raise AssertionError(f"K4 differs from its plain version at {name}")
+            n += got.numel()
+    return n
+
+
+def k4_bound(x_shape, w_shape, out_shape, out_bytes: int = 2) -> tuple[float, float]:
+    """(ms by operations, ms by bytes) of one int8 conv: 2 * taps * Cin * Cout operations
+    per output pixel at the int8 tensor-core rate; the activations, the weights and the
+    scales read once, the output written once, at the memory rate."""
+    import math
+
+    taps_cin = math.prod(w_shape[:-1])
+    m = math.prod(out_shape[:-1])
+    ops = 2 * m * taps_cin * w_shape[-1]
+    bytes_moved = (math.prod(x_shape) + taps_cin * w_shape[-1] + 4 * w_shape[-1]
+                   + m * w_shape[-1] * out_bytes)
+    return ops / INT8_TOPS * 1e3, bytes_moved / HBM_BYTES_PER_S * 1e3
+
+
+def k4_library(x, weight, strides, padding, dilation, scale: float = 0.05):
+    """The yardsticks of one int8 conv shape, never called by the port: (the cuDNN bf16
+    conv it replaces, on the dequantized operands; torch._int_mm + the same epilogue at a
+    1x1 / 1x1x1 unstrided, unpadded shape, else None), each a zero-argument callable."""
+    import torch
+    import torch.nn.functional as F
+
+    from ted_spad_tpu_torch.ops.int8conv import channel_scale, epilogue
+
+    nd = weight.codes.dim() - 2
+    fmt = torch.channels_last if nd == 2 else torch.channels_last_3d
+    xb = x.to(torch.bfloat16).movedim(-1, 1)  # NCHW / NCDHW view in channels_last memory
+    wb = (weight.codes.to(torch.bfloat16) * weight.scale.to(torch.bfloat16)).permute(
+        nd + 1, nd, *range(nd)).contiguous(memory_format=fmt)
+    pads = [p for pair in reversed([tuple(p) for p in padding]) for p in pair]
+    if dilation is not None and any(d != 1 for d in dilation):
+        # lhs dilation as a transposed conv of the flipped kernel (pad k - 1 - p per side).
+        wt = wb.flip(list(range(2, 2 + nd))).transpose(0, 1).contiguous(memory_format=fmt)
+        k = weight.codes.shape[0]
+        conv_t = F.conv_transpose2d if nd == 2 else F.conv_transpose3d
+        cudnn = lambda: conv_t(xb, wt, stride=tuple(dilation),  # noqa: E731
+                               padding=k - 1 - padding[0][0])
+    else:
+        conv = F.conv2d if nd == 2 else F.conv3d
+        symmetric = all(lo == hi for lo, hi in padding)
+        if symmetric:
+            cudnn = lambda: conv(xb, wb, stride=tuple(strides),  # noqa: E731
+                                 padding=tuple(lo for lo, _ in padding))
+        else:
+            cudnn = lambda: conv(F.pad(xb, pads), wb, stride=tuple(strides))  # noqa: E731
+    int_mm = None
+    if all(k == 1 for k in weight.taps) and all(s == 1 for s in strides) and not any(pads):
+        a = x.reshape(-1, x.shape[-1])
+        b = weight.codes.reshape(x.shape[-1], -1).t().contiguous().t()  # column-major (K, N)
+        sc = channel_scale(scale, weight.scale)
+        if a.shape[0] > 16 and a.shape[1] % 8 == 0 and b.shape[1] % 8 == 0:
+            int_mm = lambda: epilogue(torch._int_mm(a, b), sc, torch.bfloat16)  # noqa: E731
+    return cudnn, int_mm
+
+
+def k4(device) -> None:
+    import torch
+
+    from ted_spad_tpu_torch.utils import cuda_build
+
+    seconds, nvcc_out = cuda_build.build("int8conv")
+    for name, r in cuda_build.ptxas_report(nvcc_out).items():
+        print(f"[K4 build] {name}: {r}", flush=True)
+    print(f"build {seconds:.2f}s", flush=True)
+    print(f"{k4_check(device, K4_CASES)} elements bit-equal", flush=True)
+    # Alone at a few serving shapes (256 frames / 16 clips).
+    for name, xs, ws, st, pads, dil in (
+        ("enc layer1 3x3 64->64", (256, 56, 56, 64), (3, 3, 64, 64), (1, 1), ((1, 1),) * 2, None),
+        ("dec x_0_2 conv2 64->64", (256, 112, 112, 64), (3, 3, 64, 64), (1, 1), ((1, 1),) * 2, None),
+        ("ft l3 1x1x1 1024->256", (16, 4, 14, 14, 1024), (1, 1, 1, 1024, 256), (1, 1, 1),
+         ((0, 0),) * 3, None),
+    ):
+        x, weight = k4_operands(device, xs, ws)
+        out = k4_call(x, weight, st, pads, dil)
+        ms = time_ms(lambda: k4_call(x, weight, st, pads, dil), reps=5, inner=2)
+        cudnn, int_mm = k4_library(x, weight, st, pads, dil)
+        lib_ms = time_ms(cudnn, reps=5, inner=2)
+        mm_ms = time_ms(int_mm, reps=5, inner=2) if int_mm else None
+        by_ops, by_bytes = k4_bound(xs, ws, tuple(out.shape))
+        print(f"[K4] {name} x{xs}: kernel {ms:.4f} ms, bound {max(by_ops, by_bytes):.4f} ms "
+              f"(operations {by_ops:.4f}, bytes {by_bytes:.4f}), cuDNN bf16 {lib_ms:.4f} ms, "
+              f"_int_mm + epilogue {mm_ms}", flush=True)
+        del x, out
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
-    if len(sys.argv) != 2 or sys.argv[1] not in ("k1", "k2", "gain", "mgfn"):
+    if len(sys.argv) != 2 or sys.argv[1] not in ("k1", "k2", "k3", "k4", "gain", "mgfn"):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_probes: needs a CUDA card", file=sys.stderr)
         return 1
     t0 = time.perf_counter()
-    {"k1": k1, "k2": k2, "gain": gain, "mgfn": mgfn}[sys.argv[1]](torch.device("cuda", 0))
+    {"k1": k1, "k2": k2, "k3": k3, "k4": k4, "gain": gain,
+     "mgfn": mgfn}[sys.argv[1]](torch.device("cuda", 0))
     print(f"{sys.argv[1]} done in {time.perf_counter() - t0:.1f}s on "
           f"{torch.cuda.get_device_name(0)}")
     return 0

@@ -19,13 +19,24 @@ def add_extraction_args(ap: argparse.ArgumentParser) -> None:
                     help="procedural videos at tiny shapes (no media needed)")
     ap.add_argument("--raw", action="store_true", help="skip anonymization (raw features)")
     ap.add_argument("--batch", type=int, default=8, help="clips per device step")
+    ap.add_argument("--decode_mode", type=str, default="rgb", choices=["rgb", "yuv"],
+                    help="'yuv': planar ingest, half the host->device bytes, chroma upsample "
+                         "and YCbCr->RGB in the card's preprocess (kernel K3); reads at the "
+                         "videos' native resolution, so set --decode_hw to it")
     ap.add_argument("--decode_hw", type=int, nargs=2, default=None, metavar=("H", "W"),
-                    help="decode resolution (default 240 320)")
+                    help="decode resolution (default 240 320); in yuv mode the videos' "
+                         "native resolution")
     ap.add_argument("--num_workers", type=int, default=8, help="host decode threads")
     ap.add_argument("--ncrops", type=int, default=None, choices=[1, 5, 10],
                     help="crops per clip: 5 = corners + centre, 10 = + their mirrors (the "
                          "published MGFN feature layout); features become (num_clips, "
                          "ncrops, F)")
+    ap.add_argument("--quant", type=str, default=None, choices=["none", "int8"],
+                    help="'int8': the W8A8 serving mode (int8 convolutions through kernel "
+                         "K4), calibrated on the run's first batches; logs the features' "
+                         "cosine to the bf16 path's")
+    ap.add_argument("--quant_calib_batches", type=int, default=None,
+                    help="batches the int8 mode calibrates on (default 2)")
     ap.add_argument("--saved_model_fa", type=str, default=None,
                     help="fa checkpoint (fa_model_state_dict), as the JAX stages write it")
     ap.add_argument("--saved_model_ft", type=str, default=None,
@@ -46,6 +57,10 @@ def extraction_inputs(args, *, n_synthetic: int):
                           args.params)
     if args.ncrops:
         p = p.replace(ncrops=args.ncrops)
+    if args.quant:
+        p = p.replace(quant=args.quant)
+    if args.quant_calib_batches:
+        p = p.replace(quant_calib_batches=args.quant_calib_batches)
     if args.synthetic:
         (t, h, w), n = (I3D_SMALLEST_CLIP, 40) if p.arch_ft == "i3d" else ((8, 32, 32), 120)
         p = p.replace(num_frames=t, reso_h=h, reso_w=w, compute_dtype="float32")

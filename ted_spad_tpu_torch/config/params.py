@@ -38,7 +38,15 @@ class FeatureExtractionParams(StageParams):
     arch_ft: str = "largei3d"
     quirk_compat: bool = False  # the reference's fa-return reshape (stages/feature_extraction.py)
     ncrops: int = 1  # 1, 5 or 10 crops per clip
-    quant: str = "none"  # "int8" is not ported: NotImplementedError
+    # Opt-in W8A8 int8 serving mode of the fa (ops/quant_unetpp.py): "none" (bf16) or
+    # "int8". Activation scales come from the run's first ``quant_calib_batches``
+    # batches; with ``quant_fidelity_check`` the stage reports the int8 features' cosine
+    # to the bf16 path's on the first one. ``quant_ft`` quantizes the I3Res50 ft too
+    # (other ft architectures stay bf16, with a log line).
+    quant: str = "none"
+    quant_calib_batches: int = 2
+    quant_fidelity_check: bool = True
+    quant_ft: bool = True
 
     # DALI-equivalent windowing (dali_extraction.py:72-73): 16 frames, stride 2, step 32.
     @property

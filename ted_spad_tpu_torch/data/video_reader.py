@@ -1,5 +1,5 @@
 """Host video decode for the port (counterpart of ted_spad_tpu/data/video_reader.py,
-RGB reads): a ctypes binding of the native C++/FFmpeg decoder in
+RGB and planar YUV420 reads): a ctypes binding of the native C++/FFmpeg decoder in
 native/videodec/libvideodec.so (the GIL is released during decode, so a Python
 thread pool decodes several videos at once), and ``SyntheticVideoReader`` for
 procedural ``synthetic://`` videos that need no media files.
@@ -53,6 +53,12 @@ def _load_library():
         lib.vd_read_strided.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
                                         ctypes.c_int64, ctypes.POINTER(ctypes.c_uint8)]
         lib.vd_last_error.restype = ctypes.c_char_p
+        for name in ("vd_native_width", "vd_native_height", "vd_full_range", "vd_colorspace"):
+            getattr(lib, name).restype = ctypes.c_int
+            getattr(lib, name).argtypes = [ctypes.c_void_p]
+        lib.vd_read_strided_yuv.restype = ctypes.c_int64
+        lib.vd_read_strided_yuv.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                                            ctypes.c_int64] + [ctypes.POINTER(ctypes.c_uint8)] * 3
         _lib = lib
     except (OSError, subprocess.CalledProcessError, AttributeError) as e:
         _lib_error = str(e)
@@ -61,7 +67,7 @@ def _load_library():
 
 
 class VideoReader:
-    """Strided RGB24 frame reader over one video file.
+    """Strided RGB24 (or planar YUV420) frame reader over one video file.
 
     ``threads``: decoder thread_count (0 = libavcodec auto). Decode is bit-exact:
     the decoder's in-loop deblocking filter stays on."""
@@ -92,17 +98,25 @@ class VideoReader:
     def __len__(self) -> int:
         return self._num_frames
 
-    def _raise_or_pad(self, got: int, n: int, out: np.ndarray) -> None:
+    @property
+    def colorspace(self) -> int:
+        """The stream's colorspace family: 601, 709, 0 (untagged: swscale assumes 601) or
+        -1 (another, e.g. BT.2020, which the YUV ingest path refuses)."""
+        return int(self._lib.vd_colorspace(self._handle()))
+
+    def _raise_or_pad(self, got: int, n: int, planes, fills) -> None:
         """``got < 0``: the native layer reported a decode FAILURE, so raise (the
         corrupt-video tolerance skips the file). ``got < n``: benign EOF (estimated
-        frame counts overshoot): pad with the last delivered frame, or zeros."""
+        frame counts overshoot): pad each plane with its last delivered frame, or its
+        fill value when none was delivered."""
         if got < 0:
             raise IOError(f"read failed for {self.path}: {self._lib.vd_last_error().decode()}")
         if got < n:
-            if got == 0:
-                out[:] = 0
-            else:
-                out[got:] = out[got - 1]
+            for out, fill in zip(planes, fills):
+                if got == 0:
+                    out[:] = fill
+                else:
+                    out[got:] = out[got - 1]
 
     def read_strided(self, start: int, n: int, stride: int) -> np.ndarray:
         """DALI-style sequence read: n frames at ``start + i*stride`` (dali_extraction.py:72)."""
@@ -110,8 +124,24 @@ class VideoReader:
         got = self._lib.vd_read_strided(
             self._handle(), start, n, stride, out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
         )
-        self._raise_or_pad(got, n, out)
+        self._raise_or_pad(got, n, (out,), (0,))
         return out
+
+    def read_strided_yuv(self, start: int, n: int, stride: int):
+        """Planar read of the same frames: ``(y (n, H, W), u (n, H/2, W/2), v (n, H/2,
+        W/2), full_range)`` uint8 at the stream's native resolution, 1.5 bytes per pixel
+        and no host colour conversion. Short reads at the end pad with the last frame
+        (with black, Y 0 and U = V = 128, when none was read)."""
+        h = self._handle()
+        nh, nw = self._lib.vd_native_height(h), self._lib.vd_native_width(h)
+        y = np.empty((n, nh, nw), np.uint8)
+        u = np.empty((n, nh // 2, nw // 2), np.uint8)
+        v = np.empty((n, nh // 2, nw // 2), np.uint8)
+        ptr = ctypes.POINTER(ctypes.c_uint8)
+        got = self._lib.vd_read_strided_yuv(h, start, n, stride, y.ctypes.data_as(ptr),
+                                            u.ctypes.data_as(ptr), v.ctypes.data_as(ptr))
+        self._raise_or_pad(got, n, (y, u, v), (0, 128, 128))
+        return y, u, v, bool(self._lib.vd_full_range(h))
 
     def close(self):
         if self._h:
@@ -159,9 +189,29 @@ class SyntheticVideoReader:
     def __len__(self) -> int:
         return self._n
 
+    colorspace = 601  # the emulated planar encode below is BT.601
+
     def read_strided(self, start: int, n: int, stride: int) -> np.ndarray:
         # Past-EOF indices clamp to the last frame, as the native reader pads.
         return np.stack([self._frame(min(start + i * stride, self._n - 1)) for i in range(n)])
+
+    def read_strided_yuv(self, start: int, n: int, stride: int):
+        """Planar read emulated from the RGB frames: a BT.601 limited-range encode with
+        2x2 box-averaged chroma, as the JAX package's synthetic reader does."""
+        rgb = self.read_strided(start, n, stride).astype(np.float32)
+        r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+        y = 16.0 + (65.481 * r + 128.553 * g + 24.966 * b) / 255.0
+        u = 128.0 + (-37.797 * r - 74.203 * g + 112.0 * b) / 255.0
+        v = 128.0 + (112.0 * r - 93.786 * g - 18.214 * b) / 255.0
+
+        def sub(p):
+            h2, w2 = p.shape[-2] // 2, p.shape[-1] // 2
+            return p[..., : h2 * 2, : w2 * 2].reshape(p.shape[0], h2, 2, w2, 2).mean((2, 4))
+
+        def to_u8(p):
+            return np.clip(np.round(p), 0, 255).astype(np.uint8)
+
+        return to_u8(y), to_u8(sub(u)), to_u8(sub(v)), False
 
     def close(self):
         pass

@@ -4,13 +4,16 @@ scripts/extract_features.py; reference feature_extraction/dali_extraction.py):
     python -m ted_spad_tpu_torch.extract_features --videos_glob 'videos/*/*.mp4' \\
         --saved_model_fa fa.ckpt --saved_model_ft ft.ckpt --out_dir features
 
-decode -> preprocess (K1) -> fa -> ft -> ``<out_dir>/<name>.npy`` of (num_clips, F), or
-(num_clips, ncrops, F) with ``--ncrops 5|10``. ``--params FILE`` overlays a
+decode -> preprocess (K1; K3 with ``--decode_mode yuv``) -> fa -> ft ->
+``<out_dir>/<name>.npy`` of (num_clips, F), or (num_clips, ncrops, F) with
+``--ncrops 5|10``. ``--quant int8`` runs the W8A8 serving mode (int8 convolutions through
+kernel K4, calibrated on the run's first ``--quant_calib_batches`` batches). ``--params FILE`` overlays a
 reference-style ``params_*.py`` on ``FeatureExtractionParams`` (``arch_ft``, ``arch_fa``,
 ``no_ar_distortion``, ``quirk_compat``, ...). ``--shard_id`` / ``--num_shards`` split the
 video list round-robin across processes; existing files are skipped (resume).
 
-Synthetic smoke on the CPU: ``python -m ted_spad_tpu_torch.extract_features --synthetic --device cpu``.
+Synthetic smoke on the CPU: ``python -m ted_spad_tpu_torch.extract_features --synthetic --device cpu``
+(add ``--decode_mode yuv`` or ``--quant int8`` for those modes).
 """
 
 from __future__ import annotations
@@ -36,9 +39,11 @@ def run(args) -> dict:
     res = extract_features(p, uris, args.out_dir, fa=fa, ft=ft, batch_size=args.batch,
                            decode_hw=decode_hw, shard_id=args.shard_id,
                            num_shards=args.num_shards, num_workers=args.num_workers,
-                           device=device)
+                           decode_mode=args.decode_mode, device=device)
     print(f"done; {res['clips']} clips @ {res['clips_per_sec']:.2f} clips/s"
-          + (f"; {len(res['skipped'])} videos skipped (undecodable)" if res["skipped"] else ""))
+          + (f"; {len(res['skipped'])} videos skipped (undecodable)" if res["skipped"] else "")
+          + (f"; int8 features' cosine to bf16 {res['quant_feature_cossim_vs_bf16']}"
+             if "quant_feature_cossim_vs_bf16" in res else ""))
     return res
 
 

@@ -1,5 +1,6 @@
 """One-command anomaly scoring of raw videos on a CUDA card:
-decode -> preprocess (K1) -> fa -> ft -> .npy features -> MGFN frame scores.
+decode -> preprocess (K1; K3 with ``--decode_mode yuv``) -> fa -> ft -> .npy features ->
+MGFN frame scores. ``--quant int8`` extracts in the W8A8 serving mode (kernel K4).
 
     python -m ted_spad_tpu_torch.score_video --videos_glob 'cam/*.mp4' \\
         --fa_weights fa.npz --ft_weights ft.npz --mgfn_weights mgfn.npz --out_dir scores
@@ -75,7 +76,8 @@ def run(args) -> list[dict]:
     if args.synthetic:  # MGFN's internal dims shrink too
         mp = mp.replace(dims=(16, 32, 64), depths=(1, 1, 1), dim_head=16)
 
-    cfg = (f"{p!r}|rgb|{decode_hw}|params={args.params}|fa={args.fa_weights}"
+    # p's repr carries the quant settings: int8 and bf16 features never share an entry.
+    cfg = (f"{p!r}|{args.decode_mode}|{decode_hw}|params={args.params}|fa={args.fa_weights}"
            f"|ft={args.ft_weights}|fa_ckpt={args.saved_model_fa}|ft_ckpt={args.saved_model_ft}")
     feat_dir = os.path.join(args.out_dir, "features", hashlib.sha1(cfg.encode()).hexdigest()[:12])
     score_dir = os.path.join(args.out_dir, "scores")
@@ -96,7 +98,8 @@ def run(args) -> list[dict]:
     if args.ft_weights:
         load_jax_variables(ft, load_npz_variables(args.ft_weights), skip=FT_HEADS)
     res = extract_features(p, uris, feat_dir, fa=fa, ft=ft, batch_size=args.batch,
-                           decode_hw=decode_hw, num_workers=args.num_workers, device=device)
+                           decode_hw=decode_hw, num_workers=args.num_workers,
+                           decode_mode=args.decode_mode, device=device)
     feat_paths = {**res["existing"], **res["saved"]}
 
     model = load_mgfn_model(mp, saved_model_file=args.mgfn_ckpt, device=device)

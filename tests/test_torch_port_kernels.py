@@ -12,7 +12,9 @@ import pytest
 import torch
 
 from ted_spad_tpu_torch.ops import doubleconv as dc
+from ted_spad_tpu_torch.ops import int8conv
 from ted_spad_tpu_torch.ops import preprocess as pp
+from ted_spad_tpu_torch.ops import yuv
 from ted_spad_tpu_torch.utils.device import tf32_off
 
 
@@ -141,3 +143,79 @@ def test_double_conv_kernel_refuses_a_cmid_no_tile_fits(cuda_device):
     with pytest.raises(ValueError, match="Cmid"):
         dc.fused_double_conv(x, w1, b1, w2, b2)
     assert dc.fused_double_conv.launches == launches
+
+
+def _yuv_rows(device, b, t, h, w, tagged, offset=0, seed=0):
+    rng = np.random.default_rng(seed)
+    data = rng.integers(0, 256, (b, t, yuv.packed_row_bytes(h, w) + int(tagged)), dtype=np.uint8)
+    if tagged:
+        data[:, :, -1] = (np.arange(b) % 4)[:, None]
+    buf = torch.empty(data.size + offset, dtype=torch.uint8, device=device)
+    rows = buf[offset:].view(data.shape)
+    rows.copy_(torch.from_numpy(data))
+    return rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,tagged,offset", [
+    ((16, 16, 240, 320), True, 0),   # the serving batch, four colour sets
+    ((2, 16, 240, 320), False, 0),   # rows without the tag byte
+    ((2, 8, 480, 856), True, 0),     # runtime taps
+    ((2, 4, 240, 320), True, 1),     # every row unaligned
+    ((2, 3, 40, 80), True, 0),
+])
+def test_yuv_preprocess_kernel_matches_plain_version(cuda_device, shape, tagged, offset):
+    b, t, h, w = shape
+    rows = _yuv_rows(cuda_device, b, t, h, w, tagged, offset, seed=h)
+    launches = yuv.fused_preprocess_yuv.launches
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)):
+        got = yuv.fused_preprocess_yuv(rows, (h, w), out_dtype=dtype)
+        y, u, v, bt709, full = yuv.unpack_yuv(rows, (h, w))
+        with tf32_off():
+            ref = yuv.fused_preprocess_yuv_reference(y, u, v, out_dtype=dtype, bt709=bt709, full=full)
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape and got.dtype == dtype
+        scale = float(ref.float().abs().max())
+        assert float((got.float() - ref.float()).abs().max()) <= tol * scale
+    assert yuv.fused_preprocess_yuv.launches == launches + 2
+
+
+@pytest.mark.cuda
+def test_yuv_preprocess_kernel_refuses_a_misaligned_window(cuda_device):
+    rows = _yuv_rows(cuda_device, 1, 2, 50, 70, True)
+    with pytest.raises(ValueError, match="chroma-misaligned"):
+        yuv.fused_preprocess_yuv(rows, (50, 70))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xs,ws,strides,pads,dil", [
+    ((2, 56, 56, 64), (3, 3, 64, 64), (1, 1), ((1, 1), (1, 1)), None),
+    ((1, 8, 32, 32, 3), (5, 7, 7, 3, 64), (2, 2, 2), ((2, 2), (3, 3), (3, 3)), None),
+    ((2, 13, 17, 48), (3, 3, 48, 40), (1, 1), ((1, 1), (1, 1)), None),
+    ((2, 57, 55, 64), (3, 3, 64, 128), (2, 2), ((1, 1), (1, 1)), None),
+    ((2, 8, 14, 14, 256), (3, 1, 1, 256, 64), (1, 1, 1), ((1, 1), (0, 0), (0, 0)), None),
+    ((2, 28, 28, 64), (4, 4, 64, 32), (1, 1), ((2, 2), (2, 2)), (2, 2)),
+    ((1, 9, 10, 32), (3, 3, 32, 24), (1, 1), ((0, 2), (1, 0)), None),
+])
+def test_int8_conv_kernel_is_bit_equal_to_plain_version(cuda_device, xs, ws, strides, pads, dil):
+    rng = np.random.default_rng(sum(xs))
+    x = torch.from_numpy(rng.integers(-127, 128, xs, dtype=np.int8)).to(cuda_device)
+    weight = int8conv.int8_weight(torch.from_numpy(rng.standard_normal(ws).astype(np.float32))
+                                  .to(cuda_device))
+    launches = int8conv.int8_conv.launches
+    for dtype in (torch.bfloat16, torch.float32):
+        kw = dict(strides=strides, padding=pads, lhs_dilation=dil, out_dtype=dtype)
+        got = int8conv.int8_conv(x, weight, 0.05, **kw)
+        ref = int8conv.int8_conv(x, weight, 0.05, use_kernel=False, **kw)
+        assert got.shape == ref.shape and torch.equal(got, ref)
+    assert int8conv.int8_conv.launches == launches + 2
+
+
+@pytest.mark.cuda
+def test_int8_conv_kernel_rejects_what_it_does_not_take(cuda_device):
+    x = torch.zeros((1, 8, 8, 32), dtype=torch.int8, device=cuda_device)
+    weight = int8conv.int8_weight(torch.ones((3, 3, 32, 8), device=cuda_device))
+    with pytest.raises(ValueError, match="contiguous"):
+        int8conv.int8_conv(x[:, :, ::2], weight, 0.1, padding=((1, 1), (1, 1)))
+    with pytest.raises(ValueError, match="float64"):
+        int8conv.int8_conv(x, weight, 0.1, padding=((1, 1), (1, 1)), out_dtype=torch.float64)

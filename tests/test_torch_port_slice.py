@@ -215,13 +215,18 @@ def test_spans_above_matches_the_jax_cli():
 
 
 @pytest.mark.parametrize("field,value", [("quant", "int8")])
-def test_unported_options_raise(field, value):
-    """The int8 mode is the one option left unported; ncrops, quirk_compat and
-    no_ar_distortion are held against JAX in test_torch_port_extraction_options.py."""
-    p = FeatureExtractionParams(**{field: value})
+def test_unported_options_raise(field, value, tmp_path):
+    """Every extraction option is ported now, the int8 mode last (held against JAX in
+    test_torch_port_quant.py). What the JAX stage refuses of it the port refuses too,
+    in the same words: the int8 mode without the fa it quantizes, and a quant value
+    neither package has."""
+    p = FeatureExtractionParams(**{field: value}, num_frames=8, reso_h=32, reso_w=32,
+                                compute_dtype="float32", anonymized=False)
     ft = load_ft_model(tiny=True, dtype="float32", device="cpu")
-    with pytest.raises(NotImplementedError, match=field):
-        fe.make_extract_step(ft, p, device="cpu")
+    with pytest.raises(ValueError, match="requires anonymized=True"):
+        fe.extract_features(p, URIS[:1], str(tmp_path), ft=ft, device="cpu")
+    with pytest.raises(ValueError, match="quant must be 'none' or 'int8'"):
+        fe.make_extract_step(ft, p.replace(**{field: "int4"}), device="cpu")
 
 
 def test_entry_points_need_cuda_unless_cpu(monkeypatch, tmp_path):
@@ -284,10 +289,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          timeout=300, env={**os.environ, "PYTHONPATH": ROOT})
     assert out.returncode == 0, out.stderr
     *_, names, count = out.stdout.strip().splitlines()
-    assert int(count) >= 41
+    assert int(count) >= 46
     slice7 = {"cli", "data.gt_builders", "extract_features", "make_gt", "models.i3d", "models.mvit",
               "models.r3d"}  # the extraction options' and gt builders' modules
-    assert {f"ted_spad_tpu_torch.{m}" for m in slice7} <= set(names.split())
+    slice8 = {"ops.yuv", "ops.int8conv", "ops.fast_unetpp", "ops.quant_unetpp",
+              "ops.quant_i3d"}  # YUV ingest and the int8 serving mode
+    assert {f"ted_spad_tpu_torch.{m}" for m in slice7 | slice8} <= set(names.split())
 
 
 def test_score_video_cli_synthetic_on_cpu(tmp_path):
