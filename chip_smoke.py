@@ -345,7 +345,7 @@ def serving_path(device, workdir: str) -> dict:
     its outputs. Returns the kernels' launch counts from this run."""
     import torch
 
-    from ted_spad_tpu_torch.chip_probes import time_ms
+    from ted_spad_tpu_torch.chip_probes import conv_class, record_int8_convs, time_ms
     from ted_spad_tpu_torch.config.params import FeatureExtractionParams
     from ted_spad_tpu_torch.models import load_fa_model, load_ft_model
     from ted_spad_tpu_torch.stages.feature_extraction import (
@@ -462,7 +462,7 @@ def unet_path(device, workdir: str) -> dict:
     output against the f32 plain path."""
     import torch
 
-    from ted_spad_tpu_torch.chip_probes import time_ms
+    from ted_spad_tpu_torch.chip_probes import conv_class, record_int8_convs, time_ms
     from ted_spad_tpu_torch.config.params import FeatureExtractionParams
     from ted_spad_tpu_torch.models import load_fa_model, load_ft_model
     from ted_spad_tpu_torch.ops.preprocess import fused_preprocess_reference
@@ -832,7 +832,7 @@ def xd_path(device, workdir: str, fa, fa32, card: str) -> dict:
     InceptionI3d ft, 1024-d .npy files, XD-preset MGFN scores; K1 once per batch."""
     import torch
 
-    from ted_spad_tpu_torch.chip_probes import time_ms
+    from ted_spad_tpu_torch.chip_probes import conv_class, record_int8_convs, time_ms
     from ted_spad_tpu_torch.config.params import FeatureExtractionParams
     from ted_spad_tpu_torch.models import load_ft_model
     from ted_spad_tpu_torch.stages.feature_extraction import (
@@ -1081,109 +1081,47 @@ def yuv_path(device, workdir: str, fa, fa32, card: str) -> tuple[dict, dict]:
     return entry, launches
 
 
-def record_int8_convs(step, batch) -> list:
-    """The int8 convolutions one call of ``step`` runs, in order: (site key, input shape,
-    kernel shape, strides, pads, lhs dilation)."""
-    from ted_spad_tpu_torch.ops import quant_unetpp
-
-    calls = []
-    original = quant_unetpp._Quantizer.conv
-
-    def conv(self, qx, w, key, *, strides=(1, 1), padding=((1, 1), (1, 1)), lhs_dilation=None):
-        out = original(self, qx, w, key, strides=strides, padding=padding,
-                       lhs_dilation=lhs_dilation)
-        if self.mode == "run":
-            calls.append((key, tuple(qx.data.shape), tuple(self._weights[key].codes.shape),
-                          tuple(strides), tuple(tuple(q) for q in padding), lhs_dilation))
-        return out
-
-    quant_unetpp._Quantizer.conv = conv
-    try:
-        step(batch)
-    finally:
-        quant_unetpp._Quantizer.conv = original
-    return calls
-
-
-def conv_class(call) -> str:
-    """A shape class of an int8 conv: its taps, stride and dilation."""
-    _, xs, ws, st, _, dil = call
-    taps = "x".join(map(str, ws[:-2]))
-    stride = "" if all(v == 1 for v in st) else " s" + "x".join(map(str, st))
-    return f"{len(ws) - 2}D {taps}{stride}{' up2' if dil else ''}"
-
-
 def check_int8_convs(device, calls, card: str) -> dict:
     """K4 against int8_conv_reference bit for bit at every recorded shape (frame / clip
-    batch cut to 2 / 1) and at chip_probes.K4_CASES; then each conv of one batch timed at
-    its full shape (random codes) beside its bound, the plain version and the yardsticks.
+    batch cut to 2 / 1) with its own epilogue form, and at chip_probes.K4_CASES with each
+    of the forms; then each conv of one batch timed at its full shape with its form
+    (random codes and operands) beside its bound, the plain version and the yardsticks.
     Returns K4's kernel-table entry, launches aside."""
-    import torch
-
     from ted_spad_tpu_torch.chip_probes import (
-        K4_CASES, k4_bound, k4_call, k4_check, k4_library, k4_operands, time_ms,
+        K4_CASES, conv_class, k4_check, k4_classes, k4_timing,
     )
 
     reduced = [(f"{c[0]} ({conv_class(c)})", (2 if len(c[1]) == 4 else 1,) + c[1][1:], *c[2:])
                for c in calls]
     n = k4_check(device, reduced, log=lambda m: None)
-    log(f"[K4] the {len(reduced)} convs of the int8 path, batch cut to 2 frames / 1 clip: K4 "
-        f"bit-equal to its plain version in bf16 and f32 ({n} elements)")
+    log(f"[K4] the {len(reduced)} convs of the int8 path, batch cut to 2 frames / 1 clip, each "
+        f"with its epilogue form: K4 bit-equal to its plain version in bf16 and f32 ({n} elements)")
     n_ragged = k4_check(device, K4_CASES, log)
-    rows = []
-    totals = {"ms": 0.0, "device_only_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
-    mm = {"ms": 0.0, "int_mm_ms": 0.0}
-    by_class: dict = {}
-    for i, call in enumerate(calls):
-        key, xs, ws, st, pads, dil = call
-        x, weight = k4_operands(device, xs, ws, seed=200 + i)
-        out = k4_call(x, weight, st, pads, dil)
-        ms = time_ms(lambda: k4_call(x, weight, st, pads, dil), reps=3, inner=2)
-        device_ms = time_ms(lambda: k4_call(x, weight, st, pads, dil), reps=3, inner=2, queued=True)
-        plain_ms = time_ms(lambda: k4_call(x, weight, st, pads, dil, use_kernel=False),
-                           reps=1, inner=1)
-        cudnn, int_mm = k4_library(x, weight, st, pads, dil)
-        library_ms = time_ms(cudnn, reps=3, inner=2)
-        by_ops, by_bytes = k4_bound(xs, ws, tuple(out.shape))
-        row = {"site": key, "class": conv_class(call), "x": list(xs), "w": list(ws), "ms": ms,
-               "device_only_ms": device_ms, "plain_ms": plain_ms, "bound_ms": max(by_ops, by_bytes),
-               "bound_by": "operations" if by_ops >= by_bytes else "bytes", "library_ms": library_ms}
-        if int_mm is not None:
-            row["int_mm_ms"] = time_ms(int_mm, reps=3, inner=2)
-            mm["ms"] += ms
-            mm["int_mm_ms"] += row["int_mm_ms"]
-        rows.append(row)
-        log(f"[K4] {key} ({row['class']}) x{list(xs)} w{list(ws)}: kernel {ms:.4f} ms (device "
-            f"only {device_ms:.4f}), bound {row['bound_ms']:.4f} ms ({row['bound_by']}), plain "
-            f"{plain_ms:.4f} ms, cuDNN bf16 {library_ms:.4f} ms"
-            + (f", torch._int_mm + epilogue {row['int_mm_ms']:.4f} ms" if "int_mm_ms" in row else ""))
-        for k in totals:
-            totals[k] += row[k]
-        agg = by_class.setdefault(row["class"], {"n": 0, "ms": 0.0, "device_only_ms": 0.0,
-                                                 "bound_ms": 0.0, "library_ms": 0.0})
-        agg["n"] += 1
-        for k in ("ms", "device_only_ms", "bound_ms", "library_ms"):
-            agg[k] += row[k]
-        del x, out
-    torch.cuda.empty_cache()
-    for name, agg in sorted(by_class.items(), key=lambda kv: -kv[1]["ms"]):
+    rows = k4_timing(device, calls, log, yardsticks=True)
+    totals = {k: sum(r[k] for r in rows)
+              for k in ("ms", "device_only_ms", "plain_ms", "bound_ms", "library_ms")}
+    mm = {"ms": sum(r["ms"] for r in rows if "int_mm_ms" in r),
+          "int_mm_ms": sum(r["int_mm_ms"] for r in rows if "int_mm_ms" in r)}
+    by_class = k4_classes(rows)
+    for name, agg in by_class.items():
         log(f"[K4] class {name}: {agg['n']} convs, kernel {agg['ms']:.3f} ms (device only "
             f"{agg['device_only_ms']:.3f}), bound "
             f"{agg['bound_ms']:.3f} ms ({agg['ms'] / agg['bound_ms']:.1f}x), cuDNN bf16 "
             f"{agg['library_ms']:.3f} ms ({agg['ms'] / agg['library_ms']:.2f}x cuDNN) | {card}")
-    log(f"[K4] the {len(calls)} int8 convs of one 16-clip batch: kernel {totals['ms']:.3f} ms "
-        f"(device only {totals['device_only_ms']:.3f}), "
-        f"plain (float64 convs of the codes) {totals['plain_ms']:.3f} ms, cuDNN bf16 convs "
-        f"{totals['library_ms']:.3f} ms, bound {totals['bound_ms']:.3f} ms; at the 1x1 / 1x1x1 "
-        f"unstrided shapes kernel {mm['ms']:.3f} ms vs torch._int_mm + epilogue "
-        f"{mm['int_mm_ms']:.3f} ms | {card}")
+    log(f"[K4] the {len(calls)} int8 convs of one 16-clip batch with their fused epilogues: "
+        f"kernel {totals['ms']:.3f} ms (device only {totals['device_only_ms']:.3f}), "
+        f"plain (float64 convs of the codes + the epilogue's torch ops) {totals['plain_ms']:.3f} "
+        f"ms, cuDNN bf16 convs {totals['library_ms']:.3f} ms, bound {totals['bound_ms']:.3f} ms; "
+        f"at the 1x1 / 1x1x1 unstrided shapes kernel {mm['ms']:.3f} ms vs torch._int_mm + the "
+        f"epilogue's torch ops {mm['int_mm_ms']:.3f} ms | {card}")
     return {"name": "K4 int8_conv", "route": "cuda", "source": "ted_spad_tpu_torch/csrc/int8conv.cu",
-            "replaces": "ted_spad_tpu/ops/quant_unetpp.py:125 (_Quantizer.conv; XLA int8 conv, "
-                        "no Pallas kernel)",
+            "replaces": "ted_spad_tpu/ops/quant_unetpp.py:125 (_Quantizer.conv and the "
+                        "elementwise ops XLA fuses after it; XLA int8 conv, no Pallas kernel)",
             "max_abs_err": 0.0, **totals, "bound_by": "operations" if sum(
                 r["bound_by"] == "operations" for r in rows) * 2 >= len(rows) else "bytes",
             "library_int_mm_ms": mm["int_mm_ms"], "int_mm_shapes_ms": mm["ms"],
-            "checked_elements": n + n_ragged, "classes": by_class}
+            "checked_elements": n + n_ragged, "classes": by_class,
+            "forms": {f: sum(r["form"] == f for r in rows) for f in sorted({r["form"] for r in rows})}}
 
 
 def frame_scores(saved: dict, device) -> dict:
@@ -1219,7 +1157,7 @@ def int8_path(device, workdir: str, fa, card: str) -> tuple[dict, dict]:
     import torch
 
     import ted_spad_tpu_torch.stages.feature_extraction as fe
-    from ted_spad_tpu_torch.chip_probes import time_ms
+    from ted_spad_tpu_torch.chip_probes import conv_class, record_int8_convs, time_ms
     from ted_spad_tpu_torch.config.params import FeatureExtractionParams
     from ted_spad_tpu_torch.models import load_ft_model
     from ted_spad_tpu_torch.ops.quant_unetpp import act_scales_from_absmax
@@ -1287,7 +1225,8 @@ def int8_path(device, workdir: str, fa, card: str) -> tuple[dict, dict]:
         raise AssertionError("[int8] the step through K4 differs from its plain-conv twin")
     calls = record_int8_convs(step, batch)
     log(f"[int8] one int8 step runs {len(calls)} int8 convs: "
-        f"{json.dumps({c: sum(conv_class(x) == c for x in calls) for c in sorted({conv_class(x) for x in calls})})}")
+        f"{json.dumps({c: sum(conv_class(x) == c for x in calls) for c in sorted({conv_class(x) for x in calls})})}; "
+        f"epilogue forms {json.dumps({f: sum(x[-1] == f for x in calls) for f in sorted({x[-1] for x in calls})})}")
     if len(calls) != INT8_CONVS:
         raise AssertionError(f"[int8] expected {INT8_CONVS} int8 convs per step, got {len(calls)}")
     step_ms = time_ms(lambda: step(batch), reps=5, inner=2)

@@ -5,6 +5,7 @@ numbers PERF.md quotes from them can be taken again:
     python -m ted_spad_tpu_torch.chip_probes k2     # kernel K2 alone
     python -m ted_spad_tpu_torch.chip_probes k3     # kernel K3 (YUV420 preprocess) alone
     python -m ted_spad_tpu_torch.chip_probes k4     # kernel K4 (int8 conv) alone
+    python -m ted_spad_tpu_torch.chip_probes int8ab PARENT   # int8 step: PARENT vs this tree
     python -m ted_spad_tpu_torch.chip_probes gain   # the UNet's outc gain vs the gates
     python -m ted_spad_tpu_torch.chip_probes mgfn   # where MGFN's card-vs-CPU step error sits
 
@@ -26,9 +27,16 @@ chroma-misaligned window, then times it at the serving batch and at K3_FRAME_SIZ
 its byte bound, the plain version and the per-plane F.interpolate yardstick.
 
 ``k4``: builds K4, prints its registers, holds it bit for bit against its plain version
-(float64 convolutions of the codes, exact) at K4_CASES in bf16 and f32, then times it
-alone at three serving shapes beside its bound and the cuDNN bf16 conv (and
-``torch._int_mm`` + the epilogue at the 1x1x1 shape).
+(float64 convolutions of the codes, exact, then the epilogue's torch ops) at K4_CASES
+with each epilogue form of K4_FORMS, in bf16 and f32, then records the 79 int8 convs of
+a serving step (random clips, seeded weights) and times each alone at its shape with its
+own epilogue form, beside its bound, with the totals per shape class.
+
+``int8ab PARENT``: the int8 serving step of PARENT (another checkout, e.g. ``git archive``
+of the parent commit unpacked under ``build/``) and of this tree in turns, parent /
+change / change / parent, each in a process of its own: step time, the bf16 step's, K4's
+device time per step from the profiler and the top kernels, and the step outputs on the
+first batch compared bit for bit under deterministic cuDNN.
 
 ``gain``: the random-init UNet's sigmoid output sits near 0.5, so the bf16 ft's own
 rounding can swamp the differences between clips. For outc gains 1, 4, 8 and 16 it
@@ -661,6 +669,25 @@ K4_CASES = (
     ("asymmetric pads", (1, 9, 10, 32), (3, 3, 32, 24), (1, 1), ((0, 2), (1, 0)), None),
 )
 INT8_TOPS = 1979e12  # H100 SXM dense int8 tensor-core rate
+# K4's epilogue forms, by ``Epilogue.form()``: (conv bias, BatchNorm, residual: None /
+# "dtype" / "int8", ReLU, int8 output). Where each runs on the int8 path: the UNet++ skip
+# convs; the downsamples; BasicBlock conv1, Bottleneck3D conv1 / conv2 and the decoder's
+# conv2 (its ConvBN has no bias); conv2 / conv3 after a downsample; conv2 / conv3 on the
+# identity; the I3Res50's last conv3 (on the identity, or after a downsample in a layout
+# whose last block has one); x_0_3's conv2; and with a conv bias, a decoder conv2 of a
+# module whose conv2 has one.
+K4_FORMS = {
+    "dequant": (False, False, None, False, False),
+    "bn": (False, True, None, False, False),
+    "bn+relu->int8": (False, True, None, True, True),
+    "bn+res+relu->int8": (False, True, "dtype", True, True),
+    "bn+res(int8)+relu->int8": (False, True, "int8", True, True),
+    "bn+res(int8)+relu": (False, True, "int8", True, False),
+    "bn+res+relu": (False, True, "dtype", True, False),
+    "bn+relu": (False, True, None, True, False),
+    "bias+bn+relu->int8": (True, True, None, True, True),
+    "bias+bn+relu": (True, True, None, True, False),
+}
 
 
 def yuv_rows(device, shape, tagged: bool, offset: int = 0, seed: int = 0):
@@ -851,62 +878,120 @@ def k4_operands(device, x_shape, w_shape, seed: int = 0):
     return x, int8_weight(w)
 
 
+def k4_epilogue(form: str, weight, out_shape, dtype, device, seed: int = 0,
+                act_scale: float = 0.05):
+    """Seeded operands of one of ``K4_FORMS`` for a conv of ``weight`` writing
+    ``out_shape``, at the scale of its outputs: y's std is about act_scale * 73.3 (the
+    std of uniform codes) * sqrt(K) * std(w codes * w scale); the BatchNorm scales lie
+    in [0.5, 1.5], the biases near 0.3 of y's std, a residual near y's std, and int8
+    outputs are coded at 4 std / 127."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from ted_spad_tpu_torch.ops.int8conv import Epilogue
+
+    bias, bn, res, relu, int8_out = K4_FORMS[form]
+    codes = weight.codes.float()
+    k = math.prod(codes.shape[:-1])
+    y_std = act_scale * 73.3 * math.sqrt(k) * float((codes * weight.scale.to(codes.device)).std())
+    rng = np.random.default_rng(seed)
+    cout = out_shape[-1]
+
+    def t(a, dt=dtype):
+        return torch.from_numpy(np.asarray(a)).to(device=device, dtype=dt)
+
+    ep = Epilogue(relu=relu, out_scale=4 * y_std / 127 if int8_out else None)
+    if bias:
+        ep = ep._replace(bias=t(rng.normal(0, 0.3 * y_std, cout).astype(np.float32)))
+    if bn:
+        ep = ep._replace(bn=(t(rng.uniform(0.5, 1.5, cout).astype(np.float32)),
+                             t(rng.normal(0, 0.3 * y_std, cout).astype(np.float32))))
+    if res == "dtype":
+        ep = ep._replace(residual=t(rng.normal(0, y_std, out_shape).astype(np.float32)))
+    elif res == "int8":
+        ep = ep._replace(residual=t(rng.integers(-127, 128, out_shape, dtype=np.int8), torch.int8),
+                         residual_scale=y_std / 73.3)
+    return ep
+
+
 def k4_call(x, weight, strides, padding, dilation, use_kernel: bool = True, scale: float = 0.05,
-            out_dtype=None):
+            out_dtype=None, epilogue=None):
     import torch
 
     from ted_spad_tpu_torch.ops.int8conv import int8_conv
 
     return int8_conv(x, weight, scale, strides=strides, padding=padding, lhs_dilation=dilation,
-                     out_dtype=out_dtype or torch.bfloat16, use_kernel=use_kernel)
+                     out_dtype=out_dtype or torch.bfloat16, epilogue=epilogue,
+                     use_kernel=use_kernel)
 
 
 def k4_check(device, cases, log=print, tag: str = "[K4]") -> int:
-    """K4 against int8_conv_reference on the card, bf16 and f32 out, bit for bit, at each
-    (name, x shape, kernel shape, strides, pads, dilation) of ``cases``. Returns the
-    number of elements compared."""
+    """K4 against int8_conv_reference on the card, bf16 and f32, bit for bit, at each
+    (name, x shape, kernel shape, strides, pads, dilation[, epilogue form]) of
+    ``cases``: with its form where the case names one, else with each of K4_FORMS.
+    Returns the number of elements compared."""
     import torch
 
+    from ted_spad_tpu_torch.ops.int8conv import conv_out_shape
+
     n = 0
-    for i, (name, xs, ws, st, pads, dil) in enumerate(cases):
+    for i, (name, xs, ws, st, pads, dil, *form) in enumerate(cases):
         x, weight = k4_operands(device, xs, ws, seed=60 + i)
+        out_shape = conv_out_shape(xs, ws, strides=st, padding=pads, lhs_dilation=dil)
         for dtype in (torch.bfloat16, torch.float32):
-            got = k4_call(x, weight, st, pads, dil, out_dtype=dtype)
-            ref = k4_call(x, weight, st, pads, dil, use_kernel=False, out_dtype=dtype)
-            torch.cuda.synchronize()
-            same = got.shape == ref.shape and torch.equal(got, ref)
-            diff = int((got != ref).sum()) if got.shape == ref.shape else -1
-            log(f"{tag} {name} x{tuple(xs)} w{tuple(ws)} s{tuple(st)} p{tuple(pads)} "
-                f"d{dil} {str(dtype)[6:]}: {'bit-equal' if same else f'{diff} elements differ'} "
-                f"({got.numel()} elements)")
-            if not same:
-                raise AssertionError(f"K4 differs from its plain version at {name}")
-            n += got.numel()
+            same_all, sizes = True, 0
+            for f in form or K4_FORMS:
+                ep = k4_epilogue(f, weight, out_shape, dtype, device, seed=i)
+                got = k4_call(x, weight, st, pads, dil, out_dtype=dtype, epilogue=ep)
+                ref = k4_call(x, weight, st, pads, dil, use_kernel=False, out_dtype=dtype,
+                              epilogue=ep)
+                torch.cuda.synchronize()
+                same = got.shape == ref.shape and got.dtype == ref.dtype and torch.equal(got, ref)
+                if not same:
+                    diff = int((got != ref).sum()) if got.shape == ref.shape else -1
+                    log(f"{tag} {name} {f} {str(dtype)[6:]}: {diff} of {ref.numel()} elements differ")
+                    raise AssertionError(f"K4 differs from its plain version at {name}, {f}, {dtype}")
+                sizes += got.numel()
+            log(f"{tag} {name} x{tuple(xs)} w{tuple(ws)} s{tuple(st)} p{tuple(pads)} d{dil} "
+                f"{str(dtype)[6:]}: bit-equal in {len(form or K4_FORMS)} form(s) "
+                f"{' '.join(form) if form else ''}({sizes} elements)")
+            n += sizes
     return n
 
 
-def k4_bound(x_shape, w_shape, out_shape, out_bytes: int = 2) -> tuple[float, float]:
-    """(ms by operations, ms by bytes) of one int8 conv: 2 * taps * Cin * Cout operations
-    per output pixel at the int8 tensor-core rate; the activations, the weights and the
-    scales read once, the output written once, at the memory rate."""
+def k4_bound(x_shape, w_shape, out_shape, form: str = "dequant",
+             ct_bytes: int = 2) -> tuple[float, float]:
+    """(ms by operations, ms by bytes) of one int8 conv with its epilogue ``form``: 2 *
+    taps * Cin * Cout operations per output pixel at the int8 tensor-core rate; at the
+    memory rate, the activations, the weights, the float32 channel scales and the
+    form's channel vectors (bias, BatchNorm scale and bias, ``ct_bytes`` each) read
+    once, its residual read once (``ct_bytes`` or 1 byte a value), and the output
+    written once (1 byte a value where it is requantized, else ``ct_bytes``)."""
     import math
 
+    bias, bn, res, _, int8_out = K4_FORMS[form]
     taps_cin = math.prod(w_shape[:-1])
+    cout = w_shape[-1]
     m = math.prod(out_shape[:-1])
-    ops = 2 * m * taps_cin * w_shape[-1]
-    bytes_moved = (math.prod(x_shape) + taps_cin * w_shape[-1] + 4 * w_shape[-1]
-                   + m * w_shape[-1] * out_bytes)
+    ops = 2 * m * taps_cin * cout
+    vectors = 4 * cout + ct_bytes * cout * (int(bias) + 2 * int(bn))
+    res_bytes = {None: 0, "dtype": ct_bytes, "int8": 1}[res]
+    bytes_moved = (math.prod(x_shape) + taps_cin * cout + vectors
+                   + m * cout * (res_bytes + (1 if int8_out else ct_bytes)))
     return ops / INT8_TOPS * 1e3, bytes_moved / HBM_BYTES_PER_S * 1e3
 
 
-def k4_library(x, weight, strides, padding, dilation, scale: float = 0.05):
+def k4_library(x, weight, strides, padding, dilation, scale: float = 0.05, epilogue=None):
     """The yardsticks of one int8 conv shape, never called by the port: (the cuDNN bf16
-    conv it replaces, on the dequantized operands; torch._int_mm + the same epilogue at a
-    1x1 / 1x1x1 unstrided, unpadded shape, else None), each a zero-argument callable."""
+    conv it replaces, on the dequantized operands, without the epilogue; torch._int_mm +
+    the dequant and ``epilogue``'s torch ops at a 1x1 / 1x1x1 unstrided, unpadded shape,
+    else None), each a zero-argument callable."""
     import torch
     import torch.nn.functional as F
 
-    from ted_spad_tpu_torch.ops.int8conv import channel_scale, epilogue
+    from ted_spad_tpu_torch.ops.int8conv import Epilogue, channel_scale, dequant_sums, finish
 
     nd = weight.codes.dim() - 2
     fmt = torch.channels_last if nd == 2 else torch.channels_last_3d
@@ -934,9 +1019,133 @@ def k4_library(x, weight, strides, padding, dilation, scale: float = 0.05):
         a = x.reshape(-1, x.shape[-1])
         b = weight.codes.reshape(x.shape[-1], -1).t().contiguous().t()  # column-major (K, N)
         sc = channel_scale(scale, weight.scale)
+        ep = epilogue or Epilogue()
+        if ep.residual is not None:
+            ep = ep._replace(residual=ep.residual.reshape(a.shape[0], -1))
         if a.shape[0] > 16 and a.shape[1] % 8 == 0 and b.shape[1] % 8 == 0:
-            int_mm = lambda: epilogue(torch._int_mm(a, b), sc, torch.bfloat16)  # noqa: E731
+            int_mm = lambda: finish(dequant_sums(torch._int_mm(a, b), sc, torch.bfloat16), ep)  # noqa: E731
     return cudnn, int_mm
+
+
+def epilogue_form(bias=None, bn=None, residual=None, relu: bool = False,
+                  out_site: str | None = None) -> str:
+    """``Epilogue.form()`` of a ``_Quantizer.conv`` call from its epilogue arguments."""
+    from ted_spad_tpu_torch.ops.int8conv import Epilogue
+    from ted_spad_tpu_torch.ops.quant_unetpp import QT
+
+    int8_res = isinstance(residual, QT)
+    return Epilogue(bias=bias, bn=None if bn is None else (bn, bn), residual=residual,
+                    residual_scale=1.0 if int8_res else None, relu=relu,
+                    out_scale=None if out_site is None else 1.0).form()
+
+
+def record_int8_convs(step, batch) -> list:
+    """The int8 convolutions one call of ``step`` runs, in order: (site key, input shape,
+    kernel shape, strides, pads, lhs dilation, epilogue form), by wrapping
+    ``_Quantizer.conv``."""
+    from ted_spad_tpu_torch.ops import quant_unetpp
+
+    calls = []
+    original = quant_unetpp._Quantizer.conv
+
+    def conv(self, qx, w, key, *, strides=(1, 1), padding=((1, 1), (1, 1)), lhs_dilation=None,
+             **epilogue):
+        out = original(self, qx, w, key, strides=strides, padding=padding,
+                       lhs_dilation=lhs_dilation, **epilogue)
+        if self.mode == "run":
+            calls.append((key, tuple(qx.data.shape), tuple(self._weights[key].codes.shape),
+                          tuple(strides), tuple(tuple(q) for q in padding), lhs_dilation,
+                          epilogue_form(**epilogue)))
+        return out
+
+    quant_unetpp._Quantizer.conv = conv
+    try:
+        step(batch)
+    finally:
+        quant_unetpp._Quantizer.conv = original
+    return calls
+
+
+def conv_class(call) -> str:
+    """A shape class of an int8 conv: its taps, stride and dilation."""
+    _, xs, ws, st, _, dil, *_ = call
+    taps = "x".join(map(str, ws[:-2]))
+    stride = "" if all(v == 1 for v in st) else " s" + "x".join(map(str, st))
+    return f"{len(ws) - 2}D {taps}{stride}{' up2' if dil else ''}"
+
+
+def serving_int8_step(device, seed: int = 0):
+    """(step, batch): the int8 serving step (UNet++ fa and I3Res50 ft, seeded random
+    weights, quant="int8") calibrated on one batch of seeded random 16x16x240x320 clips,
+    and that batch."""
+    import numpy as np
+    import torch
+
+    import ted_spad_tpu_torch.stages.feature_extraction as fe
+    from ted_spad_tpu_torch.config.params import FeatureExtractionParams
+    from ted_spad_tpu_torch.models import load_fa_model, load_ft_model
+    from ted_spad_tpu_torch.ops.quant_unetpp import act_scales_from_absmax
+
+    p = FeatureExtractionParams(batch_size=16, quant="int8")
+    fa, ft = load_fa_model(seed=0, device=device), load_ft_model(seed=0, device=device)
+    batch = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 256, (16, p.num_frames, 240, 320, 3), dtype=np.uint8)).to(device)
+    stats = fe.make_fa_calibration_step(p, fa, ft, device=device)(batch)
+    scales = act_scales_from_absmax({k: float(v) for k, v in stats.items()})
+    return fe.make_extract_step(ft, p, fa, device=device, quant_act_scales=scales), batch
+
+
+def k4_timing(device, calls, log=print, yardsticks: bool = False) -> list[dict]:
+    """Each recorded conv timed alone at its full shape with its own epilogue form (seeded
+    codes and operands, bf16), beside its bound and, with ``yardsticks``, its plain
+    version, the cuDNN bf16 conv and (at the 1x1 / 1x1x1 unstrided shapes)
+    ``torch._int_mm`` + the epilogue's torch ops. One row per conv."""
+    import torch
+
+    from ted_spad_tpu_torch.ops.int8conv import conv_out_shape
+
+    rows = []
+    for i, call in enumerate(calls):
+        key, xs, ws, st, pads, dil, form = call
+        x, weight = k4_operands(device, xs, ws, seed=200 + i)
+        out_shape = conv_out_shape(xs, ws, strides=st, padding=pads, lhs_dilation=dil)
+        ep = k4_epilogue(form, weight, out_shape, torch.bfloat16, device, seed=i)
+        run = lambda: k4_call(x, weight, st, pads, dil, epilogue=ep)  # noqa: E731
+        by_ops, by_bytes = k4_bound(xs, ws, out_shape, form)
+        row = {"site": key, "class": conv_class(call), "form": form, "x": list(xs),
+               "w": list(ws), "ms": time_ms(run, reps=3, inner=2),
+               "device_only_ms": time_ms(run, reps=3, inner=2, queued=True),
+               "bound_ms": max(by_ops, by_bytes),
+               "bound_by": "operations" if by_ops >= by_bytes else "bytes"}
+        line = (f"[K4] {key} ({row['class']}, {form}) x{list(xs)} w{list(ws)}: kernel "
+                f"{row['ms']:.4f} ms (device only {row['device_only_ms']:.4f}), bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        if yardsticks:
+            row["plain_ms"] = time_ms(lambda: k4_call(x, weight, st, pads, dil, use_kernel=False,
+                                                      epilogue=ep), reps=1, inner=1)
+            cudnn, int_mm = k4_library(x, weight, st, pads, dil, epilogue=ep)
+            row["library_ms"] = time_ms(cudnn, reps=3, inner=2)
+            line += f", plain {row['plain_ms']:.4f} ms, cuDNN bf16 {row['library_ms']:.4f} ms"
+            if int_mm is not None:
+                row["int_mm_ms"] = time_ms(int_mm, reps=3, inner=2)
+                line += f", torch._int_mm + epilogue {row['int_mm_ms']:.4f} ms"
+        log(line)
+        rows.append(row)
+        del x, weight, ep
+    torch.cuda.empty_cache()
+    return rows
+
+
+def k4_classes(rows: list[dict]) -> dict:
+    """Per shape class of ``k4_timing``'s rows: the count and the sums of each time."""
+    by_class: dict = {}
+    for row in rows:
+        agg = by_class.setdefault(row["class"], {"n": 0})
+        agg["n"] += 1
+        for k, v in row.items():
+            if k.endswith("_ms") or k == "ms":
+                agg[k] = agg.get(k, 0.0) + v
+    return dict(sorted(by_class.items(), key=lambda kv: -kv[1]["ms"]))
 
 
 def k4(device) -> None:
@@ -949,39 +1158,149 @@ def k4(device) -> None:
         print(f"[K4 build] {name}: {r}", flush=True)
     print(f"build {seconds:.2f}s", flush=True)
     print(f"{k4_check(device, K4_CASES)} elements bit-equal", flush=True)
-    # Alone at a few serving shapes (256 frames / 16 clips).
-    for name, xs, ws, st, pads, dil in (
-        ("enc layer1 3x3 64->64", (256, 56, 56, 64), (3, 3, 64, 64), (1, 1), ((1, 1),) * 2, None),
-        ("dec x_0_2 conv2 64->64", (256, 112, 112, 64), (3, 3, 64, 64), (1, 1), ((1, 1),) * 2, None),
-        ("ft l3 1x1x1 1024->256", (16, 4, 14, 14, 1024), (1, 1, 1, 1024, 256), (1, 1, 1),
-         ((0, 0),) * 3, None),
-    ):
-        x, weight = k4_operands(device, xs, ws)
-        out = k4_call(x, weight, st, pads, dil)
-        ms = time_ms(lambda: k4_call(x, weight, st, pads, dil), reps=5, inner=2)
-        cudnn, int_mm = k4_library(x, weight, st, pads, dil)
-        lib_ms = time_ms(cudnn, reps=5, inner=2)
-        mm_ms = time_ms(int_mm, reps=5, inner=2) if int_mm else None
-        by_ops, by_bytes = k4_bound(xs, ws, tuple(out.shape))
-        print(f"[K4] {name} x{xs}: kernel {ms:.4f} ms, bound {max(by_ops, by_bytes):.4f} ms "
-              f"(operations {by_ops:.4f}, bytes {by_bytes:.4f}), cuDNN bf16 {lib_ms:.4f} ms, "
-              f"_int_mm + epilogue {mm_ms}", flush=True)
-        del x, out
-        torch.cuda.empty_cache()
+    # The 79 convs of one int8 serving step, each alone at its shape with its form.
+    step, batch = serving_int8_step(device)
+    calls = record_int8_convs(step, batch)
+    del step, batch
+    torch.cuda.empty_cache()
+    classes = k4_classes(k4_timing(device, calls))
+    for name, agg in classes.items():
+        print(f"[K4] class {name}: {agg['n']} convs, kernel {agg['ms']:.3f} ms (device only "
+              f"{agg['device_only_ms']:.3f}), bound {agg['bound_ms']:.3f} ms "
+              f"({agg['ms'] / agg['bound_ms']:.1f}x)", flush=True)
+    total = {k: sum(a[k] for a in classes.values()) for k in ("ms", "device_only_ms", "bound_ms")}
+    print(f"[K4] the {len(calls)} int8 convs of a step: kernel {total['ms']:.3f} ms (device only "
+          f"{total['device_only_ms']:.3f}), bound {total['bound_ms']:.3f} ms", flush=True)
+
+
+def device_profile(fn, steps: int = 3) -> dict:
+    """Device time by kernel over ``steps`` calls of ``fn`` (torch.profiler, after one
+    warm-up call): {"device_ms", "wall_ms", "busy", "kernels": [(name, ms)]}, per call,
+    the kernels sorted by time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # Device-side events only (kernels, copies): a CPU op's device time repeats its kernels'.
+    kernels = sorted(((e.key, e.self_device_time_total / steps / 1e3) for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and e.self_device_time_total > 0), key=lambda kv: -kv[1])
+    device_ms = sum(ms for _, ms in kernels)
+    return {"device_ms": device_ms, "wall_ms": wall_us / steps / 1e3,
+            "busy": device_ms * steps * 1e3 / wall_us, "kernels": kernels}
+
+
+INT8_AB_URIS = [f"synthetic://n=320,h=240,w=320,seed={600 + i}" for i in range(4)]
+
+
+def int8_step_turn(device, out_path: str) -> None:
+    """One turn of ``int8ab``, run under whichever tree's package is on the path: the
+    int8 serving step of chip_smoke.py's phase 11 (seeded UNet++ and I3Res50, scales
+    calibrated on its videos' first two batches) on the first batch. Saves the step's
+    output under deterministic cuDNN to ``out_path`` and prints one JSON line: the step's
+    time (CUDA events), the bf16 step's beside it, and from the profiler the device time
+    per step, K4's share of it and the top kernels."""
+    import json
+
+    import torch
+
+    import ted_spad_tpu_torch.stages.feature_extraction as fe
+    from ted_spad_tpu_torch.config.params import FeatureExtractionParams
+    from ted_spad_tpu_torch.models import load_fa_model, load_ft_model
+    from ted_spad_tpu_torch.ops.quant_unetpp import act_scales_from_absmax
+
+    p = FeatureExtractionParams(batch_size=16, quant="int8", quant_calib_batches=2)
+    fa, ft = load_fa_model(seed=0, device=device), load_ft_model(seed=0, device=device)
+    batches = [torch.from_numpy(c).to(device) for c, _, _ in
+               fe.iter_clip_batches(INT8_AB_URIS, p, p.batch_size, num_workers=8)][:2]
+    calib = fe.make_fa_calibration_step(p, fa, ft, device=device)
+    absmax: dict = {}
+    for clips in batches:
+        for k, v in calib(clips).items():
+            absmax[k] = max(absmax.get(k, 0.0), float(v))
+    step = fe.make_extract_step(ft, p, fa, device=device,
+                                quant_act_scales=act_scales_from_absmax(absmax))
+    bf16_step = fe.make_extract_step(ft, p.replace(quant="none"), fa, device=device)
+    batch = batches[0]
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        out = step(batch)
+    torch.save(out.cpu(), out_path)
+    prof = device_profile(lambda: step(batch))
+    k4_ms = sum(ms for name, ms in prof["kernels"] if "int8_conv_kernel" in name)
+    print(json.dumps({"step_ms": time_ms(lambda: step(batch), reps=5, inner=2),
+                      "bf16_step_ms": time_ms(lambda: bf16_step(batch), reps=5, inner=2),
+                      "device_ms": prof["device_ms"], "busy": prof["busy"], "k4_device_ms": k4_ms,
+                      "top": [(n[:80], round(ms, 3)) for n, ms in prof["kernels"][:12]]}),
+          flush=True)
+
+
+def int8ab(device, parent: str) -> None:
+    """The int8 step of ``parent`` (a checkout of another commit, e.g. from git archive)
+    and of this tree in turns, parent / change / change / parent, each turn a process of
+    its own (``int8_step_turn``) under that tree's package and kernels: the step's time
+    and the bf16 step's, K4's device time per step, and whether the change's step output
+    equals the parent's bit for bit under deterministic cuDNN."""
+    import json
+    import os
+    import subprocess
+
+    import torch
+
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    trees = {"parent": os.path.abspath(parent), "change": here}
+    outs, runs = {}, []
+    for i, tag in enumerate(("parent", "change", "change", "parent")):
+        root = trees[tag]
+        out = os.path.join(here, "build", f"int8ab_{i}_{tag}.pt")
+        code = ("import runpy, sys; out, path = sys.argv[1:]; "
+                "sys.argv = ['chip_probes', 'int8step', out]; runpy.run_path(path, run_name='__main__')")
+        proc = subprocess.run([sys.executable, "-c", code, out, os.path.abspath(__file__)],
+                              cwd=root, env={**os.environ, "PYTHONPATH": root},
+                              capture_output=True, text=True, timeout=900)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith('{"step_ms"')]
+        if proc.returncode != 0 or not lines:
+            raise RuntimeError(f"int8ab turn {i} ({tag}) failed (exit {proc.returncode}):\n"
+                               f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        reading = json.loads(lines[-1])
+        runs.append((tag, reading))
+        outs.setdefault(tag, []).append(torch.load(out))
+        print(f"[int8ab] turn {i} {tag}: int8 step {reading['step_ms']:.3f} ms, bf16 step "
+              f"{reading['bf16_step_ms']:.3f} ms, device {reading['device_ms']:.3f} ms/step "
+              f"(busy {reading['busy']:.3f}), K4 {reading['k4_device_ms']:.3f} ms/step",
+              flush=True)
+        for name, ms in reading["top"]:
+            print(f"[int8ab]     {ms:8.3f} ms  {name}", flush=True)
+    same = {"parent twice": torch.equal(*outs["parent"]), "change twice": torch.equal(*outs["change"]),
+            "change vs parent": torch.equal(outs["change"][0], outs["parent"][0])}
+    print(f"[int8ab] step outputs on the first batch, cuDNN deterministic: {json.dumps(same)}",
+          flush=True)
+    if not all(same.values()):
+        d = float((outs["change"][0] - outs["parent"][0]).abs().max())
+        raise AssertionError(f"int8ab: outputs differ (change vs parent max |d| {d})")
 
 
 def main() -> int:
     import torch
 
-    if len(sys.argv) != 2 or sys.argv[1] not in ("k1", "k2", "k3", "k4", "gain", "mgfn"):
+    probes = {"k1": k1, "k2": k2, "k3": k3, "k4": k4, "gain": gain, "mgfn": mgfn,
+              "int8ab": int8ab, "int8step": int8_step_turn}
+    takes_arg = ("int8ab", "int8step")
+    if len(sys.argv) < 2 or sys.argv[1] not in probes or len(sys.argv) != 2 + (sys.argv[1] in takes_arg):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_probes: needs a CUDA card", file=sys.stderr)
         return 1
     t0 = time.perf_counter()
-    {"k1": k1, "k2": k2, "k3": k3, "k4": k4, "gain": gain,
-     "mgfn": mgfn}[sys.argv[1]](torch.device("cuda", 0))
+    probes[sys.argv[1]](torch.device("cuda", 0), *sys.argv[2:])
     print(f"{sys.argv[1]} done in {time.perf_counter() - t0:.1f}s on "
           f"{torch.cuda.get_device_name(0)}")
     return 0

@@ -1,16 +1,26 @@
-// K4: int8 implicit-GEMM convolution with the W8A8 dequant epilogue, for Hopper (sm_90a).
+// K4: int8 implicit-GEMM convolution with the W8A8 epilogue fused into its store, for
+// Hopper (sm_90a).
 //
 // Replaces the int8 convolutions of the JAX package's W8A8 serving mode,
-// `_Quantizer.conv` (ted_spad_tpu/ops/quant_unetpp.py:125-144): there XLA runs
-// `conv_general_dilated(int8, int8) -> int32` on the TPU's matrix unit, then
-//     out = (float32(acc) * (act_scale * w_scale[c])).astype(compute dtype)
-// PyTorch has no CUDA int8 convolution (torch._int_mm covers matmuls only), so this
-// kernel is the port's. It computes exactly that: int8 x int8 products summed in int32
-// (exact), the int32 sum rounded to float32, one float32 multiply by the per-channel
-// scale the host precomputed (act_scale * w_scale[c], in float32), and a
-// round-to-nearest-even store in bfloat16 or float32. The plain version
-// (ops/int8conv.py: int8_conv_reference) computes the same numbers, so the two agree
-// bit for bit.
+// `_Quantizer.conv` (ted_spad_tpu/ops/quant_unetpp.py:125-144), and the elementwise ops
+// XLA fuses after them there: XLA runs `conv_general_dilated(int8, int8) -> int32` on the
+// TPU's matrix unit, then the dequant, the folded BatchNorm, the residual add, ReLU and
+// the requantization at the next site. PyTorch has no CUDA int8 convolution
+// (torch._int_mm covers matmuls only), so this kernel is the port's. It computes, per
+// output value, in this order and each step rounded to the compute type CT (bfloat16 on
+// the serving path, float32 in the tests):
+//     y = CT(float32(acc) * scale[c])        acc: int8 x int8 products summed in int32
+//     y = CT(y + bias[c])                    the conv's bias, where it has one
+//     y = CT(CT(y * bn_scale[c]) + bn_bias[c])   a folded eval BatchNorm
+//     y = CT(y + r)                          r: a CT residual, or CT(float32(code) * s_res)
+//     y = max(y, 0)                          ReLU
+//     out = int8(clamp(rint(y * inv_out), -127, 127))   or out = y in CT
+// where scale[c] = act_scale * w_scale[c] and inv_out (the Python double 1 / s_out) are
+// float32 values the host precomputes. Every operation is one float32 operation written
+// with __fmul_rn / __fadd_rn, so nvcc cannot contract a multiply and an add into an FMA,
+// and every rounding to bf16 is round-to-nearest-even: the sequence of torch operations
+// in the plain version (ops/int8conv.py: int8_conv_reference, int32 sums exact in
+// float64) gives the same bits.
 //
 // Shapes. x is NDHWC int8 (2D convs run as D = 1), contiguous; the weights are packed
 // once by the host (ops/int8conv.py: pack_weight) as (Cout, Kpad) int8 rows, K index =
@@ -19,16 +29,20 @@
 // implied by the output size the host passes), lhs dilation (the up2_int8 form of the
 // UNet++ decoder: a 4x4 kernel over the input with zeros between its pixels), any Cin
 // (Cin a multiple of 16 stages by cp.async; others, such as the I3Res50 stem's Cin 3,
-// byte by byte), and a ragged M (output pixels) and Cout, masked.
+// byte by byte), and a ragged M (output pixels) and Cout, masked. The residual and the
+// output are (M, Cout), contiguous.
 //
 // What bounds it on an H100. Per output pixel the conv does 2 * taps * Cin * Cout int8
-// operations and writes Cout bf16 values: at the 79 convs of a 16-clip serving step
-// (UNet++ encoder and decoder convs over 256 frames, I3Res50 bottlenecks over 16 clips)
-// the bytes at 3.35 TB/s (3.04 ms) outweigh the operations at 1,979 TOPS (2.20 ms);
-// chip_smoke.py prints which bounds each shape.
+// operations and moves its input, its residual (2 bytes bf16 or 1 byte int8 a value)
+// and its output (1 byte int8 or 2 bytes bf16): at the 79 convs of a 16-clip serving
+// step (UNet++ encoder and decoder convs over 256 frames, I3Res50 bottlenecks over 16
+// clips) the bytes at 3.35 TB/s outweigh the operations at 1,979 TOPS; chip_smoke.py
+// prints which bounds each shape. Below the card's ridge the gain is in moving fewer
+// bytes: the fused epilogue writes int8 codes where the consumer is another int8 conv
+// and reads the residual once, in place of eight elementwise passes over bf16 and
+// float32 tensors.
 //
-// Design, simple and right first (a fused BN / ReLU / requant epilogue, then wgmma and
-// TMA, are the redesign queued after it):
+// Design:
 // - One block owns a kBM x kBN tile of (output pixels x Cout): 8 warps in a 4 x 2 grid,
 //   each a 32 x 32 warp tile = 2 m16 x 4 n8 tiles of
 //   mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32, accumulating in int32 registers.
@@ -43,8 +57,14 @@
 // - Fragments are read by 32-bit shared loads (each lane's 4 int8 of a row are
 //   contiguous in the m16n8k32 layout); rows are padded to 80 bytes, which puts the 8
 //   rows x 4 words a warp reads on 32 distinct banks.
-// - Epilogue from the accumulators: int32 -> float32 (round to nearest), times the
-//   channel's scale, rounded to the output type, stored as bf16x2 / float2 pairs.
+// - Epilogue: the block's residual tile is staged by 16-byte cp.async into its own
+//   shared region while the main loop runs (element by element where a row is not
+//   16-byte aligned). Each thread runs the operations above on its accumulators and
+//   writes the results as pairs into an output tile in shared memory (the ring is free
+//   by then); the block then stores the tile with 16-byte stores along Cout.
+//   Instantiations: compute type (bf16, f32) x output (CT, int8) x staging (cp.async,
+//   byte-wise Cin); the bias, the BatchNorm, the residual's kind and ReLU are runtime
+//   flags, uniform over the block.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -61,12 +81,29 @@ constexpr int kWarpsN = 2;
 constexpr int kMT = 2, kNT = 4;      // m16 / n8 tiles per warp
 constexpr int kStages = 2;
 constexpr int kStageBytes = (kBM + kBN) * kLDS;
+constexpr int kRingBytes = kStages * kStageBytes;
+
+// Shared bytes of a kBM x kBN tile of `elt`-byte values, rows padded by 16 bytes.
+__host__ __device__ constexpr int tile_ld(int elt) { return kBN * elt + 16; }
+__host__ __device__ constexpr int tile_bytes(int elt) { return kBM * tile_ld(elt); }
+__host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
+
+enum ResKind { kNoRes = 0, kComputeRes = 1, kInt8Res = 2 };
 
 struct Params {
   const int8_t* x;
   const int8_t* wt;  // packed weights
   const float* scale;
   void* out;
+  const void* bias;     // (cout,) CT or null
+  const void* bn_s;     // (cout,) CT or null
+  const void* bn_b;     // (cout,) CT, with bn_s
+  const void* res;      // (m, cout) CT or int8, by res_kind
+  int res_kind;
+  float res_scale;      // dequant scale of an int8 residual
+  int relu;
+  float out_inv;        // 1 / s_out of an int8 output
+  int res_vec, out_vec; // rows 16-byte aligned: staged and stored by 16 bytes
   int n, d, h, w, cin, cout;
   int kd, kh, kw;
   int sd, sh, sw;
@@ -115,25 +152,40 @@ __device__ __forceinline__ int source(int z, int dil, int size) {
   return z < size ? z : -1;
 }
 
-__device__ __forceinline__ void store2(__nv_bfloat16* o, float a, float b, bool pair, bool second) {
-  if (pair) {
-    *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(a, b);
-  } else {
-    o[0] = __float2bfloat16_rn(a);
-    if (second) o[1] = __float2bfloat16_rn(b);
+// The compute type's rounding, its loads from global or shared memory, and the store of
+// a pair of already-rounded values into shared memory.
+template <typename CT> struct Compute;
+template <> struct Compute<float> {
+  static __device__ __forceinline__ float round(float v) { return v; }
+  static __device__ __forceinline__ float load(const void* p, int i) {
+    return static_cast<const float*>(p)[i];
   }
-}
-__device__ __forceinline__ void store2(float* o, float a, float b, bool pair, bool second) {
-  if (pair) {
+  static __device__ __forceinline__ void store2(unsigned char* o, float a, float b) {
     *reinterpret_cast<float2*>(o) = make_float2(a, b);
-  } else {
-    o[0] = a;
-    if (second) o[1] = b;
   }
+};
+template <> struct Compute<__nv_bfloat16> {
+  static __device__ __forceinline__ float round(float v) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  }
+  static __device__ __forceinline__ float load(const void* p, int i) {
+    return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
+  }
+  static __device__ __forceinline__ void store2(unsigned char* o, float a, float b) {
+    *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(a, b);
+  }
+};
+
+// int8 code of v at 1 / s = inv: round half to even, clamp to +-127, as torch.round and
+// torch.clamp do.
+__device__ __forceinline__ int requant(float v, float inv) {
+  const int q = __float2int_rn(__fmul_rn(v, inv));
+  return q < -127 ? -127 : (q > 127 ? 127 : q);
 }
 
-template <typename OutT, bool kVecCin>
+template <typename CT, bool kInt8Out, bool kVecCin>
 __global__ void __launch_bounds__(kThreads) int8_conv_kernel(const Params p) {
+  using R = Compute<CT>;
   extern __shared__ __align__(128) unsigned char smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
@@ -162,6 +214,24 @@ __global__ void __launch_bounds__(kThreads) int8_conv_kernel(const Params p) {
   const bool n_ok = n0 + b_row < p.cout;
   const int8_t* b_src = p.wt + static_cast<size_t>(n_ok ? n0 + b_row : 0) * p.kpad + b_seg * 16;
   const int khw = p.kh * p.kw;
+
+  // The residual tile: (row, Cout) bytes of the block, in its own region past the output
+  // tile, staged with the first K stage's group when its rows are 16-byte aligned.
+  constexpr int kOutElt = kInt8Out ? 1 : static_cast<int>(sizeof(CT));
+  const int res_elt = p.res_kind == kInt8Res ? 1 : static_cast<int>(sizeof(CT));
+  unsigned char* const res_s = smem + imax(kRingBytes, tile_bytes(kOutElt));
+  const int res_ld = tile_ld(res_elt);
+  if (p.res_kind != kNoRes && p.res_vec) {
+    const int cpr = kBN * res_elt / 16;  // 16-byte chunks in a tile row
+    const unsigned char* res = static_cast<const unsigned char*>(p.res);
+    for (int idx = threadIdx.x; idx < kBM * cpr; idx += kThreads) {
+      const int row = idx / cpr, ch = idx - row * cpr;
+      const long long mr = m0 + row;
+      const bool ok = mr < p.m && (n0 + ch * 16 / res_elt) < p.cout;
+      const unsigned char* src = ok ? res + (static_cast<size_t>(mr) * p.cout + n0) * res_elt + ch * 16 : res;
+      cp_async16(smem_addr(res_s + row * res_ld + ch * 16), src, ok);
+    }
+  }
 
   auto load = [&](int s) {
     unsigned char* st = smem + (s % kStages) * kStageBytes;
@@ -232,33 +302,111 @@ __global__ void __launch_bounds__(kThreads) int8_conv_kernel(const Params p) {
     }
   }
 
-  // Epilogue: float32(acc) * scale[c], rounded to the output type.
-  OutT* out = static_cast<OutT*>(p.out);
-  const bool even = p.cout % 2 == 0;
+  // Epilogue. The ring is free once every thread is past its last stage.
+  cp_async_wait_all();
+  __syncthreads();
+  if (p.res_kind != kNoRes && !p.res_vec) {
+    const unsigned char* res = static_cast<const unsigned char*>(p.res);
+    for (int idx = threadIdx.x; idx < kBM * kBN; idx += kThreads) {
+      const int row = idx / kBN, col = idx - row * kBN;
+      const long long mr = m0 + row;
+      if (mr >= p.m || n0 + col >= p.cout) continue;
+      const unsigned char* src = res + (static_cast<size_t>(mr) * p.cout + n0 + col) * res_elt;
+      for (int b = 0; b < res_elt; ++b) res_s[row * res_ld + col * res_elt + b] = src[b];
+    }
+    __syncthreads();
+  }
+  unsigned char* const out_s = smem;
+  constexpr int kOutLd = tile_ld(kOutElt);
 #pragma unroll
   for (int j = 0; j < kNT; ++j) {
-    const int c = n0 + wn * 32 + j * 8 + 2 * t;
-    if (c >= p.cout) continue;
-    const bool second = c + 1 < p.cout;
-    const float s0 = p.scale[c], s1 = second ? p.scale[c + 1] : 0.f;
+    const int col = wn * 32 + j * 8 + 2 * t;  // this thread's two channels: col, col + 1
+    float sc[2], bi[2], bs[2], bb[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = min(n0 + col + e, p.cout - 1);  // past Cout: computed, never stored
+      sc[e] = p.scale[c];
+      bi[e] = p.bias ? R::load(p.bias, c) : 0.f;
+      bs[e] = p.bn_s ? R::load(p.bn_s, c) : 0.f;
+      bb[e] = p.bn_s ? R::load(p.bn_b, c) : 0.f;
+    }
 #pragma unroll
     for (int i = 0; i < kMT; ++i) {
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const long long row = m0 + wm * 32 + i * 16 + g + half * 8;
-        if (row >= p.m) continue;
-        const float v0 = __int2float_rn(acc[i][j][2 * half]) * s0;
-        const float v1 = __int2float_rn(acc[i][j][2 * half + 1]) * s1;
-        store2(out + static_cast<size_t>(row) * p.cout + c, v0, v1, even && second, second);
+        const int row = wm * 32 + i * 16 + g + half * 8;
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float y = R::round(__fmul_rn(__int2float_rn(acc[i][j][2 * half + e]), sc[e]));
+          if (p.bias) y = R::round(__fadd_rn(y, bi[e]));
+          if (p.bn_s) y = R::round(__fadd_rn(R::round(__fmul_rn(y, bs[e])), bb[e]));
+          if (p.res_kind == kComputeRes) {
+            y = R::round(__fadd_rn(y, R::load(res_s + row * res_ld, col + e)));
+          } else if (p.res_kind == kInt8Res) {
+            const int code = static_cast<int8_t>(res_s[row * res_ld + col + e]);
+            y = R::round(__fadd_rn(y, R::round(__fmul_rn(__int2float_rn(code), p.res_scale))));
+          }
+          if (p.relu && y < 0.f) y = 0.f;
+          v[e] = y;
+        }
+        unsigned char* o = out_s + row * kOutLd + col * kOutElt;
+        if constexpr (kInt8Out) {
+          const int q0 = requant(v[0], p.out_inv), q1 = requant(v[1], p.out_inv);
+          *reinterpret_cast<uint16_t*>(o) =
+              static_cast<uint16_t>((q0 & 0xff) | ((q1 & 0xff) << 8));
+        } else {
+          R::store2(o, v[0], v[1]);
+        }
       }
+    }
+  }
+  __syncthreads();
+  unsigned char* const out = static_cast<unsigned char*>(p.out);
+  if (p.out_vec) {
+    constexpr int kCpr = kBN * kOutElt / 16;
+    for (int idx = threadIdx.x; idx < kBM * kCpr; idx += kThreads) {
+      const int row = idx / kCpr, ch = idx - row * kCpr;
+      const long long mr = m0 + row;
+      if (mr >= p.m || n0 + ch * 16 / kOutElt >= p.cout) continue;
+      *reinterpret_cast<uint4*>(out + (static_cast<size_t>(mr) * p.cout + n0) * kOutElt + ch * 16) =
+          *reinterpret_cast<const uint4*>(out_s + row * kOutLd + ch * 16);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < kBM * kBN; idx += kThreads) {
+      const int row = idx / kBN, col = idx - row * kBN;
+      const long long mr = m0 + row;
+      if (mr >= p.m || n0 + col >= p.cout) continue;
+      unsigned char* dst = out + (static_cast<size_t>(mr) * p.cout + n0 + col) * kOutElt;
+      for (int b = 0; b < kOutElt; ++b) dst[b] = out_s[row * kOutLd + col * kOutElt + b];
     }
   }
 }
 
-template <typename OutT>
+// Shared bytes a launch needs: the ring, or the output tile after it, and the residual
+// tile past them.
+template <typename CT, bool kInt8Out>
+constexpr int smem_bytes(int res_kind) {
+  const int out_elt = kInt8Out ? 1 : static_cast<int>(sizeof(CT));
+  const int res = res_kind == kNoRes ? 0 : tile_bytes(res_kind == kInt8Res ? 1 : static_cast<int>(sizeof(CT)));
+  return imax(kRingBytes, tile_bytes(out_elt)) + res;
+}
+
+template <typename CT, bool kInt8Out>
 int launch(const Params& p, cudaStream_t stream) {
-  auto kernel = p.cin % 16 == 0 ? int8_conv_kernel<OutT, true> : int8_conv_kernel<OutT, false>;
-  const int smem = kStages * kStageBytes;
+  auto kernel = p.cin % 16 == 0 ? int8_conv_kernel<CT, kInt8Out, true>
+                                : int8_conv_kernel<CT, kInt8Out, false>;
+  const int smem = smem_bytes<CT, kInt8Out>(p.res_kind);
+  // Above 48 KB a block's dynamic shared memory must be allowed first (once per kernel:
+  // the largest any residual kind asks for).
+  static bool allowed[2] = {false, false};
+  bool& done = allowed[p.cin % 16 == 0];
+  if (!done) {
+    const int most = imax(smem_bytes<CT, kInt8Out>(kComputeRes), smem_bytes<CT, kInt8Out>(kInt8Res));
+    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    done = true;
+  }
   const long long m_tiles = (p.m + kBM - 1) / kBM;
   if (m_tiles > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(m_tiles), (p.cout + kBN - 1) / kBN);
@@ -271,18 +419,32 @@ int launch(const Params& p, cudaStream_t stream) {
 
 // Plain C entry point (bound with ctypes). x (n, d, h, w, cin) int8, contiguous,
 // 16-byte aligned when cin % 16 == 0; w (cout, kpad) int8 packed by
-// ops/int8conv.py:pack_weight; scale (cout,) float32; out (n, od, oh, ow, cout)
-// bfloat16 (out_bf16 != 0) or float32. geom = {kd, kh, kw, sd, sh, sw, pd, ph, pw, dd,
-// dh, dw, od, oh, ow}: taps, strides, low pads, lhs dilation and the output size.
-// Returns the cudaError_t of the launch (0 on success).
+// ops/int8conv.py:pack_weight; scale (cout,) float32; out (n, od, oh, ow, cout): int8
+// (out_int8 != 0) or the compute type, bfloat16 (compute_bf16 != 0) or float32. geom =
+// {kd, kh, kw, sd, sh, sw, pd, ph, pw, dd, dh, dw, od, oh, ow}: taps, strides, low pads,
+// lhs dilation and the output size. The epilogue: bias, bn_scale / bn_bias ((cout,) in
+// the compute type, or null), residual (out's shape: the compute type for res_kind 1,
+// int8 codes of scale res_scale for res_kind 2, null for 0), relu, and out_inv = 1 /
+// s_out for an int8 output. Returns the cudaError_t of the launch (0 on success).
 extern "C" int ted_int8_conv(const void* x, const void* w, const float* scale, void* out,
-                             int out_bf16, int n, int d, int h, int wd, int cin, int cout,
-                             const int* geom, int kpad, void* stream) {
+                             int compute_bf16, int out_int8, int n, int d, int h, int wd,
+                             int cin, int cout, const int* geom, int kpad, const void* bias,
+                             const void* bn_scale, const void* bn_bias, const void* residual,
+                             int res_kind, float res_scale, int relu, float out_inv,
+                             void* stream) {
   Params p{};
   p.x = static_cast<const int8_t*>(x);
   p.wt = static_cast<const int8_t*>(w);
   p.scale = scale;
   p.out = out;
+  p.bias = bias;
+  p.bn_s = bn_scale;
+  p.bn_b = bn_bias;
+  p.res = residual;
+  p.res_kind = res_kind;
+  p.res_scale = res_scale;
+  p.relu = relu;
+  p.out_inv = out_inv;
   p.n = n, p.d = d, p.h = h, p.w = wd, p.cin = cin, p.cout = cout;
   p.kd = geom[0], p.kh = geom[1], p.kw = geom[2];
   p.sd = geom[3], p.sh = geom[4], p.sw = geom[5];
@@ -293,8 +455,16 @@ extern "C" int ted_int8_conv(const void* x, const void* w, const float* scale, v
   p.kchunks = p.kd * p.kh * p.kw * p.cin32;
   p.kpad = kpad;
   p.m = static_cast<long long>(n) * p.od * p.oh * p.ow;
-  if (p.m <= 0 || cout <= 0 || kpad % kBK != 0 || kpad < p.kchunks * 32)
+  const int ct_elt = compute_bf16 ? 2 : 4;
+  const int out_elt = out_int8 ? 1 : ct_elt, res_elt = res_kind == kInt8Res ? 1 : ct_elt;
+  const auto aligned = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; };
+  p.res_vec = res_kind != kNoRes && cout * res_elt % 16 == 0 && aligned(residual);
+  p.out_vec = cout * out_elt % 16 == 0 && aligned(out);
+  if (p.m <= 0 || cout <= 0 || kpad % kBK != 0 || kpad < p.kchunks * 32 || res_kind < 0 ||
+      res_kind > 2 || (res_kind != kNoRes) != (residual != nullptr) || (bn_scale == nullptr) != (bn_bias == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return out_bf16 ? launch<__nv_bfloat16>(p, s) : launch<float>(p, s);
+  if (compute_bf16)
+    return out_int8 ? launch<__nv_bfloat16, true>(p, s) : launch<__nv_bfloat16, false>(p, s);
+  return out_int8 ? launch<float, true>(p, s) : launch<float, false>(p, s);
 }

@@ -4,8 +4,9 @@ letter).
 
 The same scheme and the same ``_Quantizer`` as the fa path (ops/quant_unetpp.py): the
 Bottleneck3D convolutions run int8 through kernel K4, with per-Cout weight scales and
-calibrated per-tensor activation scales; BatchNorm, ReLU and requantization are torch
-elementwise ops; the VALID max pools run on the int8 codes. The stem runs in the
+calibrated per-tensor activation scales, their BatchNorm, residual add, ReLU and
+requantization fused into K4's store (``_Quantizer.conv``); the VALID max pools run on
+the int8 codes. The stem runs in the
 compute dtype on the plain (B, T, H, W, 3) clip, or with ``stem_int8`` through K4 over
 its 3 input channels (K zero-padded to 32). The JAX package runs its stem on a 2x2
 space-to-depth layout; that is a permutation of the same products, so the int8 codes and
@@ -16,7 +17,6 @@ module's (B, 3, T, H, W) clips.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from ted_spad_tpu_torch.ops.fast_unetpp import conv_nhwc, kernel
 from ted_spad_tpu_torch.ops.quant_unetpp import QT, _affine_relu, _Quantizer
@@ -25,28 +25,27 @@ STEM_STRIDES = (2, 2, 2)
 STEM_PADDING = ((2, 2), (3, 3), (3, 3))
 
 
-def _qbottleneck(qz: _Quantizer, block, qx: QT, stride: int, tc: int, site: str) -> torch.Tensor:
+def _qbottleneck(qz: _Quantizer, block, qx: QT, stride: int, tc: int, site: str,
+                 out_site: str | None) -> QT | torch.Tensor:
     """Quantized Bottleneck3D eval forward: temporal (1+2tc, 1, 1) conv -> (1, 3, 3)
-    spatial stride conv -> 1x1x1 expand, + residual. Returns the plain pre-quantization
-    output (the caller owns the out site)."""
-    y = qz.conv(qx, lambda: kernel(block.conv1.conv), f"{site}.conv1", strides=(1, 1, 1),
-                padding=((tc, tc), (0, 0), (0, 0)))
-    y = _affine_relu(y, qz.affine(f"{site}.conv1", block.conv1))
-    yq = qz.q8(f"{site}_c1", y)
-    y = qz.conv(yq, lambda: kernel(block.conv2.conv), f"{site}.conv2",
-                strides=(1, stride, stride), padding=((0, 0), (1, 1), (1, 1)))
-    y = _affine_relu(y, qz.affine(f"{site}.conv2", block.conv2))
-    yq = qz.q8(f"{site}_c2", y)
-    y = qz.conv(yq, lambda: kernel(block.conv3.conv), f"{site}.conv3", strides=(1, 1, 1),
-                padding=((0, 0), (0, 0), (0, 0)))
-    y = _affine_relu(y, qz.affine(f"{site}.conv3", block.conv3), relu=False)
+    spatial stride conv -> 1x1x1 expand, + residual (the downsample, run first, or the
+    dequantized input), ReLU. Returns int8 codes at ``out_site``, or with None the plain
+    ``dtype`` output."""
+    yq = qz.conv(qx, lambda: kernel(block.conv1.conv), f"{site}.conv1", strides=(1, 1, 1),
+                 padding=((tc, tc), (0, 0), (0, 0)), bn=block.conv1, relu=True,
+                 out_site=f"{site}_c1")
+    yq = qz.conv(yq, lambda: kernel(block.conv2.conv), f"{site}.conv2",
+                 strides=(1, stride, stride), padding=((0, 0), (1, 1), (1, 1)), bn=block.conv2,
+                 relu=True, out_site=f"{site}_c2")
     if block.downsample is not None:
         r = qz.conv(qx, lambda: kernel(block.downsample.conv), f"{site}.downsample",
-                    strides=(1, stride, stride), padding=((0, 0), (0, 0), (0, 0)))
-        r = _affine_relu(r, qz.affine(f"{site}.downsample", block.downsample), relu=False)
+                    strides=(1, stride, stride), padding=((0, 0), (0, 0), (0, 0)),
+                    bn=block.downsample)
     else:
-        r = qz.dequant(qx)
-    return F.relu(y + r)
+        r = qx
+    return qz.conv(yq, lambda: kernel(block.conv3.conv), f"{site}.conv3", strides=(1, 1, 1),
+                   padding=((0, 0), (0, 0), (0, 0)), bn=block.conv3, residual=r, relu=True,
+                   out_site=out_site)
 
 
 def _q_backbone(qz: _Quantizer, i3d, y: torch.Tensor) -> torch.Tensor:
@@ -60,12 +59,14 @@ def _q_backbone(qz: _Quantizer, i3d, y: torch.Tensor) -> torch.Tensor:
     for li, (_, n_blocks, stride, temp_conv) in enumerate(layer_specs):
         for bi in range(n_blocks):
             name = f"blocks_layer{li + 1}_{bi}"
+            # The last block feeds the float32 average pool: never quantized.
             z = _qbottleneck(qz, getattr(i3d, name), xq, stride if bi == 0 else 1,
-                             temp_conv[bi], f"i3d_l{li + 1}_{bi}")
+                             temp_conv[bi], f"i3d_l{li + 1}_{bi}",
+                             None if (li, bi) == last else f"i3d_l{li + 1}_{bi}_out")
             if (li, bi) == last:
-                out = z  # feeds the float32 average pool: never quantized
+                out = z
             else:
-                xq = qz.q8(f"i3d_l{li + 1}_{bi}_out", z)
+                xq = z
         if li == 0:
             xq = qz.maxpool_valid(xq, (2, 1, 1), (2, 1, 1))
     return out.float().mean(dim=tuple(range(1, out.dim() - 1)))

@@ -11,10 +11,14 @@ Scheme (standard post-training W8A8, no retraining):
   (``calibrate_unetpp``: the same schedule in the compute dtype, recording each site's
   absmax) over the run's leading batches.
 - Convolutions: int8 x int8 -> int32 through kernel K4 on the card
-  (ops/int8conv.py), dequantized by the per-channel ``act_scale * w_scale`` epilogue;
-  the folded BatchNorm, ReLU and the requantization at the next site are torch
-  elementwise ops. The stem (Cin 3), the up2 convolutions (on the dequantized input,
-  unless ``up2_int8``) and the head stay in the compute dtype.
+  (ops/int8conv.py), with the ops that follow a conv fused into its store
+  (``_Quantizer.conv``): the per-channel ``act_scale * w_scale`` dequant, the conv
+  bias, the folded BatchNorm, the residual add, ReLU and the requantization at the
+  next site, so a conv whose consumer is another int8 conv writes int8 codes. Torch
+  elementwise ops remain on the decoder's conv1 side (the up2 conv's output summed
+  with the skip convs', its BatchNorm, ReLU and requantization), at the stem's
+  requantization and in the int8 max pool. The stem (Cin 3), the up2 convolutions (on
+  the dequantized input, unless ``up2_int8``) and the head stay in the compute dtype.
 
 Calibration and run mode execute the same forward (``_qforward``), so the sites
 recorded and the sites consumed cannot drift; both reuse ``fast_unetpp._decoder_schedule``
@@ -97,27 +101,47 @@ class _Quantizer:
             self.stats[site] = x.float().abs().amax()
             return QT(x.to(self.dtype), None)
         s = float(self.act[site])
-        q = torch.clamp(torch.round(x.float() * (1.0 / s)), -127, 127).to(torch.int8)
-        return QT(q.contiguous(), s)
+        return QT(int8conv.quantize(x, s).contiguous(), s)
 
     def dequant(self, qx: QT) -> torch.Tensor:
         if self.mode == "calib":
             return qx.data
-        return (qx.data.float() * qx.scale).to(self.dtype)
+        return int8conv.dequantize(qx.data, qx.scale, self.dtype)
 
     def conv(self, qx: QT, w: Callable[[], torch.Tensor], key: str, *, strides=(1, 1),
-             padding=((1, 1), (1, 1)), lhs_dilation=None) -> torch.Tensor:
-        """One quantized conv: int8 x int8 -> int32, dequantized per channel (K4 on the
-        card). ``w``: a zero-argument callable giving the float32 HWIO / DHWIO kernel,
-        quantized once under ``key``. Calib mode: the same conv in ``dtype``."""
+             padding=((1, 1), (1, 1)), lhs_dilation=None, bias: torch.Tensor | None = None,
+             bn=None, residual: QT | torch.Tensor | None = None, relu: bool = False,
+             out_site: str | None = None) -> QT | torch.Tensor:
+        """One quantized conv and the ops after it, for a site (K4 with its fused
+        epilogue on the card): int8 x int8 -> int32, dequantized per channel, then
+        ``+ bias`` (the conv's own), the folded BatchNorm of ``bn`` (a conv + BN
+        module), ``+ residual`` (a QT, dequantized, or a plain tensor), ReLU, and with
+        ``out_site`` the requantization at that site, returned as a QT; without it the
+        plain ``dtype`` tensor. ``w``: a zero-argument callable giving the float32 HWIO
+        / DHWIO kernel, quantized once under ``key``. Calib mode: the same conv and
+        operations in ``dtype``, recording the absmax at ``out_site`` as ``q8`` does."""
+        ep = int8conv.Epilogue(
+            bias=None if bias is None else self.weight(f"{key}.bias", lambda: bias.to(self.dtype)),
+            bn=None if bn is None else self.affine(key, bn), relu=relu)
         if self.mode == "calib":
             if lhs_dilation is not None:
-                return up2_conv(qx.data, w(), self.dtype)  # the only dilated conv: up2_int8
-            return conv_nhwc(qx.data, w(), strides, padding, self.dtype)
+                y = up2_conv(qx.data, w(), self.dtype)  # the only dilated conv: up2_int8
+            else:
+                y = conv_nhwc(qx.data, w(), strides, padding, self.dtype)
+            r = residual.data if isinstance(residual, QT) else residual
+            y = int8conv.finish(y, ep._replace(residual=r))
+            return y if out_site is None else self.q8(out_site, y)
+        if isinstance(residual, QT):
+            ep = ep._replace(residual=residual.data, residual_scale=residual.scale)
+        else:
+            ep = ep._replace(residual=residual)
+        if out_site is not None:
+            ep = ep._replace(out_scale=float(self.act[out_site]))
         weight = self.cached(key, lambda: int8conv.int8_weight(w()))
-        return int8conv.int8_conv(qx.data, weight, qx.scale, strides=strides, padding=padding,
-                                  lhs_dilation=lhs_dilation, out_dtype=self.dtype,
-                                  use_kernel=self.use_kernel)
+        out = int8conv.int8_conv(qx.data, weight, qx.scale, strides=strides, padding=padding,
+                                 lhs_dilation=lhs_dilation, out_dtype=self.dtype, epilogue=ep,
+                                 use_kernel=self.use_kernel)
+        return out if out_site is None else QT(out, ep.out_scale)
 
     def maxpool(self, qx: QT) -> QT:
         """The r18 stem max pool on the int8 codes (max is monotone, so pooling codes is
@@ -139,30 +163,26 @@ class _Quantizer:
         return QT(y.to(torch.int8).contiguous(), qx.scale)
 
 
-def _affine_relu(y: torch.Tensor, affine: tuple[torch.Tensor, torch.Tensor], *,
-                 relu: bool = True) -> torch.Tensor:
-    """``y * scale + bias`` of a folded BatchNorm (``_Quantizer.affine``), then ReLU."""
+def _affine_relu(y: torch.Tensor, affine: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """``y * scale + bias`` of a folded BatchNorm (``_Quantizer.affine``), then ReLU: the
+    stem's and the decoder conv1 side's, which no K4 epilogue covers."""
     sc, bi = affine
-    y = y * sc + bi
-    return F.relu(y) if relu else y
+    return F.relu(y * sc + bi)
 
 
-def _qbasic(qz: _Quantizer, block, qx: QT, stride: int, site: str) -> torch.Tensor:
-    """Quantized torchvision BasicBlock. Returns the plain pre-quantization output; the
-    caller quantizes at the block's out site."""
-    y = qz.conv(qx, lambda: kernel(block.conv1.conv), f"{site}.conv1", strides=(stride, stride))
-    y = _affine_relu(y, qz.affine(f"{site}.conv1", block.conv1))
-    yq = qz.q8(f"{site}_mid", y)
-    y = qz.conv(yq, lambda: kernel(block.conv2.conv), f"{site}.conv2")
-    y = _affine_relu(y, qz.affine(f"{site}.conv2", block.conv2), relu=False)
+def _qbasic(qz: _Quantizer, block, qx: QT, stride: int, site: str, out_site: str) -> QT:
+    """Quantized torchvision BasicBlock: conv1 (BN, ReLU) -> int8 at ``{site}_mid``;
+    the downsample (BN) in ``dtype``, run first as conv2's residual; conv2 (BN, +
+    residual, ReLU) -> int8 at ``out_site``."""
+    yq = qz.conv(qx, lambda: kernel(block.conv1.conv), f"{site}.conv1", strides=(stride, stride),
+                 bn=block.conv1, relu=True, out_site=f"{site}_mid")
     if block.downsample is not None:
         r = qz.conv(qx, lambda: kernel(block.downsample.conv), f"{site}.downsample",
-                    strides=(stride, stride), padding=((0, 0), (0, 0)))
-        r = _affine_relu(r, qz.affine(f"{site}.downsample", block.downsample), relu=False)
+                    strides=(stride, stride), padding=((0, 0), (0, 0)), bn=block.downsample)
     else:
-        # Exact residual: the int8 code times its scale is the value the net saw.
-        r = qz.dequant(qx)
-    return F.relu(y + r)
+        r = qx  # exact residual: the int8 code times its scale is the value the net saw
+    return qz.conv(yq, lambda: kernel(block.conv2.conv), f"{site}.conv2", bn=block.conv2,
+                   residual=r, relu=True, out_site=out_site)
 
 
 # Encoder block whose output is a decoder skip feature: its out site is the decoder's
@@ -184,8 +204,8 @@ def _qencoder(qz: _Quantizer, encoder, frames: torch.Tensor) -> list[QT]:
     for lname, nblocks, stride in _R18_ENC_LAYERS:
         for i in range(nblocks):
             site = f"enc_{lname}_{i}"
-            z = _qbasic(qz, getattr(encoder, f"{lname}_{i}"), x, stride if i == 0 else 1, site)
-            x = qz.q8(_F_ALIAS.get((lname, i), f"{site}_out"), z)
+            x = _qbasic(qz, getattr(encoder, f"{lname}_{i}"), x, stride if i == 0 else 1, site,
+                        _F_ALIAS.get((lname, i), f"{site}_out"))
         feats.append(x)
     return feats[::-1]
 
@@ -213,13 +233,10 @@ def _qdecoder(qz: _Quantizer, model, f: list, up2_int8: bool = False) -> torch.T
             y = _pad_to(y, skip_sum.shape) + skip_sum
         y = _affine_relu(y, qz.affine(f"{name}.conv1", block.conv1))
         yq = qz.q8(f"{name}_mid", y)
-        z = qz.conv(yq, lambda: kernel(block.conv2.conv), f"{name}.conv2")
-        if block.conv2.conv.bias is not None:
-            z = z + block.conv2.conv.bias.to(z.dtype)
-        z = _affine_relu(z, qz.affine(f"{name}.conv2", block.conv2))
-        if name == "x_0_3":
-            return z  # feeds the head in ``dtype``: never quantized
-        return qz.q8(f"{name}_out", z)
+        # x_0_3 feeds the head in ``dtype``: never quantized.
+        return qz.conv(yq, lambda: kernel(block.conv2.conv), f"{name}.conv2",
+                       bias=block.conv2.conv.bias, bn=block.conv2, relu=True,
+                       out_site=None if name == "x_0_3" else f"{name}_out")
 
     def conv(site: str, qx: QT, w) -> torch.Tensor:
         return qz.conv(qx, w, site)

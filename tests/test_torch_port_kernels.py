@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from ted_spad_tpu_torch.chip_probes import K4_FORMS, k4_epilogue
 from ted_spad_tpu_torch.ops import doubleconv as dc
 from ted_spad_tpu_torch.ops import int8conv
 from ted_spad_tpu_torch.ops import preprocess as pp
@@ -209,6 +210,31 @@ def test_int8_conv_kernel_is_bit_equal_to_plain_version(cuda_device, xs, ws, str
         ref = int8conv.int8_conv(x, weight, 0.05, use_kernel=False, **kw)
         assert got.shape == ref.shape and torch.equal(got, ref)
     assert int8conv.int8_conv.launches == launches + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", list(K4_FORMS))
+@pytest.mark.parametrize("xs,ws,strides,pads", [
+    ((2, 28, 28, 64), (3, 3, 64, 64), (1, 1), ((1, 1), (1, 1))),
+    ((2, 13, 17, 48), (3, 3, 48, 5), (1, 1), ((1, 1), (1, 1))),
+    ((2, 4, 15, 15, 128), (1, 3, 3, 128, 72), (1, 2, 2), ((0, 0), (1, 1), (1, 1))),
+])
+def test_int8_conv_kernel_epilogue_is_bit_equal_to_plain_version(cuda_device, form, xs, ws,
+                                                                  strides, pads):
+    """Each fused epilogue form of the int8 path, bf16 and float32: K4 equals the plain
+    version (int32 sums, then the epilogue's torch ops) bit for bit."""
+    rng = np.random.default_rng(sum(xs) + len(form))
+    x = torch.from_numpy(rng.integers(-127, 128, xs, dtype=np.int8)).to(cuda_device)
+    weight = int8conv.int8_weight(torch.from_numpy(rng.standard_normal(ws).astype(np.float32))
+                                  .to(cuda_device))
+    kw = dict(strides=strides, padding=pads)
+    out_shape = int8conv.conv_out_shape(xs, ws, **kw)
+    for dtype in (torch.bfloat16, torch.float32):
+        ep = k4_epilogue(form, weight, out_shape, dtype, cuda_device, seed=len(xs))
+        got = int8conv.int8_conv(x, weight, 0.05, out_dtype=dtype, epilogue=ep, **kw)
+        ref = int8conv.int8_conv(x, weight, 0.05, out_dtype=dtype, epilogue=ep, use_kernel=False,
+                                 **kw)
+        assert got.dtype == ref.dtype and got.shape == ref.shape and torch.equal(got, ref)
 
 
 @pytest.mark.cuda

@@ -191,7 +191,9 @@ class _RecordingQuantizer(jqu._Quantizer):
 
 
 class _PortRecordingQuantizer(quant_unetpp._Quantizer):
-    """The port's quantizer, keeping each site's int8 codes in ``codes``."""
+    """The port's quantizer, keeping each site's int8 codes in ``codes``: those ``q8``
+    makes (the stem, the decoder's conv1 side) and those a conv's fused epilogue makes
+    at its ``out_site``."""
 
     def __init__(self, *a, **k):
         super().__init__(*a, **k)
@@ -201,6 +203,12 @@ class _PortRecordingQuantizer(quant_unetpp._Quantizer):
         qt = super().q8(site, x)
         self.codes[site] = qt.data
         return qt
+
+    def conv(self, qx, w, key, *, out_site=None, **kw):
+        out = super().conv(qx, w, key, out_site=out_site, **kw)
+        if out_site is not None:
+            self.codes[out_site] = out.data
+        return out
 
 
 def _agree(port_codes: dict, jax_codes: dict, permute=None):
