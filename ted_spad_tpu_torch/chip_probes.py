@@ -5,6 +5,7 @@ numbers PERF.md quotes from them can be taken again:
     python -m ted_spad_tpu_torch.chip_probes k2     # kernel K2 alone
     python -m ted_spad_tpu_torch.chip_probes k3     # kernel K3 (YUV420 preprocess) alone
     python -m ted_spad_tpu_torch.chip_probes k4     # kernel K4 (int8 conv) alone
+    python -m ted_spad_tpu_torch.chip_probes k4class   # K4 at the serving 2D 3x3 convs, timed only
     python -m ted_spad_tpu_torch.chip_probes int8ab PARENT   # int8 step: PARENT vs this tree
     python -m ted_spad_tpu_torch.chip_probes gain   # the UNet's outc gain vs the gates
     python -m ted_spad_tpu_torch.chip_probes mgfn   # where MGFN's card-vs-CPU step error sits
@@ -669,6 +670,34 @@ K4_CASES = (
     ("asymmetric pads", (1, 9, 10, 32), (3, 3, 32, 24), (1, 1), ((0, 2), (1, 0)), None),
 )
 INT8_TOPS = 1979e12  # H100 SXM dense int8 tensor-core rate
+# The unstrided 2D 3x3 class of an int8 serving step (23 of its 79 convs, most of K4's
+# time), as record_int8_convs finds it at 16 clips of 224^2 frames: (site, x shape,
+# kernel shape, epilogue form); stride 1, pads 1.
+K4_SERVING_3X3 = (
+    ("enc_layer1_0.conv1", (256, 56, 56, 64), (3, 3, 64, 64), "bn+relu->int8"),
+    ("enc_layer1_0.conv2", (256, 56, 56, 64), (3, 3, 64, 64), "bn+res(int8)+relu->int8"),
+    ("enc_layer1_1.conv1", (256, 56, 56, 64), (3, 3, 64, 64), "bn+relu->int8"),
+    ("enc_layer1_1.conv2", (256, 56, 56, 64), (3, 3, 64, 64), "bn+res(int8)+relu->int8"),
+    ("enc_layer2_0.conv2", (256, 28, 28, 128), (3, 3, 128, 128), "bn+res+relu->int8"),
+    ("enc_layer2_1.conv1", (256, 28, 28, 128), (3, 3, 128, 128), "bn+relu->int8"),
+    ("enc_layer2_1.conv2", (256, 28, 28, 128), (3, 3, 128, 128), "bn+res(int8)+relu->int8"),
+    ("enc_layer3_0.conv2", (256, 14, 14, 256), (3, 3, 256, 256), "bn+res+relu->int8"),
+    ("enc_layer3_1.conv1", (256, 14, 14, 256), (3, 3, 256, 256), "bn+relu->int8"),
+    ("enc_layer3_1.conv2", (256, 14, 14, 256), (3, 3, 256, 256), "bn+res(int8)+relu->int8"),
+    ("sk_f1", (256, 28, 28, 128), (3, 3, 128, 256), "dequant"),
+    ("x_0_0.conv2", (256, 28, 28, 256), (3, 3, 256, 256), "bn+relu->int8"),
+    ("sk_f2", (256, 56, 56, 64), (3, 3, 64, 192), "dequant"),
+    ("sk_f3", (256, 112, 112, 64), (3, 3, 64, 192), "dequant"),
+    ("x_1_1.conv2", (256, 56, 56, 64), (3, 3, 64, 64), "bn+relu->int8"),
+    ("x_2_2.conv2", (256, 112, 112, 64), (3, 3, 64, 64), "bn+relu->int8"),
+    ("sk_x22", (256, 112, 112, 64), (3, 3, 64, 128), "dequant"),
+    ("sk_x11", (256, 56, 56, 64), (3, 3, 64, 128), "dequant"),
+    ("x_0_1.conv2", (256, 56, 56, 128), (3, 3, 128, 128), "bn+relu->int8"),
+    ("x_1_2.conv2", (256, 112, 112, 64), (3, 3, 64, 64), "bn+relu->int8"),
+    ("sk_x12", (256, 112, 112, 64), (3, 3, 64, 64), "dequant"),
+    ("x_0_2.conv2", (256, 112, 112, 64), (3, 3, 64, 64), "bn+relu->int8"),
+    ("x_0_3.conv2", (256, 224, 224, 32), (3, 3, 32, 32), "bn+relu"),
+)
 # K4's epilogue forms, by ``Epilogue.form()``: (conv bias, BatchNorm, residual: None /
 # "dtype" / "int8", ReLU, int8 output). Where each runs on the int8 path: the UNet++ skip
 # convs; the downsamples; BasicBlock conv1, Bottleneck3D conv1 / conv2 and the decoder's
@@ -1148,6 +1177,24 @@ def k4_classes(rows: list[dict]) -> dict:
     return dict(sorted(by_class.items(), key=lambda kv: -kv[1]["ms"]))
 
 
+def k4class(device) -> None:
+    """K4 alone at the 23 convs of K4_SERVING_3X3 with their forms, no check (``k4``
+    checks): each conv's time, the class's total, and the build's registers. For
+    comparing forms of the kernel built from copies of the package."""
+    from ted_spad_tpu_torch.utils import cuda_build
+
+    _, nvcc_out = cuda_build.build("int8conv")
+    for name, r in cuda_build.ptxas_report(nvcc_out).items():
+        if "bfloat16Lb1ELb1" in name:  # the serving instantiation: bf16, int8 out, cp.async
+            print(f"[K4 build] {name}: {r}", flush=True)
+    calls = [(site, xs, ws, (1, 1), ((1, 1), (1, 1)), None, form)
+             for site, xs, ws, form in K4_SERVING_3X3]
+    rows = k4_timing(device, calls)
+    total = {k: sum(r[k] for r in rows) for k in ("ms", "device_only_ms", "bound_ms")}
+    print(f"[K4] class 2D 3x3: {len(rows)} convs, kernel {total['ms']:.3f} ms (device only "
+          f"{total['device_only_ms']:.3f}), bound {total['bound_ms']:.3f} ms", flush=True)
+
+
 def k4(device) -> None:
     import torch
 
@@ -1222,9 +1269,14 @@ def int8_step_turn(device, out_path: str) -> None:
                fe.iter_clip_batches(INT8_AB_URIS, p, p.batch_size, num_workers=8)][:2]
     calib = fe.make_fa_calibration_step(p, fa, ft, device=device)
     absmax: dict = {}
-    for clips in batches:
-        for k, v in calib(clips).items():
-            absmax[k] = max(absmax.get(k, 0.0), float(v))
+    # cuDNN's choice of algorithm would change the calibration's bf16 rounding, and with
+    # it the scales, from one process to the next: calibrate and save deterministically.
+    deterministic = torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                               deterministic=True, allow_tf32=False)
+    with deterministic:
+        for clips in batches:
+            for k, v in calib(clips).items():
+                absmax[k] = max(absmax.get(k, 0.0), float(v))
     step = fe.make_extract_step(ft, p, fa, device=device,
                                 quant_act_scales=act_scales_from_absmax(absmax))
     bf16_step = fe.make_extract_step(ft, p.replace(quant="none"), fa, device=device)
@@ -1257,6 +1309,7 @@ def int8ab(device, parent: str) -> None:
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     trees = {"parent": os.path.abspath(parent), "change": here}
     outs, runs = {}, []
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
     for i, tag in enumerate(("parent", "change", "change", "parent")):
         root = trees[tag]
         out = os.path.join(here, "build", f"int8ab_{i}_{tag}.pt")
@@ -1290,7 +1343,7 @@ def int8ab(device, parent: str) -> None:
 def main() -> int:
     import torch
 
-    probes = {"k1": k1, "k2": k2, "k3": k3, "k4": k4, "gain": gain, "mgfn": mgfn,
+    probes = {"k1": k1, "k2": k2, "k3": k3, "k4": k4, "k4class": k4class, "gain": gain, "mgfn": mgfn,
               "int8ab": int8ab, "int8step": int8_step_turn}
     takes_arg = ("int8ab", "int8step")
     if len(sys.argv) < 2 or sys.argv[1] not in probes or len(sys.argv) != 2 + (sys.argv[1] in takes_arg):

@@ -15,8 +15,9 @@
 //     y = CT(y + r)                          r: a CT residual, or CT(float32(code) * s_res)
 //     y = max(y, 0)                          ReLU
 //     out = int8(clamp(rint(y * inv_out), -127, 127))   or out = y in CT
-// where scale[c] = act_scale * w_scale[c] and inv_out (the Python double 1 / s_out) are
-// float32 values the host precomputes. Every operation is one float32 operation written
+// where scale[c] = float32(w_scale[c] * act_scale), computed here from the float32 weight
+// scales and the activation scale rounded to float32 as torch rounds a Python scalar,
+// and inv_out is the host's float32 of the Python double 1 / s_out. Every operation is one float32 operation written
 // with __fmul_rn / __fadd_rn, so nvcc cannot contract a multiply and an add into an FMA,
 // and every rounding to bf16 is round-to-nearest-even: the sequence of torch operations
 // in the plain version (ops/int8conv.py: int8_conv_reference, int32 sums exact in
@@ -74,12 +75,16 @@ namespace {
 
 constexpr int kBM = 128;             // output pixels per block
 constexpr int kBN = 64;              // output channels per block
-constexpr int kBK = 64;              // bytes of K per stage: two 32-byte chunks
-constexpr int kLDS = kBK + 16;       // padded shared row: 80 bytes
+constexpr int kBK = 64;              // bytes of K per stage: kChunks 32-byte chunks
+constexpr int kChunks = kBK / 32;
+constexpr int kAChunks = kChunks / 2;  // A chunks a thread stages per stage (2 threads a row)
+constexpr int kBSegs = kBK / 64;       // B 16-byte segments a thread stages (4 threads a row)
+constexpr int kLDS = kBK + 16;       // padded shared row
 constexpr int kThreads = 256;
 constexpr int kWarpsN = 2;
 constexpr int kMT = 2, kNT = 4;      // m16 / n8 tiles per warp
-constexpr int kStages = 2;
+constexpr int kStages = 3;           // ring depth: kStages - 1 stages in flight
+constexpr int kPackBytes = 64;       // packed weight rows are multiples (ops/int8conv.py: K4_BK)
 constexpr int kStageBytes = (kBM + kBN) * kLDS;
 constexpr int kRingBytes = kStages * kStageBytes;
 
@@ -93,7 +98,8 @@ enum ResKind { kNoRes = 0, kComputeRes = 1, kInt8Res = 2 };
 struct Params {
   const int8_t* x;
   const int8_t* wt;  // packed weights
-  const float* scale;
+  const float* w_scale;  // (cout,) float32
+  float act_scale;       // the input's scale, rounded to float32
   void* out;
   const void* bias;     // (cout,) CT or null
   const void* bn_s;     // (cout,) CT or null
@@ -130,6 +136,10 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 // c += a @ b for one m16n8k32 tile: a row-major 16x32 int8, b column-major 32x8 int8.
 __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -139,6 +149,25 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A 32-byte chunk of K: chunk c of tap (td, th, tw).
+struct Cursor {
+  int c, tw, th, td;
+};
+// The chunk n chunks further along K, by carries instead of divisions.
+__device__ __forceinline__ void advance(Cursor& q, int n, int cin32, int kw, int kh) {
+  q.c += n;
+  while (q.c >= cin32) {
+    q.c -= cin32;
+    if (++q.tw == kw) {
+      q.tw = 0;
+      if (++q.th == kh) {
+        q.th = 0;
+        ++q.td;
+      }
+    }
+  }
 }
 
 // The input coordinate of a dilated coordinate z along one axis, or -1 when z falls on
@@ -193,8 +222,9 @@ __global__ void __launch_bounds__(kThreads) int8_conv_kernel(const Params p) {
   const long long m0 = static_cast<long long>(blockIdx.x) * kBM;
   const int n0 = blockIdx.y * kBN;
 
-  // This thread's A row (one output pixel) and the K chunk of a stage it stages.
-  const int a_row = threadIdx.x / 2, a_chunk = threadIdx.x % 2;
+  // This thread's A row (one output pixel) and the kAChunks 32-byte K chunks of a stage
+  // it stages, from chunk a_half * kAChunks.
+  const int a_row = threadIdx.x / 2, a_half = threadIdx.x % 2;
   const long long m = m0 + a_row;
   const bool m_ok = m < p.m;
   int zd = 0, zh = 0, zw = 0;
@@ -209,11 +239,22 @@ __global__ void __launch_bounds__(kThreads) int8_conv_kernel(const Params p) {
     zh = oy * p.sh - p.ph;
     zw = ox * p.sw - p.pw;
   }
-  // This thread's B row (one output channel) and 16-byte segment of a stage.
-  const int b_row = threadIdx.x / 4, b_seg = threadIdx.x % 4;
+  // This thread's B row (one output channel) and its kBSegs 16-byte segments of a stage.
+  const int b_row = threadIdx.x / 4, b_seg = (threadIdx.x % 4) * kBSegs;
   const bool n_ok = n0 + b_row < p.cout;
   const int8_t* b_src = p.wt + static_cast<size_t>(n_ok ? n0 + b_row : 0) * p.kpad + b_seg * 16;
   const int khw = p.kh * p.kw;
+  // The first chunk this thread stages, at stage 0, decoded once.
+  Cursor cur;
+  {
+    const int kc = a_half * kAChunks;
+    const int tap = kc / p.cin32;
+    cur.c = kc - tap * p.cin32;
+    cur.td = tap / khw;
+    const int rem = tap - cur.td * khw;
+    cur.th = rem / p.kw;
+    cur.tw = rem - cur.th * p.kw;
+  }
 
   // The residual tile: (row, Cout) bytes of the block, in its own region past the output
   // tile, staged with the first K stage's group when its rows are 16-byte aligned.
@@ -233,34 +274,44 @@ __global__ void __launch_bounds__(kThreads) int8_conv_kernel(const Params p) {
     }
   }
 
-  auto load = [&](int s) {
-    unsigned char* st = smem + (s % kStages) * kStageBytes;
-    // A: one 32-byte chunk of K for row a_row.
-    const int kc = s * 2 + a_chunk;
-    unsigned char* a_dst = st + a_row * kLDS + a_chunk * 32;
-    bool ok = m_ok && kc < p.kchunks;
-    int c0 = 0;
+  // A: the 32 bytes of chunk q for row a_row into dst, zero where the chunk falls on
+  // the padding, a dilation hole, past Cin or past K.
+  auto stage_chunk = [&](unsigned char* dst, const Cursor& q) {
+    bool ok = m_ok && q.td < p.kd;
+    const int c0 = q.c * 32;
     const int8_t* src = p.x;
     if (ok) {
-      const int tap = kc / p.cin32;
-      c0 = (kc - tap * p.cin32) * 32;
-      const int td = tap / khw, rem = tap - td * khw;
-      const int th = rem / p.kw, tw = rem - th * p.kw;
-      const int id = source(zd + td, p.dd, p.d), ih = source(zh + th, p.dh, p.h),
-                iw = source(zw + tw, p.dw, p.w);
+      const int id = source(zd + q.td, p.dd, p.d), ih = source(zh + q.th, p.dh, p.h),
+                iw = source(zw + q.tw, p.dw, p.w);
       ok = id >= 0 && ih >= 0 && iw >= 0;
       if (ok) src = p.x + img + ((static_cast<size_t>(id) * p.h + ih) * p.w + iw) * p.cin + c0;
     }
     if constexpr (kVecCin) {
-      cp_async16(smem_addr(a_dst), ok ? src : p.x, ok && c0 < p.cin);
-      cp_async16(smem_addr(a_dst + 16), ok ? src + 16 : p.x, ok && c0 + 16 < p.cin);
+      cp_async16(smem_addr(dst), ok ? src : p.x, ok && c0 < p.cin);
+      cp_async16(smem_addr(dst + 16), ok ? src + 16 : p.x, ok && c0 + 16 < p.cin);
     } else {
 #pragma unroll 4
       for (int b = 0; b < 32; ++b)
-        a_dst[b] = ok && c0 + b < p.cin ? static_cast<unsigned char>(src[b]) : 0;
+        dst[b] = ok && c0 + b < p.cin ? static_cast<unsigned char>(src[b]) : 0;
     }
-    // B: one 16-byte segment of the packed row of channel n0 + b_row.
-    cp_async16(smem_addr(st + (kBM + b_row) * kLDS + b_seg * 16), b_src + s * kBK, n_ok);
+  };
+  // Stage s of the ring: this thread's A chunks and B segments.
+  auto load = [&](int s) {
+    unsigned char* st = smem + (s % kStages) * kStageBytes;
+    unsigned char* a_dst = st + a_row * kLDS + a_half * kAChunks * 32;
+    Cursor q = cur;
+#pragma unroll
+    for (int k = 0; k < kAChunks; ++k) {
+      stage_chunk(a_dst + k * 32, q);
+      if (k + 1 < kAChunks) advance(q, 1, p.cin32, p.kw, p.kh);
+    }
+    advance(cur, kChunks, p.cin32, p.kw, p.kh);
+#pragma unroll
+    for (int k = 0; k < kBSegs; ++k) {
+      const int off = s * kBK + (b_seg + k) * 16;  // packed rows end at kpad, a multiple of 64
+      cp_async16(smem_addr(st + (kBM + b_row) * kLDS + (b_seg + k) * 16), b_src + s * kBK + k * 16,
+                 n_ok && off < p.kpad);
+    }
   };
 
   int acc[kMT][kNT][4];
@@ -271,17 +322,20 @@ __global__ void __launch_bounds__(kThreads) int8_conv_kernel(const Params p) {
 #pragma unroll
       for (int k = 0; k < 4; ++k) acc[i][j][k] = 0;
 
-  const int n_stages = p.kpad / kBK;
-  load(0);
-  cp_async_commit();
+  const int n_stages = (p.kpad + kBK - 1) / kBK;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_stages) load(s);
+    cp_async_commit();
+  }
   for (int s = 0; s < n_stages; ++s) {
-    cp_async_wait_all();
+    cp_async_wait<kStages - 2>();
     __syncthreads();  // stage s landed for every thread; stage s - 1's readers are done
-    if (s + 1 < n_stages) load(s + 1);
+    if (s + kStages - 1 < n_stages) load(s + kStages - 1);
     cp_async_commit();
     const unsigned char* st = smem + (s % kStages) * kStageBytes;
 #pragma unroll
-    for (int ks = 0; ks < kBK / 32; ++ks) {
+    for (int ks = 0; ks < kChunks; ++ks) {
       uint32_t b[kNT][2];
 #pragma unroll
       for (int j = 0; j < kNT; ++j) {
@@ -325,7 +379,7 @@ __global__ void __launch_bounds__(kThreads) int8_conv_kernel(const Params p) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int c = min(n0 + col + e, p.cout - 1);  // past Cout: computed, never stored
-      sc[e] = p.scale[c];
+      sc[e] = __fmul_rn(p.w_scale[c], p.act_scale);
       bi[e] = p.bias ? R::load(p.bias, c) : 0.f;
       bs[e] = p.bn_s ? R::load(p.bn_s, c) : 0.f;
       bb[e] = p.bn_s ? R::load(p.bn_b, c) : 0.f;
@@ -419,14 +473,16 @@ int launch(const Params& p, cudaStream_t stream) {
 
 // Plain C entry point (bound with ctypes). x (n, d, h, w, cin) int8, contiguous,
 // 16-byte aligned when cin % 16 == 0; w (cout, kpad) int8 packed by
-// ops/int8conv.py:pack_weight; scale (cout,) float32; out (n, od, oh, ow, cout): int8
+// ops/int8conv.py:pack_weight; w_scale (cout,) float32, the weights' scales, and
+// act_scale, x's scale; out (n, od, oh, ow, cout): int8
 // (out_int8 != 0) or the compute type, bfloat16 (compute_bf16 != 0) or float32. geom =
 // {kd, kh, kw, sd, sh, sw, pd, ph, pw, dd, dh, dw, od, oh, ow}: taps, strides, low pads,
 // lhs dilation and the output size. The epilogue: bias, bn_scale / bn_bias ((cout,) in
 // the compute type, or null), residual (out's shape: the compute type for res_kind 1,
 // int8 codes of scale res_scale for res_kind 2, null for 0), relu, and out_inv = 1 /
 // s_out for an int8 output. Returns the cudaError_t of the launch (0 on success).
-extern "C" int ted_int8_conv(const void* x, const void* w, const float* scale, void* out,
+extern "C" int ted_int8_conv(const void* x, const void* w, const float* w_scale,
+                             float act_scale, void* out,
                              int compute_bf16, int out_int8, int n, int d, int h, int wd,
                              int cin, int cout, const int* geom, int kpad, const void* bias,
                              const void* bn_scale, const void* bn_bias, const void* residual,
@@ -435,7 +491,8 @@ extern "C" int ted_int8_conv(const void* x, const void* w, const float* scale, v
   Params p{};
   p.x = static_cast<const int8_t*>(x);
   p.wt = static_cast<const int8_t*>(w);
-  p.scale = scale;
+  p.w_scale = w_scale;
+  p.act_scale = act_scale;
   p.out = out;
   p.bias = bias;
   p.bn_s = bn_scale;
@@ -460,7 +517,7 @@ extern "C" int ted_int8_conv(const void* x, const void* w, const float* scale, v
   const auto aligned = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; };
   p.res_vec = res_kind != kNoRes && cout * res_elt % 16 == 0 && aligned(residual);
   p.out_vec = cout * out_elt % 16 == 0 && aligned(out);
-  if (p.m <= 0 || cout <= 0 || kpad % kBK != 0 || kpad < p.kchunks * 32 || res_kind < 0 ||
+  if (p.m <= 0 || cout <= 0 || kpad % kPackBytes != 0 || kpad < p.kchunks * 32 || res_kind < 0 ||
       res_kind > 2 || (res_kind != kNoRes) != (residual != nullptr) || (bn_scale == nullptr) != (bn_bias == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

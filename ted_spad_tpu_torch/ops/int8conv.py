@@ -222,7 +222,7 @@ def _library():
     fn = load("int8conv").ted_int8_conv
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.restype = i
-    fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p, i, p, p, p, p, i, f, i, f, p]
+    fn.argtypes = [p, p, p, f, p, i, i, i, i, i, i, i, i, p, i, p, p, p, p, i, f, i, f, p]
     return fn
 
 
@@ -289,7 +289,6 @@ def int8_conv(x: torch.Tensor, weight: Int8Weight, act_scale: float, *,
         raise ValueError("int8_conv needs contiguous (N, [D,] H, W, C) activations")
     if cin % 16 == 0 and x.data_ptr() % 16:
         raise ValueError("int8_conv: x must start on a 16-byte boundary (read 16 bytes at a time)")
-    scale = channel_scale(act_scale, weight.scale)
     int8_out = ep.out_scale is not None
     out = torch.empty(out_shape, dtype=torch.int8 if int8_out else out_dtype, device=x.device)
     geom = (ctypes.c_int * 15)(*taps, *strides5, *(lo for lo, _ in pads5), *dil5, *out5[1:])
@@ -298,7 +297,8 @@ def int8_conv(x: torch.Tensor, weight: Int8Weight, act_scale: float, *,
     res_kind = 0 if ep.residual is None else 2 if ep.residual_scale is not None else 1
     with torch.cuda.device(x.device):
         err = _library()(
-            x.data_ptr(), weight.packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            x.data_ptr(), weight.packed.data_ptr(), weight.scale.data_ptr(), act_scale,
+            out.data_ptr(),
             int(out_dtype == torch.bfloat16), int(int8_out), n, d, h, w, cin, cout, geom,
             weight.packed.shape[1], ptr(ep.bias), *(ptr(v) for v in (ep.bn or (None, None))),
             ptr(ep.residual), res_kind, ep.residual_scale or 0.0, int(ep.relu),
