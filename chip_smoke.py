@@ -65,10 +65,12 @@ Phases, each fatal on failure:
      features' cosine to bf16 >= INT8_COS_MIN; MGFN frame scores from int8 features
      within INT8_SCORE_ATOL of bf16 ones; the int8 step with K4 bit-equal to the same
      step with the plain int8 conv; the int8-vs-bf16 error over the between-clip spread
-     beside its two controls; then K4 bit-equal to its plain version at all 79 conv
-     shapes (batch cut) and the ragged chip_probes.K4_CASES, and timed at each shape
-     beside its bound, the plain version, the cuDNN bf16 conv and torch._int_mm + the
-     epilogue at the 1x1 shapes.
+     beside its two controls; then K4 with its fused epilogue bit-equal to its plain
+     version at all 79 conv shapes (batch cut), each with the epilogue form the step
+     gives it (recorded by wrapping _Quantizer.conv), and at the ragged
+     chip_probes.K4_CASES with every form of chip_probes.K4_FORMS; each of the 79 timed at
+     its shape with its form beside its bound (the form's bytes), the plain version, the
+     cuDNN bf16 conv and torch._int_mm + the epilogue's torch ops at the 1x1 shapes.
 
 Prints the kernel table as one JSON line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero, printing no result,

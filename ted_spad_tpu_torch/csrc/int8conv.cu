@@ -43,29 +43,36 @@
 // and reads the residual once, in place of eight elementwise passes over bf16 and
 // float32 tensors.
 //
-// Design:
-// - One block owns a kBM x kBN tile of (output pixels x Cout): 8 warps in a 4 x 2 grid,
-//   each a 32 x 32 warp tile = 2 m16 x 4 n8 tiles of
-//   mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32, accumulating in int32 registers.
-// - K walks 32-byte chunks of (tap, Cin): a stage holds kBK = 64 bytes of K (two
-//   chunks, possibly of two taps) for the A tile (the gathered input rows) and the B
-//   tile (the packed weight rows), staged by 16-byte cp.async whose src-size 0
-//   zero-fills the halo, the pads, the dilation holes, the channels past Cin and the
-//   rows past M / Cout, as K2 does (csrc/doubleconv.cu). Two stages: the next one is in
-//   flight while the MMAs read the current one.
-// - Each thread stages one 32-byte K chunk of one A row per stage, so it decodes its
-//   row's output coordinates once; a chunk's tap is decoded per stage.
-// - Fragments are read by 32-bit shared loads (each lane's 4 int8 of a row are
-//   contiguous in the m16n8k32 layout); rows are padded to 80 bytes, which puts the 8
-//   rows x 4 words a warp reads on 32 distinct banks.
+// Design (each step measured on the card; PERF.md holds the numbers):
+// - A block owns a tile of (output pixels x Cout): 8 warps, each a 32 x 32 warp tile = 2
+//   m16 x 4 n8 tiles of mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 accumulating in
+//   int32 registers; 128 x 64 (Wide), or 256 x 32 (Narrow) in the 3x3 kernel at Cout <= 32.
+// - Operands are staged by 16-byte cp.async whose src-size 0 zero-fills the halo, the
+//   pads, the dilation holes, the channels past Cin and the rows past M / Cout, as K2
+//   does (csrc/doubleconv.cu); fragments are read by 32-bit shared loads (each lane's 4
+//   int8 of a row are contiguous in the m16n8k32 layout) from rows padded so that the 8
+//   rows x 4 words a warp reads land on 32 distinct banks. (ldmatrix read no faster.)
+// - The general kernel (any taps, strides, pads, dilation, Cin): K walks 32-byte chunks
+//   of (tap, Cin); a stage holds kBK = 64 bytes of K of the gathered input rows (A) and
+//   of the packed weight rows (B) in a 3-stage ring, two stages in flight. Each thread
+//   stages one chunk of one A row a stage, its row's coordinates decoded once and its
+//   (tap, chunk) advanced by carries, without a division. 128-byte stages were slower:
+//   their ring leaves 2 blocks an SM where 64-byte ones leave 3-4.
+// - The 3x3 kernel (kd 1, a 3 x 3 window, stride 1, no dilation, Cin a multiple of 16:
+//   the UNet++'s unstrided 2D 3x3 convs and the I3Res50's unstrided (1, 3, 3) ones):
+//   its gathers from L2, nine per input row, were half the general kernel's time there.
+//   A block owns a 2D tile of one image's output pixels; a stage holds one 32-byte Cin
+//   chunk of the tile's input patch with its one-pixel halo and of the nine taps' weight
+//   rows, and the nine taps read the patch from shared memory (K2's design).
 // - Epilogue: the block's residual tile is staged by 16-byte cp.async into its own
-//   shared region while the main loop runs (element by element where a row is not
-//   16-byte aligned). Each thread runs the operations above on its accumulators and
-//   writes the results as pairs into an output tile in shared memory (the ring is free
-//   by then); the block then stores the tile with 16-byte stores along Cout.
-//   Instantiations: compute type (bf16, f32) x output (CT, int8) x staging (cp.async,
-//   byte-wise Cin); the bias, the BatchNorm, the residual's kind and ReLU are runtime
-//   flags, uniform over the block.
+//   shared region with the first stage (element by element where a row is not 16-byte
+//   aligned). Each thread runs the operations above on its accumulators and writes the
+//   results as pairs into an output tile in shared memory (the ring is free by then);
+//   the block then stores the tile with 16-byte stores along Cout.
+// - Instantiations: compute type (bf16, f32) x output (CT, int8) x (general with
+//   cp.async or byte-wise Cin staging, 3x3 Wide, 3x3 Narrow); the bias, the BatchNorm,
+//   the residual's kind and ReLU are runtime flags, uniform over the block.
+// - Next (ROADMAP): wgmma fed by TMA (its im2col mode for the A gather).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -73,25 +80,44 @@
 
 namespace {
 
-constexpr int kBM = 128;             // output pixels per block
-constexpr int kBN = 64;              // output channels per block
+constexpr int kThreads = 256;
+constexpr int kMT = 2, kNT = 4;      // m16 / n8 tiles of a warp's 32 x 32 tile
+constexpr int kPackBytes = 64;       // packed weight rows are multiples (ops/int8conv.py: K4_BK)
+// The 3x3 kernel's stages: patch rows of one 32-byte Cin chunk padded to 48 bytes, weight
+// rows of the nine taps' chunks padded to 304 bytes (the 8 rows a warp reads land on
+// distinct banks in both), two stages.
+constexpr int kPLD = 32 + 16;
+constexpr int kBLD = 9 * 32 + 16;
+constexpr int kPStages = 2;
+
+__host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
+
+// A block's output tile: BN channels, its 8 warps' 32 x 32 tiles BN / 32 along Cout, so
+// 256 * 32 / BN pixels; shared tiles of it in rows padded by 16 bytes; and the 3x3
+// kernel's kTH x kTW pixels with their input patch (a one-pixel halo).
+template <int BN>
+struct Tile {
+  static constexpr int kBN = BN, kWarpsN = BN / 32, kBM = kThreads / kWarpsN;
+  __host__ __device__ static constexpr int ld(int elt) { return kBN * elt + 16; }
+  __host__ __device__ static constexpr int bytes(int elt) { return kBM * ld(elt); }
+  static constexpr int kTW = 16, kTH = kBM / kTW, kPW = kTW + 2, kPatchRows = (kTH + 2) * kPW;
+  static constexpr int kPStageBytes = kPatchRows * kPLD + kBN * kBLD;
+  static constexpr int kPRingBytes = kPStages * kPStageBytes;
+  static_assert(kTH == 2 * (kThreads / 32 / kWarpsN), "a warp's two m16 tiles are two tile rows");
+};
+using Wide = Tile<64>;    // 128 pixels x 64 channels: every conv but the next
+using Narrow = Tile<32>;  // 256 pixels x 32 channels: the 3x3 kernel at Cout <= 32
+
+// The general kernel's tile and stages.
+constexpr int kBM = Wide::kBM, kBN = Wide::kBN, kWarpsN = Wide::kWarpsN;
 constexpr int kBK = 64;              // bytes of K per stage: kChunks 32-byte chunks
 constexpr int kChunks = kBK / 32;
 constexpr int kAChunks = kChunks / 2;  // A chunks a thread stages per stage (2 threads a row)
 constexpr int kBSegs = kBK / 64;       // B 16-byte segments a thread stages (4 threads a row)
 constexpr int kLDS = kBK + 16;       // padded shared row
-constexpr int kThreads = 256;
-constexpr int kWarpsN = 2;
-constexpr int kMT = 2, kNT = 4;      // m16 / n8 tiles per warp
 constexpr int kStages = 3;           // ring depth: kStages - 1 stages in flight
-constexpr int kPackBytes = 64;       // packed weight rows are multiples (ops/int8conv.py: K4_BK)
 constexpr int kStageBytes = (kBM + kBN) * kLDS;
 constexpr int kRingBytes = kStages * kStageBytes;
-
-// Shared bytes of a kBM x kBN tile of `elt`-byte values, rows padded by 16 bytes.
-__host__ __device__ constexpr int tile_ld(int elt) { return kBN * elt + 16; }
-__host__ __device__ constexpr int tile_bytes(int elt) { return kBM * tile_ld(elt); }
-__host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
 
 enum ResKind { kNoRes = 0, kComputeRes = 1, kInt8Res = 2 };
 
@@ -212,15 +238,142 @@ __device__ __forceinline__ int requant(float v, float inv) {
   return q < -127 ? -127 : (q > 127 ? 127 : q);
 }
 
+// The residual tile of a block: T::kBM rows (global row rowm(row), or -1 past the output) x
+// T::kBN channels from n0, staged into res_s by 16-byte cp.async when its rows are 16-byte
+// aligned (the caller commits the group), else by the epilogue byte by byte.
+template <typename CT, typename T, typename RowMap>
+__device__ __forceinline__ void stage_residual(const Params& p, unsigned char* res_s, int n0,
+                                               RowMap rowm) {
+  if (p.res_kind == kNoRes || !p.res_vec) return;
+  const int res_elt = p.res_kind == kInt8Res ? 1 : static_cast<int>(sizeof(CT));
+  const int res_ld = T::ld(res_elt), cpr = T::kBN * res_elt / 16;  // 16-byte chunks a row
+  const unsigned char* res = static_cast<const unsigned char*>(p.res);
+  for (int idx = threadIdx.x; idx < T::kBM * cpr; idx += kThreads) {
+    const int row = idx / cpr, ch = idx - row * cpr;
+    const long long mr = rowm(row);
+    const bool ok = mr >= 0 && (n0 + ch * 16 / res_elt) < p.cout;
+    const unsigned char* src = ok ? res + (static_cast<size_t>(mr) * p.cout + n0) * res_elt + ch * 16 : res;
+    cp_async16(smem_addr(res_s + row * res_ld + ch * 16), src, ok);
+  }
+}
+
+// The epilogue of a block's kBM x kBN tile, once every thread is past its main loop:
+// the operations of the note above on the accumulators, the results written as pairs
+// into an output tile at the start of shared memory (the ring is free by then), then
+// stored along Cout by 16 bytes (byte by byte where rows are not 16-byte aligned).
+template <typename CT, typename T, bool kInt8Out, typename RowMap>
+__device__ __forceinline__ void epilogue(const Params& p, const int (&acc)[kMT][kNT][4],
+                                         unsigned char* smem, unsigned char* res_s, int n0,
+                                         RowMap rowm) {
+  using R = Compute<CT>;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = warp / T::kWarpsN, wn = warp % T::kWarpsN;
+  constexpr int kOutElt = kInt8Out ? 1 : static_cast<int>(sizeof(CT));
+  const int res_elt = p.res_kind == kInt8Res ? 1 : static_cast<int>(sizeof(CT));
+  const int res_ld = T::ld(res_elt);
+  cp_async_wait_all();
+  __syncthreads();
+  if (p.res_kind != kNoRes && !p.res_vec) {
+    const unsigned char* res = static_cast<const unsigned char*>(p.res);
+    for (int idx = threadIdx.x; idx < T::kBM * T::kBN; idx += kThreads) {
+      const int row = idx / T::kBN, col = idx - row * T::kBN;
+      const long long mr = rowm(row);
+      if (mr < 0 || n0 + col >= p.cout) continue;
+      const unsigned char* src = res + (static_cast<size_t>(mr) * p.cout + n0 + col) * res_elt;
+      for (int b = 0; b < res_elt; ++b) res_s[row * res_ld + col * res_elt + b] = src[b];
+    }
+    __syncthreads();
+  }
+  unsigned char* const out_s = smem;
+  constexpr int kOutLd = T::ld(kOutElt);
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {
+    const int col = wn * 32 + j * 8 + 2 * t;  // this thread's two channels: col, col + 1
+    float sc[2], bi[2], bs[2], bb[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = min(n0 + col + e, p.cout - 1);  // past Cout: computed, never stored
+      sc[e] = __fmul_rn(p.w_scale[c], p.act_scale);
+      bi[e] = p.bias ? R::load(p.bias, c) : 0.f;
+      bs[e] = p.bn_s ? R::load(p.bn_s, c) : 0.f;
+      bb[e] = p.bn_s ? R::load(p.bn_b, c) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kMT; ++i) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = wm * 32 + i * 16 + g + half * 8;
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float y = R::round(__fmul_rn(__int2float_rn(acc[i][j][2 * half + e]), sc[e]));
+          if (p.bias) y = R::round(__fadd_rn(y, bi[e]));
+          if (p.bn_s) y = R::round(__fadd_rn(R::round(__fmul_rn(y, bs[e])), bb[e]));
+          if (p.res_kind == kComputeRes) {
+            y = R::round(__fadd_rn(y, R::load(res_s + row * res_ld, col + e)));
+          } else if (p.res_kind == kInt8Res) {
+            const int code = static_cast<int8_t>(res_s[row * res_ld + col + e]);
+            y = R::round(__fadd_rn(y, R::round(__fmul_rn(__int2float_rn(code), p.res_scale))));
+          }
+          if (p.relu && y < 0.f) y = 0.f;
+          v[e] = y;
+        }
+        unsigned char* o = out_s + row * kOutLd + col * kOutElt;
+        if constexpr (kInt8Out) {
+          const int q0 = requant(v[0], p.out_inv), q1 = requant(v[1], p.out_inv);
+          *reinterpret_cast<uint16_t*>(o) =
+              static_cast<uint16_t>((q0 & 0xff) | ((q1 & 0xff) << 8));
+        } else {
+          R::store2(o, v[0], v[1]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  unsigned char* const out = static_cast<unsigned char*>(p.out);
+  if (p.out_vec) {
+    constexpr int kCpr = T::kBN * kOutElt / 16;
+    for (int idx = threadIdx.x; idx < T::kBM * kCpr; idx += kThreads) {
+      const int row = idx / kCpr, ch = idx - row * kCpr;
+      const long long mr = rowm(row);
+      if (mr < 0 || n0 + ch * 16 / kOutElt >= p.cout) continue;
+      *reinterpret_cast<uint4*>(out + (static_cast<size_t>(mr) * p.cout + n0) * kOutElt + ch * 16) =
+          *reinterpret_cast<const uint4*>(out_s + row * kOutLd + ch * 16);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < T::kBM * T::kBN; idx += kThreads) {
+      const int row = idx / T::kBN, col = idx - row * T::kBN;
+      const long long mr = rowm(row);
+      if (mr < 0 || n0 + col >= p.cout) continue;
+      unsigned char* dst = out + (static_cast<size_t>(mr) * p.cout + n0 + col) * kOutElt;
+      for (int b = 0; b < kOutElt; ++b) dst[b] = out_s[row * kOutLd + col * kOutElt + b];
+    }
+  }
+}
+
+// Shared bytes of a launch: its ring, or the output tile where that is larger, and the
+// residual tile past them.
+template <typename CT, typename T, bool kInt8Out>
+__host__ __device__ constexpr int res_offset(int ring_bytes) {
+  return imax(ring_bytes, T::bytes(kInt8Out ? 1 : static_cast<int>(sizeof(CT))));
+}
+template <typename CT, typename T, bool kInt8Out>
+__host__ __device__ constexpr int smem_bytes(int ring_bytes, int res_kind) {
+  const int res = res_kind == kNoRes ? 0 : T::bytes(res_kind == kInt8Res ? 1 : static_cast<int>(sizeof(CT)));
+  return res_offset<CT, T, kInt8Out>(ring_bytes) + res;
+}
+
+// The general kernel: any taps, strides, pads, dilation and Cin.
 template <typename CT, bool kInt8Out, bool kVecCin>
 __global__ void __launch_bounds__(kThreads) int8_conv_kernel(const Params p) {
-  using R = Compute<CT>;
   extern __shared__ __align__(128) unsigned char smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int wm = warp / kWarpsN, wn = warp % kWarpsN;
   const long long m0 = static_cast<long long>(blockIdx.x) * kBM;
   const int n0 = blockIdx.y * kBN;
+  const auto rowm = [&](int row) -> long long { return m0 + row < p.m ? m0 + row : -1; };
 
   // This thread's A row (one output pixel) and the kAChunks 32-byte K chunks of a stage
   // it stages, from chunk a_half * kAChunks.
@@ -256,23 +409,8 @@ __global__ void __launch_bounds__(kThreads) int8_conv_kernel(const Params p) {
     cur.tw = rem - cur.th * p.kw;
   }
 
-  // The residual tile: (row, Cout) bytes of the block, in its own region past the output
-  // tile, staged with the first K stage's group when its rows are 16-byte aligned.
-  constexpr int kOutElt = kInt8Out ? 1 : static_cast<int>(sizeof(CT));
-  const int res_elt = p.res_kind == kInt8Res ? 1 : static_cast<int>(sizeof(CT));
-  unsigned char* const res_s = smem + imax(kRingBytes, tile_bytes(kOutElt));
-  const int res_ld = tile_ld(res_elt);
-  if (p.res_kind != kNoRes && p.res_vec) {
-    const int cpr = kBN * res_elt / 16;  // 16-byte chunks in a tile row
-    const unsigned char* res = static_cast<const unsigned char*>(p.res);
-    for (int idx = threadIdx.x; idx < kBM * cpr; idx += kThreads) {
-      const int row = idx / cpr, ch = idx - row * cpr;
-      const long long mr = m0 + row;
-      const bool ok = mr < p.m && (n0 + ch * 16 / res_elt) < p.cout;
-      const unsigned char* src = ok ? res + (static_cast<size_t>(mr) * p.cout + n0) * res_elt + ch * 16 : res;
-      cp_async16(smem_addr(res_s + row * res_ld + ch * 16), src, ok);
-    }
-  }
+  unsigned char* const res_s = smem + res_offset<CT, Wide, kInt8Out>(kRingBytes);
+  stage_residual<CT, Wide>(p, res_s, n0, rowm);
 
   // A: the 32 bytes of chunk q for row a_row into dst, zero where the chunk falls on
   // the padding, a dilation hole, past Cin or past K.
@@ -356,117 +494,156 @@ __global__ void __launch_bounds__(kThreads) int8_conv_kernel(const Params p) {
     }
   }
 
-  // Epilogue. The ring is free once every thread is past its last stage.
-  cp_async_wait_all();
-  __syncthreads();
-  if (p.res_kind != kNoRes && !p.res_vec) {
-    const unsigned char* res = static_cast<const unsigned char*>(p.res);
-    for (int idx = threadIdx.x; idx < kBM * kBN; idx += kThreads) {
-      const int row = idx / kBN, col = idx - row * kBN;
-      const long long mr = m0 + row;
-      if (mr >= p.m || n0 + col >= p.cout) continue;
-      const unsigned char* src = res + (static_cast<size_t>(mr) * p.cout + n0 + col) * res_elt;
-      for (int b = 0; b < res_elt; ++b) res_s[row * res_ld + col * res_elt + b] = src[b];
+  epilogue<CT, Wide, kInt8Out>(p, acc, smem, res_s, n0, rowm);
+}
+
+// The 3x3 kernel: kd = 1 and a 3 x 3 window, stride 1, no dilation, Cin a multiple of 16
+// (the unstrided 2D 3x3 convs of the UNet++ and the I3Res50's unstrided (1, 3, 3) ones,
+// each depth slice an image). A block owns a kTH x kTW tile of one image's output
+// pixels (kBM rows, masked past the image) x kBN channels; a stage holds one 32-byte Cin
+// chunk of the tile's input patch with its halo ((kTH + 2) x (kTW + 2) pixels) and of the
+// nine taps of the block's weight rows, so the nine taps read the patch from shared
+// memory instead of gathering their rows from L2 each.
+template <typename CT, typename T, bool kInt8Out>
+__global__ void __launch_bounds__(kThreads) int8_conv3x3_kernel(const Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = warp / T::kWarpsN, wn = warp % T::kWarpsN;
+  const int tiles_w = (p.ow + T::kTW - 1) / T::kTW, tiles_h = (p.oh + T::kTH - 1) / T::kTH;
+  int b = blockIdx.x;
+  const int ox0 = (b % tiles_w) * T::kTW;
+  b /= tiles_w;
+  const int oy0 = (b % tiles_h) * T::kTH;
+  const int image = b / tiles_h;  // (n, depth slice)
+  const int n0 = blockIdx.y * T::kBN;
+  const int8_t* const x_img = p.x + static_cast<size_t>(image) * p.h * p.w * p.cin;
+  const long long m_img = static_cast<long long>(image) * p.oh * p.ow;
+  const auto rowm = [&](int row) -> long long {
+    const int oy = oy0 + row / T::kTW, ox = ox0 + row % T::kTW;
+    return oy < p.oh && ox < p.ow ? m_img + static_cast<long long>(oy) * p.ow + ox : -1;
+  };
+  unsigned char* const res_s = smem + res_offset<CT, T, kInt8Out>(T::kPRingBytes);
+  stage_residual<CT, T>(p, res_s, n0, rowm);
+
+  // Stage s: Cin chunk s of the patch (zero past the image and past Cin) and of the
+  // nine taps of weight rows n0.. (zero past Cout; the packed rows are zero past Cin).
+  auto load = [&](int s) {
+    unsigned char* st = smem + (s % kPStages) * T::kPStageBytes;
+    const int c0 = s * 32;
+    for (int idx = threadIdx.x; idx < T::kPatchRows * 2; idx += kThreads) {
+      const int r = idx / 2, half = idx % 2;
+      const int py = r / T::kPW, px = r - py * T::kPW;
+      const int iy = oy0 - p.ph + py, ix = ox0 - p.pw + px;
+      const bool ok = iy >= 0 && iy < p.h && ix >= 0 && ix < p.w && c0 + half * 16 < p.cin;
+      const int8_t* src = ok ? x_img + (static_cast<size_t>(iy) * p.w + ix) * p.cin + c0 + half * 16 : p.x;
+      cp_async16(smem_addr(st + r * kPLD + half * 16), src, ok);
     }
-    __syncthreads();
+    unsigned char* bs = st + T::kPatchRows * kPLD;
+    for (int idx = threadIdx.x; idx < T::kBN * 18; idx += kThreads) {
+      const int row = idx / 18, seg = idx - row * 18;  // seg: tap * 2 + half
+      const bool ok = n0 + row < p.cout;
+      const int8_t* src = p.wt + static_cast<size_t>(ok ? n0 + row : 0) * p.kpad +
+                          ((seg / 2) * p.cin32 + s) * 32 + (seg % 2) * 16;
+      cp_async16(smem_addr(bs + row * kBLD + seg * 16), src, ok);
+    }
+  };
+
+  int acc[kMT][kNT][4];
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[i][j][k] = 0;
+
+  const int n_stages = p.cin32;
+#pragma unroll
+  for (int s = 0; s < kPStages - 1; ++s) {
+    if (s < n_stages) load(s);
+    cp_async_commit();
   }
-  unsigned char* const out_s = smem;
-  constexpr int kOutLd = tile_ld(kOutElt);
+  for (int s = 0; s < n_stages; ++s) {
+    cp_async_wait<kPStages - 2>();
+    __syncthreads();  // stage s landed for every thread; stage s - 1's readers are done
+    if (s + kPStages - 1 < n_stages) load(s + kPStages - 1);
+    cp_async_commit();
+    const unsigned char* st = smem + (s % kPStages) * T::kPStageBytes;
+    const unsigned char* bs = st + T::kPatchRows * kPLD;
 #pragma unroll
-  for (int j = 0; j < kNT; ++j) {
-    const int col = wn * 32 + j * 8 + 2 * t;  // this thread's two channels: col, col + 1
-    float sc[2], bi[2], bs[2], bb[2];
+    for (int tap = 0; tap < 9; ++tap) {
+      const int ty = tap / 3, tx = tap % 3;
+      uint32_t bf[kNT][2];
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int c = min(n0 + col + e, p.cout - 1);  // past Cout: computed, never stored
-      sc[e] = __fmul_rn(p.w_scale[c], p.act_scale);
-      bi[e] = p.bias ? R::load(p.bias, c) : 0.f;
-      bs[e] = p.bn_s ? R::load(p.bn_s, c) : 0.f;
-      bb[e] = p.bn_s ? R::load(p.bn_b, c) : 0.f;
-    }
+      for (int j = 0; j < kNT; ++j) {
+        const unsigned char* row = bs + (wn * 32 + j * 8 + g) * kBLD + tap * 32 + t * 4;
+        bf[j][0] = *reinterpret_cast<const uint32_t*>(row);
+        bf[j][1] = *reinterpret_cast<const uint32_t*>(row + 16);
+      }
 #pragma unroll
-    for (int i = 0; i < kMT; ++i) {
+      for (int i = 0; i < kMT; ++i) {
+        // m16 tile i is output row wm * 2 + i of the tile, its 16 pixels; lane rows g and
+        // g + 8 read patch row (that row + ty, pixel + tx).
+        const unsigned char* row = st + ((wm * 2 + i + ty) * T::kPW + tx + g) * kPLD + t * 4;
+        const uint32_t a[4] = {*reinterpret_cast<const uint32_t*>(row),
+                               *reinterpret_cast<const uint32_t*>(row + 8 * kPLD),
+                               *reinterpret_cast<const uint32_t*>(row + 16),
+                               *reinterpret_cast<const uint32_t*>(row + 8 * kPLD + 16)};
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = wm * 32 + i * 16 + g + half * 8;
-        float v[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float y = R::round(__fmul_rn(__int2float_rn(acc[i][j][2 * half + e]), sc[e]));
-          if (p.bias) y = R::round(__fadd_rn(y, bi[e]));
-          if (p.bn_s) y = R::round(__fadd_rn(R::round(__fmul_rn(y, bs[e])), bb[e]));
-          if (p.res_kind == kComputeRes) {
-            y = R::round(__fadd_rn(y, R::load(res_s + row * res_ld, col + e)));
-          } else if (p.res_kind == kInt8Res) {
-            const int code = static_cast<int8_t>(res_s[row * res_ld + col + e]);
-            y = R::round(__fadd_rn(y, R::round(__fmul_rn(__int2float_rn(code), p.res_scale))));
-          }
-          if (p.relu && y < 0.f) y = 0.f;
-          v[e] = y;
-        }
-        unsigned char* o = out_s + row * kOutLd + col * kOutElt;
-        if constexpr (kInt8Out) {
-          const int q0 = requant(v[0], p.out_inv), q1 = requant(v[1], p.out_inv);
-          *reinterpret_cast<uint16_t*>(o) =
-              static_cast<uint16_t>((q0 & 0xff) | ((q1 & 0xff) << 8));
-        } else {
-          R::store2(o, v[0], v[1]);
-        }
+        for (int j = 0; j < kNT; ++j) mma_s8(acc[i][j], a, bf[j][0], bf[j][1]);
       }
     }
   }
-  __syncthreads();
-  unsigned char* const out = static_cast<unsigned char*>(p.out);
-  if (p.out_vec) {
-    constexpr int kCpr = kBN * kOutElt / 16;
-    for (int idx = threadIdx.x; idx < kBM * kCpr; idx += kThreads) {
-      const int row = idx / kCpr, ch = idx - row * kCpr;
-      const long long mr = m0 + row;
-      if (mr >= p.m || n0 + ch * 16 / kOutElt >= p.cout) continue;
-      *reinterpret_cast<uint4*>(out + (static_cast<size_t>(mr) * p.cout + n0) * kOutElt + ch * 16) =
-          *reinterpret_cast<const uint4*>(out_s + row * kOutLd + ch * 16);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < kBM * kBN; idx += kThreads) {
-      const int row = idx / kBN, col = idx - row * kBN;
-      const long long mr = m0 + row;
-      if (mr >= p.m || n0 + col >= p.cout) continue;
-      unsigned char* dst = out + (static_cast<size_t>(mr) * p.cout + n0 + col) * kOutElt;
-      for (int b = 0; b < kOutElt; ++b) dst[b] = out_s[row * kOutLd + col * kOutElt + b];
-    }
-  }
+  epilogue<CT, T, kInt8Out>(p, acc, smem, res_s, n0, rowm);
 }
 
-// Shared bytes a launch needs: the ring, or the output tile after it, and the residual
-// tile past them.
-template <typename CT, bool kInt8Out>
-constexpr int smem_bytes(int res_kind) {
-  const int out_elt = kInt8Out ? 1 : static_cast<int>(sizeof(CT));
-  const int res = res_kind == kNoRes ? 0 : tile_bytes(res_kind == kInt8Res ? 1 : static_cast<int>(sizeof(CT)));
-  return imax(kRingBytes, tile_bytes(out_elt)) + res;
+// One launch: above 48 KB a block's dynamic shared memory must be allowed first, once
+// per kernel, for the most any launch of it asks (its ring and the largest residual).
+template <typename CT, typename T, bool kInt8Out, typename Kernel>
+int launch_kernel(Kernel kernel, bool& allowed, int ring_bytes, dim3 grid, const Params& p,
+                  cudaStream_t stream) {
+  if (!allowed) {
+    const int most = imax(smem_bytes<CT, T, kInt8Out>(ring_bytes, kComputeRes),
+                          smem_bytes<CT, T, kInt8Out>(ring_bytes, kInt8Res));
+    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    allowed = true;
+  }
+  const int smem = smem_bytes<CT, T, kInt8Out>(ring_bytes, p.res_kind);
+  kernel<<<grid, kThreads, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename CT, typename T, bool kInt8Out>
+int launch3x3(const Params& p, cudaStream_t stream) {
+  static bool allowed = false;
+  const long long tiles = static_cast<long long>(p.n) * p.od * ((p.oh + T::kTH - 1) / T::kTH) *
+                          ((p.ow + T::kTW - 1) / T::kTW);
+  const unsigned n_tiles = (p.cout + T::kBN - 1) / T::kBN;
+  if (tiles > 2147483647LL || n_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_kernel<CT, T, kInt8Out>(int8_conv3x3_kernel<CT, T, kInt8Out>, allowed,
+                                        T::kPRingBytes, dim3(static_cast<unsigned>(tiles), n_tiles),
+                                        p, stream);
 }
 
 template <typename CT, bool kInt8Out>
 int launch(const Params& p, cudaStream_t stream) {
-  auto kernel = p.cin % 16 == 0 ? int8_conv_kernel<CT, kInt8Out, true>
-                                : int8_conv_kernel<CT, kInt8Out, false>;
-  const int smem = smem_bytes<CT, kInt8Out>(p.res_kind);
-  // Above 48 KB a block's dynamic shared memory must be allowed first (once per kernel:
-  // the largest any residual kind asks for).
+  const bool three_by_three = p.kd == 1 && p.kh == 3 && p.kw == 3 && p.sd == 1 && p.sh == 1 &&
+                              p.sw == 1 && p.pd == 0 && p.od == p.d && p.dd == 1 && p.dh == 1 &&
+                              p.dw == 1 && p.cin % 16 == 0;
+  if (three_by_three)
+    return p.cout <= Narrow::kBN ? launch3x3<CT, Narrow, kInt8Out>(p, stream)
+                                 : launch3x3<CT, Wide, kInt8Out>(p, stream);
   static bool allowed[2] = {false, false};
-  bool& done = allowed[p.cin % 16 == 0];
-  if (!done) {
-    const int most = imax(smem_bytes<CT, kInt8Out>(kComputeRes), smem_bytes<CT, kInt8Out>(kInt8Res));
-    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    done = true;
-  }
+  const unsigned n_tiles = (p.cout + kBN - 1) / kBN;
   const long long m_tiles = (p.m + kBM - 1) / kBM;
-  if (m_tiles > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(m_tiles), (p.cout + kBN - 1) / kBN);
-  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  kernel<<<grid, kThreads, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  if (m_tiles > 2147483647LL || n_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(m_tiles), n_tiles);
+  if (p.cin % 16 == 0)
+    return launch_kernel<CT, Wide, kInt8Out>(int8_conv_kernel<CT, kInt8Out, true>, allowed[1],
+                                             kRingBytes, grid, p, stream);
+  return launch_kernel<CT, Wide, kInt8Out>(int8_conv_kernel<CT, kInt8Out, false>, allowed[0],
+                                           kRingBytes, grid, p, stream);
 }
 
 }  // namespace

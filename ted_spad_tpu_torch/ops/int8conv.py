@@ -42,7 +42,7 @@ from typing import NamedTuple, Sequence
 import torch
 import torch.nn.functional as F
 
-K4_BK = 64  # bytes of K per stage (csrc/int8conv.cu: kBK); packed rows are multiples
+K4_BK = 64  # packed weight rows are multiples of this many bytes (csrc/int8conv.cu: kPackBytes)
 
 
 class Int8Weight(NamedTuple):

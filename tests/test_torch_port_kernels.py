@@ -218,6 +218,7 @@ def test_int8_conv_kernel_is_bit_equal_to_plain_version(cuda_device, xs, ws, str
     ((2, 28, 28, 64), (3, 3, 64, 64), (1, 1), ((1, 1), (1, 1))),
     ((2, 13, 17, 48), (3, 3, 48, 5), (1, 1), ((1, 1), (1, 1))),
     ((2, 4, 15, 15, 128), (1, 3, 3, 128, 72), (1, 2, 2), ((0, 0), (1, 1), (1, 1))),
+    ((2, 3, 13, 19, 64), (1, 3, 3, 64, 72), (1, 1, 1), ((0, 0), (1, 1), (1, 1))),
 ])
 def test_int8_conv_kernel_epilogue_is_bit_equal_to_plain_version(cuda_device, form, xs, ws,
                                                                   strides, pads):
