@@ -286,26 +286,13 @@ def check_double_conv(device, registers: dict) -> dict:
 def profile_step(fn, steps: int) -> None:
     """Device time by kernel over ``steps`` calls (torch.profiler), and the device's
     busy share of the window's host wall time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    from ted_spad_tpu_torch.chip_probes import device_profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    # Device-side events only (kernels, copies): a CPU op's device time repeats its kernels'.
-    kernels = [(e.key, e.self_device_time_total) for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    total = sum(t for _, t in kernels)
-    log(f"[profile] {steps} steps: device time {total / steps / 1e3:.3f} ms/step, busy "
-        f"{total / wall_us:.3f} of the host window ({wall_us / steps / 1e3:.3f} ms/step, "
-        f"profiler on)")
-    for name, t in sorted(kernels, key=lambda kv: -kv[1])[:12]:
-        log(f"[profile]   {t / steps / 1e3:8.3f} ms/step {t / total:6.3f}  {name[:90]}")
+    prof = device_profile(fn, steps)
+    log(f"[profile] {steps} steps: device time {prof['device_ms']:.3f} ms/step, busy "
+        f"{prof['busy']:.3f} of the host window ({prof['wall_ms']:.3f} ms/step, profiler on)")
+    for name, ms in prof["kernels"][:12]:
+        log(f"[profile]   {ms:8.3f} ms/step {ms / prof['device_ms']:6.3f}  {name[:90]}")
 
 
 def _kernel_wrappers() -> dict:

@@ -116,11 +116,16 @@ def _geometry(x_shape, taps, strides, padding, lhs_dilation):
     return (tuple(x_shape), tuple(taps), strides, pads, dil, (n, *out))
 
 
+def _out_shape(x_ndim: int, out5: tuple, cout: int) -> tuple:
+    """The 5D output size of ``_geometry`` as the conv's (N, [Do,] Ho, Wo, Cout)."""
+    return out5[:1] + (out5[1:] if x_ndim == 5 else out5[2:]) + (cout,)
+
+
 def conv_out_shape(x_shape, kernel_shape, *, strides=None, padding, lhs_dilation=None) -> tuple:
     """(N, [Do,] Ho, Wo, Cout) of a conv of an (N, [D,] H, W, Cin) input with a
     ([KD,] KH, KW, Cin, Cout) kernel."""
     out5 = _geometry(x_shape, tuple(kernel_shape[:-2]), strides, padding, lhs_dilation)[-1]
-    return out5[:1] + (out5[1:] if len(x_shape) == 5 else out5[2:]) + (kernel_shape[-1],)
+    return _out_shape(len(x_shape), out5, kernel_shape[-1])
 
 
 def int8_conv_int32(x: torch.Tensor, codes: torch.Tensor, *, strides=None, padding,
@@ -271,8 +276,7 @@ def int8_conv(x: torch.Tensor, weight: Int8Weight, act_scale: float, *,
     cin, cout = weight.codes.shape[-2:]
     if x.shape[-1] != cin:
         raise ValueError(f"int8_conv: input has {x.shape[-1]} channels, the kernel {cin}")
-    out_shape = conv_out_shape(x.shape, weight.codes.shape, strides=strides, padding=padding,
-                               lhs_dilation=lhs_dilation)
+    out_shape = _out_shape(x.dim(), out5, cout)
     ep = epilogue or Epilogue()
     plain = x.device.type == "cpu" or (x.device.type == "cuda" and not use_kernel)
     _check_epilogue(ep, out_shape, out_dtype, x.device, contiguous=not plain)
