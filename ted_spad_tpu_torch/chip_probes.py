@@ -4,6 +4,7 @@ numbers PERF.md quotes from them can be taken again:
     python -m ted_spad_tpu_torch.chip_probes k1     # kernel K1 alone
     python -m ted_spad_tpu_torch.chip_probes k2     # kernel K2 alone
     python -m ted_spad_tpu_torch.chip_probes k3     # kernel K3 (YUV420 preprocess) alone
+    python -m ted_spad_tpu_torch.chip_probes k3ab DIR...   # K3 of copies of the package, in turns
     python -m ted_spad_tpu_torch.chip_probes k4     # kernel K4 (int8 conv) alone
     python -m ted_spad_tpu_torch.chip_probes k4class   # K4 at the serving 2D 3x3 convs, timed only
     python -m ted_spad_tpu_torch.chip_probes int8ab PARENT   # int8 step: PARENT vs this tree
@@ -22,10 +23,18 @@ at the plain UNet's nine DoubleConv shapes with two frames and at one ragged sha
 bf16 tile class, in f32 and bf16, then times the kernel alone at 256 frames (CUDA
 events), with each shape's tile class.
 
-``k3``: builds K3, prints its registers, holds it against its plain version (float32
-matmuls, TF32 off) at K3_CASES in f32 and bf16 and checks its refusal of a
-chroma-misaligned window, then times it at the serving batch and at K3_FRAME_SIZES beside
-its byte bound, the plain version and the per-plane F.interpolate yardstick.
+``k3``: builds K3 and prints each instantiation's registers and spills beside the blocks
+per SM its plans count on (failing on a spill or a shortfall), holds it against its plain
+version (float32 matmuls, TF32 off) at K3_CASES in f32 and bf16 and checks its refusal
+of a chroma-misaligned window, then times it at the serving batch and at K3_FRAME_SIZES
+beside its byte bound, the plain version and the per-plane F.interpolate yardstick.
+
+``k3ab DIR [DIR ...]``: K3 of each copy of the package (e.g. the parent commit's
+``ted_spad_tpu_torch`` from ``git archive`` and stages of a change, unpacked under
+``build/``) in the order given, parent / change / change / parent, each turn a process
+of its own: registers, the check at K3_CASES (``DIR:timing`` skips it, for diagnostic
+forms), event and device-only times at the serving batch and K3_FRAME_SIZES beside the
+byte bound.
 
 ``k4``: builds K4, prints its registers, holds it bit for bit against its plain version
 (float64 convolutions of the codes, exact, then the epilogue's torch ops) at K4_CASES
@@ -634,17 +643,27 @@ def mgfn(device) -> None:
 
 # K3 against its plain version: (name, (clips, frames, H, W), rows carry the tag byte,
 # byte offset of the batch in its buffer). The serving batch with rows mixing all four
-# colour sets; rows without a tag; ShanghaiTech's native frame (runtime taps); the
-# serving batch at an odd base address (every row unaligned); a small frame.
+# colour sets; rows without a tag; the serving batch at an odd base address (every row
+# unaligned); a small frame; then each frame that takes another instantiation, tagged
+# and untagged, at odd base addresses: ShanghaiTech's native 480x856 and 360x640
+# (<4, 32, 2, 16>), 720p and 1080p (<8, 64, 4, 32>); a 10x downscale past every
+# compile-time instantiation (the runtime-taps kernel).
 K3_CASES = (
     ("serving, four colour sets", (16, 16, 240, 320), True, 0),
     ("serving, untagged rows", (2, 16, 240, 320), False, 0),
     ("480x856", (2, 8, 480, 856), True, 0),
     ("serving at base + 1 B", (2, 16, 240, 320), True, 1),
     ("40x80", (2, 3, 40, 80), True, 0),
+    ("480x856 at base + 3 B, untagged", (2, 4, 480, 856), False, 3),
+    ("360x640 at base + 1 B", (4, 2, 360, 640), True, 1),
+    ("720x1280 at base + 5 B", (4, 1, 720, 1280), True, 5),
+    ("1080x1920 at base + 1 B", (4, 1, 1080, 1920), True, 1),
+    ("1080x1920 at base + 7 B, untagged", (1, 2, 1080, 1920), False, 7),
+    ("runtime taps, 2240x2240 at base + 1 B", (1, 2, 2240, 2240), True, 1),
 )
 K3_MISALIGNED = (1, 2, 50, 70)  # 0.8 of 50 rows starts at row 5: refused
-K3_FRAME_SIZES = ((16, 16, 480, 856),)
+# K3 timed beside the serving batch: the frames of the other instantiations, bf16 out.
+K3_FRAME_SIZES = ((16, 16, 480, 856), (16, 16, 360, 640), (4, 16, 720, 1280), (4, 16, 1080, 1920))
 # F.interpolate's own filter arithmetic on 0..255 planes, through the colour matrix.
 K3_INTERPOLATE_TOL = 5e-4
 
@@ -884,17 +903,131 @@ def k3_timing(device, log=print, shape=K3_CASES[0][1]) -> dict:
     }
 
 
+def k3_register_report(nvcc_out: str, log=print, strict: bool = True) -> dict[str, dict[str, int]]:
+    """Each K3 instantiation's registers and spill bytes from nvcc's ptxas report,
+    logged and keyed "bf16 K3<KY, SPAN, KYC, SPANC>" (``k3_plan(...).kernel`` with the
+    output type), each beside the blocks per SM that the plans taking it count on;
+    ``strict``: raises if one spills or needs more registers than those blocks allow."""
+    from ted_spad_tpu_torch.ops import yuv
+    from ted_spad_tpu_torch.ops.preprocess import REGISTERS_PER_SM
+    from ted_spad_tpu_torch.utils import cuda_build
+
+    # (an older package, timed by k3ab, may state no blocks per SM)
+    blocks = {"K3<{}, {}, {}, {}>".format(*t[:4]): t[4] for t in yuv.K3_TAPS if len(t) == 5}
+    blocks["K3<runtime>"] = getattr(yuv, "K3_BLOCKS_PER_SM", None)
+    report = {}
+    for name, r in cuda_build.ptxas_report(nvcc_out).items():
+        m = re.search(r"preprocess_yuv_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", name)
+        if not m:
+            continue
+        taps = m.group(2, 3, 4, 5)
+        kernel = "K3<runtime>" if taps[0] == "0" else f"K3<{', '.join(taps)}>"
+        label = f"{'f32' if m.group(1) == 'f' else 'bf16'} {kernel}"
+        report[label] = r
+        n = blocks.get(kernel)
+        log(f"[K3 build] {label}: {r['registers']} registers, spill stores {r['spill_stores']} B, "
+            f"spill loads {r['spill_loads']} B; the plan counts on {n or 'no stated number of'} "
+            f"blocks per SM")
+        if strict and (r["spill_stores"] or r["spill_loads"]):
+            raise AssertionError(f"K3 {label} spills registers: {r}")
+        if strict and n and n * 256 * (-(-r["registers"] // 8) * 8) > REGISTERS_PER_SM:
+            raise AssertionError(f"K3 {label} needs {r['registers']} registers: the {n} blocks "
+                                 f"per SM its plans count on do not fit")
+    return report
+
+
+def k3_time(device, shape) -> tuple[float, float, object]:
+    """K3 alone at ``shape`` (tagged rows, bf16 out): (event ms, device-only ms, plan)."""
+    from ted_spad_tpu_torch.ops import yuv
+
+    rows = yuv_rows(device, shape, True, seed=99)
+    hw = shape[2:]
+    ms = time_ms(lambda: yuv.fused_preprocess_yuv(rows, hw))
+    device_ms = time_ms(lambda: yuv.fused_preprocess_yuv(rows, hw), queued=True)
+    return ms, device_ms, yuv.k3_plan(*hw)
+
+
 def k3(device) -> None:
     from ted_spad_tpu_torch.utils import cuda_build
 
     seconds, nvcc_out = cuda_build.build("preprocess_yuv")
-    for name, r in cuda_build.ptxas_report(nvcc_out).items():
-        print(f"[K3 build] {name}: {r}", flush=True)
+    k3_register_report(nvcc_out)
     print(f"build {seconds:.2f}s", flush=True)
     print(f"worst max abs error {k3_check(device):.3e}", flush=True)
     k3_timing(device)
     for shape in K3_FRAME_SIZES:
         k3_timing(device, shape=shape)
+
+
+def k3_turn(device, mode: str = "check") -> None:
+    """One turn of ``k3ab``, under whichever package the import path finds: K3's build
+    report, its check at K3_CASES (not in ``mode`` "timing", for diagnostic forms that
+    compute something else), its event and device-only times at the serving batch and at
+    K3_FRAME_SIZES; the readings as one JSON line."""
+    import json
+
+    from ted_spad_tpu_torch.utils import cuda_build
+
+    registers = k3_register_report(cuda_build.build("preprocess_yuv")[1], log=lambda m: None,
+                                   strict=False)
+    worst = k3_check(device, log=lambda m: None) if mode == "check" else float("nan")
+    times = {}
+    for shape in (K3_CASES[0][1],) + K3_FRAME_SIZES:
+        ms, device_ms, plan = k3_time(device, shape)
+        bound = k3_bound(shape, out_bytes=2)[0] / HBM_BYTES_PER_S * 1e3
+        times["x".join(map(str, shape[2:]))] = dict(
+            ms=ms, device_only_ms=device_ms, bound_ms=bound, kernel=plan.kernel,
+            band_rows=plan.band_rows, smem_bytes=plan.smem_bytes)
+    print(json.dumps({"worst_err": worst, "registers": registers, "times": times}), flush=True)
+
+
+def k3ab(device, *trees: str) -> None:
+    """K3 from several copies of the package (e.g. the parent's from git archive and
+    stages of a change, each unpacked under ``build/``), one turn each in the order
+    given (parent, change, change, parent), each turn a process of its own under that
+    copy's package and kernel: the copies' kernels are built first, in parallel; each
+    turn checks K3 at K3_CASES and times it at the serving batch and K3_FRAME_SIZES. A
+    copy given as ``DIR:timing`` (a diagnostic form) is timed without the check."""
+    import json
+    import os
+    import subprocess
+
+    modes = ["timing" if t.endswith(":timing") else "check" for t in trees]
+    roots = [os.path.abspath(t.removesuffix(":timing")) for t in trees]
+    code = "from ted_spad_tpu_torch.utils.cuda_build import build; build('preprocess_yuv')"
+    builds = {r: subprocess.Popen([sys.executable, "-c", code], cwd=r,
+                                  env={**os.environ, "PYTHONPATH": r}, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+              for r in dict.fromkeys(roots)}
+    failed = set()
+    for r, proc in builds.items():
+        out = proc.communicate(timeout=600)[0]
+        if proc.returncode != 0:
+            print(f"[k3ab] the build under {r} failed:\n{out[-3000:]}", flush=True)
+            failed.add(r)
+    turn = ("import runpy, sys; sys.argv = ['chip_probes', 'k3turn', sys.argv[1]]; "
+            f"runpy.run_path({os.path.abspath(__file__)!r}, run_name='__main__')")
+    for i, root in enumerate(roots):
+        if root in failed:
+            continue
+        proc = subprocess.run([sys.executable, "-c", turn, modes[i]], cwd=root,
+                              env={**os.environ, "PYTHONPATH": root}, capture_output=True,
+                              text=True, timeout=900)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith('{"worst_err"')]
+        if proc.returncode != 0 or not lines:
+            print(f"[k3ab] turn {i} {trees[i]} failed (exit {proc.returncode}):\n"
+                  f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}", flush=True)
+            continue
+        reading = json.loads(lines[-1])
+        regs = ", ".join(f"{k} {v['registers']}" + (f" (spills {v['spill_stores']} / {v['spill_loads']} B)"
+                                                     if v["spill_stores"] or v["spill_loads"] else "")
+                         for k, v in reading["registers"].items())
+        print(f"[k3ab] turn {i} {trees[i]}: worst error {reading['worst_err']:.3e}; registers {regs}",
+              flush=True)
+        for frame, t in reading["times"].items():
+            print(f"[k3ab]     {frame:>9}: {t['ms']:.4f} ms (device only {t['device_only_ms']:.4f}), bound "
+                  f"{t['bound_ms']:.4f} ({t['device_only_ms'] / t['bound_ms']:.2f}x); {t['kernel']}, "
+                  f"{t['band_rows']} rows, {t['smem_bytes']} B", flush=True)
 
 
 def k4_operands(device, x_shape, w_shape, seed: int = 0):
@@ -1349,9 +1482,11 @@ def main() -> int:
     import torch
 
     probes = {"k1": k1, "k2": k2, "k3": k3, "k4": k4, "k4class": k4class, "gain": gain, "mgfn": mgfn,
-              "int8ab": int8ab, "int8step": int8_step_turn}
-    takes_arg = ("int8ab", "int8step")
-    if len(sys.argv) < 2 or sys.argv[1] not in probes or len(sys.argv) != 2 + (sys.argv[1] in takes_arg):
+              "int8ab": int8ab, "int8step": int8_step_turn, "k3ab": k3ab, "k3turn": k3_turn}
+    takes_arg = ("int8ab", "int8step", "k3turn")
+    n_args = len(sys.argv) - 2
+    if (len(sys.argv) < 2 or sys.argv[1] not in probes
+            or (n_args < 1 if sys.argv[1] == "k3ab" else n_args != (sys.argv[1] in takes_arg))):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():

@@ -164,6 +164,13 @@ def _yuv_rows(device, b, t, h, w, tagged, offset=0, seed=0):
     ((2, 8, 480, 856), True, 0),     # runtime taps
     ((2, 4, 240, 320), True, 1),     # every row unaligned
     ((2, 3, 40, 80), True, 0),
+    ((2, 4, 480, 856), True, 3),     # <4, 32, 2, 16>, unaligned
+    ((2, 4, 480, 856), False, 1),
+    ((4, 2, 360, 640), True, 1),     # <4, 32, 2, 16> at 360x640
+    ((4, 1, 720, 1280), True, 5),    # 720p
+    ((1, 2, 1080, 1920), False, 7),  # 1080p, untagged
+    ((1, 2, 1080, 1920), True, 1),
+    ((1, 2, 2240, 2240), True, 1),   # past every compile-time instantiation
 ])
 def test_yuv_preprocess_kernel_matches_plain_version(cuda_device, shape, tagged, offset):
     b, t, h, w = shape

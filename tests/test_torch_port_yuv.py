@@ -5,9 +5,10 @@ the extraction stage's ``decode_mode="yuv"`` against ``ted_spad_tpu.ops.yuv``,
 CPU in float32.
 
 Tolerances: the plain preprocess within 1e-5 of max|out| (float32 matmul order); the
-packed rows byte-equal; a numpy emulation of K3 from its plan (tables, staged rows,
-vertical then horizontal passes) within 1e-5 of max|plain| over a grid of frame sizes;
-the extracted features within 1e-4 of max|feat|."""
+packed rows byte-equal; a numpy emulation of K3 from its plan (the table words as the
+kernel reads them, staged rows at an odd base address, vertical then horizontal passes,
+the colour transform with the /255 folded in) within 1e-5 of max|plain| and of JAX's
+output over a grid of frame sizes; the extracted features within 1e-4 of max|feat|."""
 
 import os
 import re
@@ -131,77 +132,165 @@ def test_packed_rows_match_jax_on_native_reads(tmp_path):
 
 
 def test_kernel_table_mirror():
-    """ops/yuv.py's K3_TAPS is csrc/preprocess_yuv.cu's K3_CASE table."""
+    """ops/yuv.py's K3_TAPS is csrc/preprocess_yuv.cu's K3_CASE table, entry for entry and
+    in order, each with the blocks per SM its plans count on."""
     with open(os.path.join(ROOT, "ted_spad_tpu_torch", "csrc", "preprocess_yuv.cu")) as f:
         src = f.read()
-    table = re.findall(r"^\s*K3_CASE\((\d+), (\d+), (\d+), (\d+)\)", src, flags=re.M)
-    assert tuple(tuple(int(v) for v in t) for t in table) == yuv.K3_TAPS
+    table = re.findall(r"K3_CASE\((\d+), (\d+), (\d+), (\d+)\)", src)
+    assert tuple(tuple(int(v) for v in t) for t in table) == tuple(t[:4] for t in yuv.K3_TAPS)
+    assert all(t[4] in (1, yuv.K3_BLOCKS_PER_SM) for t in yuv.K3_TAPS)
 
 
-def emulate_k3(rows: np.ndarray, hw, out_h: int, out_w: int, cf: float) -> np.ndarray:
-    """K3 in numpy from its plan, as the kernel reads its tables: per block (frame, band)
-    the band's staged rows of each plane (window columns from col0), per run of 8 outputs
-    the vertical pass over KY staged rows for each of the SPAN columns (rows past the
-    plane read as 0: their weights are 0), the horizontal pass through the run's dense
-    tile, then the colour set of the clip's first-frame tag, /255 and the clip."""
+def emulate_k3(rows: np.ndarray, hw, out_h: int, out_w: int, cf: float, base: int = 0) -> np.ndarray:
+    """K3 in numpy from its plan, as csrc/preprocess_yuv.cu reads its table words: per
+    block (frame, band) the band's segment (vstart, vw) and the shared one (xs, wrun);
+    each plane's staged rows as the 16-byte-aligned supersets of their window bytes for a
+    batch at byte address ``base`` (bytes outside the batch read as 0); per run of 8
+    outputs and row k the byte offset rr * pitch + (source address & 15) + x of its
+    staged row, 4 bytes at a time (two words and a shift: the same bytes), summed over
+    the KY rows then through the run's dense tile; the colour set of the clip's
+    first-frame tag with the /255 folded into its float32 coefficients, and the clip."""
     h, w = hw
     plan = yuv.k3_plan(h, w, out_h, out_w, cf)
+    words, (xs_l, wrun_l, xs_c, wrun_c, vs_l, vw_l, vs_c, vw_c) = yuv._table_words(plan)
+    ints = words.view(np.int32)
     b, t, length = rows.shape
-    tagged = length == yuv.packed_row_bytes(h, w) + 1
-    out = np.zeros((b, t, out_h, out_w, 3), np.float32)
-    planes = {0: (0, h, w), 1: (h * w, h // 2, w // 2), 2: (h * w + (h // 2) * (w // 2), h // 2, w // 2)}
-    for bi in range(b):
-        set_ = 0
-        if tagged:
-            tag = int(rows[bi, 0, -1])
-            set_ = (tag & 1) + 2 * ((tag >> 1) & 1)
-        c = yuv.COLOR_SETS[set_]
-        for ti in range(t):
-            row = rows[bi, ti]
-            res = {}
-            for q, (off, ph, pw) in planes.items():
-                pl = plan.luma if q == 0 else plan.chroma
-                img = row[off : off + ph * pw].reshape(ph, pw).astype(np.float32)
-                acc = np.zeros((out_h, plan.runs * 8), np.float32)
-                for band0 in range(0, out_h, plan.band_rows):
-                    r0 = int(pl.vstart[band0])
-                    staged = np.zeros((plan.rows_buf[0 if q == 0 else 1], pl.pitch), np.float32)
-                    n_in = min(int(pl.vstart[min(band0 + plan.band_rows, out_h) - 1]) + pl.ky, ph) - r0
-                    cols = min(pl.pitch, pw - pl.col0)
-                    staged[:n_in, :cols] = img[r0 : r0 + n_in, pl.col0 : pl.col0 + cols]
-                    for oy in range(band0, min(band0 + plan.band_rows, out_h)):
-                        vs = int(pl.vstart[oy]) - r0
-                        for run in range(plan.runs):
-                            x = int(pl.xs[run])
-                            vert = (pl.vw[oy][:, None] * staged[vs : vs + pl.ky, x : x + pl.span]).sum(0)
-                            acc[oy, run * 8 : run * 8 + 8] = vert @ pl.wrun[run]
-                res[q] = acc[:, :out_w]
+    flat = rows.reshape(-1)
+    tagged = yuv.has_tag_byte(length, hw)
+    sets = [{k: np.float32(v) if k == "y_off" else np.float32(v) / np.float32(255) for k, v in c.items()}
+            for c in yuv.COLOR_SETS]
+    planes = [(0, h, w, plan.luma, xs_l, wrun_l, vs_l, vw_l, plan.rows_buf[0])] + [
+        (h * w + q * (h // 2) * (w // 2), h // 2, w // 2, plan.chroma, xs_c, wrun_c, vs_c, vw_c,
+         plan.rows_buf[1]) for q in (0, 1)]
+    out = np.zeros((b * t, out_h, out_w, 3), np.float32)
+    for f in range(b * t):
+        c = sets[(lambda tag: (tag & 1) + 2 * ((tag >> 1) & 1))(int(rows[f // t, 0, -1])) if tagged else 0]
+        for band in range(plan.n_bands):
+            oy0 = band * plan.band_rows
+            n_out = min(plan.band_rows, out_h - oy0)
+            seg = plan.shared_words + band * plan.band_words
+            res = []
+            for off, ph, pw, pl, xs_o, wrun_o, vs_o, vw_o, rows_buf in planes:
+                vstart = ints[seg + vs_o : seg + vs_o + n_out]
+                vw = words[seg + vw_o : seg + vw_o + n_out * pl.ky].reshape(n_out, pl.ky)
+                xs = ints[xs_o : xs_o + plan.runs]
+                stride = pl.span * 8 + yuv.K3_TILE_PAD
+                wrun = words[wrun_o : wrun_o + plan.runs * stride].reshape(plan.runs, stride)
+                wrun = wrun[:, : pl.span * 8].reshape(plan.runs, pl.span, 8)
+                r0 = int(vstart[0])
+                n_in = min(int(vstart[-1]) + pl.ky, ph) - r0
+                first = base + f * length + off + r0 * pw + pl.col0
+                staged = np.zeros((rows_buf, pl.pitch), np.uint8)
+                chunks = (15 + pl.n_cols + 15) // 16
+                for r in range(n_in):
+                    a0 = (first + r * pw) & ~15
+                    src = np.arange(a0, a0 + 16 * chunks) - base
+                    inside = (src >= 0) & (src < flat.size)
+                    staged[r, : 16 * chunks] = np.where(inside, flat[np.clip(src, 0, flat.size - 1)], 0)
+                rr = (vstart - r0)[:, None] + np.arange(pl.ky)  # (n_out, ky)
+                start = rr * pl.pitch + ((first + rr * pw) & 15)
+                idx = start[:, None, :, None] + xs[None, :, None, None] + np.arange(pl.span)
+                vals = staged.reshape(-1)[idx].astype(np.float32)  # (n_out, runs, ky, span)
+                vert = np.einsum("ok,orks->ors", vw, vals)
+                res.append(np.einsum("ors,rsq->orq", vert, wrun).reshape(n_out, -1)[:, :out_w])
             yy = c["ky"] * (res[0] - c["y_off"])
-            uf, vf = res[1] - 128.0, res[2] - 128.0
-            rgb = np.stack([yy + c["rv"] * vf, yy + c["gu"] * uf + c["gv"] * vf, yy + c["bu"] * uf], -1)
-            out[bi, ti] = np.clip(rgb / 255.0, 0.0, 1.0)
-    return out
+            uf, vf = res[1] - np.float32(128), res[2] - np.float32(128)
+            rgb = np.stack([yy + c["rv"] * vf, (yy + c["gu"] * uf) + c["gv"] * vf, yy + c["bu"] * uf], -1)
+            out[f, oy0 : oy0 + n_out] = np.clip(rgb, 0.0, 1.0)
+    return out.reshape(b, t, out_h, out_w, 3)
 
 
 @pytest.mark.parametrize("hw,out,cf", [
     ((240, 320), (224, 224), 0.8),   # the serving frame: K3<2, 12, 2, 8>
     ((40, 80), (32, 32), 0.8),       # the CLIs' synthetic frame
-    ((480, 856), (224, 224), 0.8),   # ShanghaiTech's native frame: runtime taps
+    ((480, 856), (224, 224), 0.8),   # ShanghaiTech's native frame
     ((64, 96), (56, 40), 0.75),      # ragged output runs
     ((120, 160), (24, 24), 0.8),     # a 5x downscale: long runs
+    ((360, 640), (224, 224), 0.8),
+    ((720, 1280), (224, 224), 0.8),
+    ((1080, 1920), (224, 224), 0.8),
 ])
 def test_k3_plan_emulation_matches_plain(hw, out, cf):
+    """The emulation against the plain version and JAX's fused_preprocess_yuv, the batch
+    at an odd base address."""
     rows = _rows(2, 1, *hw, tagged=True, seed=sum(hw))
+    rows[1, :, -1] = 3  # BT.709 full range in the second clip
     plan = yuv.k3_plan(*hw, *out, cf)
     assert plan.smem_bytes <= yuv.SMEM_PER_BLOCK
-    got = emulate_k3(rows, hw, *out, cf)
-    want = yuv.fused_preprocess_yuv(torch.from_numpy(rows), hw, out_h=out[0], out_w=out[1],
-                                    cropping_factor=cf, out_dtype=torch.float32).numpy()
+    got = emulate_k3(rows, hw, *out, cf, base=7)
+    kw = dict(out_h=out[0], out_w=out[1], cropping_factor=cf)
+    want = yuv.fused_preprocess_yuv(torch.from_numpy(rows), hw, out_dtype=torch.float32, **kw).numpy()
     np.testing.assert_allclose(got, want, atol=RTOL * np.abs(want).max(), rtol=0)
-    if hw == (240, 320):
-        assert plan.kernel == "K3<2, 12, 2, 8>" and plan.static
-    if hw == (480, 856):
-        assert plan.kernel == "K3<runtime>"
+    np.testing.assert_allclose(got, _jax_plain(rows, hw, **kw), atol=RTOL * np.abs(want).max(), rtol=0)
+
+
+@pytest.mark.parametrize("hw,kernel,band_rows,blocks", [
+    ((240, 320), "K3<2, 12, 2, 8>", 32, 3),     # the serving frame
+    ((360, 640), "K3<4, 32, 2, 16>", 16, 3),
+    ((480, 856), "K3<4, 32, 2, 16>", 8, 3),     # ShanghaiTech's native frame
+    ((720, 1280), "K3<8, 64, 4, 32>", 16, 1),   # its 87 KB of tables leave one block an SM
+    ((1080, 1920), "K3<8, 64, 4, 32>", 8, 1),
+])
+def test_k3_plan_taps_and_band(hw, kernel, band_rows, blocks):
+    """The plan takes the first K3_TAPS entry that holds the frame's taps, and the
+    largest band whose block fits as many to an SM as that entry counts on."""
+    from ted_spad_tpu_torch.ops.preprocess import SMEM_PER_SM, SMEM_RESERVED_PER_BLOCK
+
+    plan = yuv.k3_plan(*hw)
+    assert (plan.kernel, plan.static, plan.band_rows, plan.blocks_per_sm) == (kernel, True, band_rows, blocks)
+    assert plan.warp_rows == min(yuv.K3_WARP_ROWS, band_rows) and plan.n_bands == -(-224 // band_rows)
+    ry, rx, cry, crx = yuv.yuv_matrices(*hw, 224, 224, 0.8)
+    need = (*yuv._plane_taps(ry, rx)[:2], *yuv._plane_taps(cry, crx)[:2])
+    taps = [t[:4] for t in yuv.K3_TAPS]
+    first = next(t for t in taps if all(a >= b for a, b in zip(t, need)))
+    assert kernel == "K3<{}, {}, {}, {}>".format(*first)
+    limit = SMEM_PER_SM // blocks - SMEM_RESERVED_PER_BLOCK if blocks > 1 else yuv.SMEM_PER_BLOCK
+    assert plan.smem_bytes == yuv._block_smem(plan.luma, plan.chroma, True, band_rows)[3] <= limit
+    larger = [r for r in yuv.K3_BANDS if r > band_rows]
+    assert all(yuv._block_smem(plan.luma, plan.chroma, True, r)[3] > limit for r in larger)
+
+
+@pytest.mark.parametrize("tagged", [False, True])
+def test_k3_launch_args_read_no_row_byte(tagged):
+    """The launch arguments come from the shapes and the cached plan: no torch op runs on
+    the packed rows (the kernel reads the tag byte itself), whether the rows carry the
+    tag follows from their length, and the geometry is the plan's."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    hw, out_hw = (240, 320), (224, 224)
+    packed = torch.from_numpy(_rows(2, 3, *hw, tagged))
+    out = torch.empty((2, 3, *out_hw, 3), dtype=torch.bfloat16)
+    yuv.k3_launch_args(packed, out, hw, 0.8, 0)  # builds the cached tables
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(func)
+            return func(*args, **(kwargs or {}))
+
+    with Ops() as seen:
+        args = yuv.k3_launch_args(packed, out, hw, 0.8, 1234)
+    assert seen.ops == []
+    plan = yuv.k3_plan(*hw, *out_hw, 0.8)
+    (in_ptr, in_bytes, out_ptr, bf16, tables, length, has_tag, clip_frames, frames, oh, ow, geom,
+     static, smem, stream) = args
+    assert (in_ptr, in_bytes, out_ptr, bf16) == (packed.data_ptr(), packed.numel(), out.data_ptr(), 1)
+    assert (length, has_tag, clip_frames, frames, oh, ow) == (
+        yuv.packed_row_bytes(*hw) + tagged, int(tagged), 3, 6, *out_hw)
+    assert (static, smem, stream) == (1, plan.smem_bytes, 1234)
+    words, offsets = yuv._table_words(plan)
+    assert tables == yuv._k3_launch(plan.key, packed.device).tables.data_ptr()
+    np.testing.assert_array_equal(yuv._k3_launch(plan.key, packed.device).tables.numpy(), words)
+    per_plane = [[pl.col0, pl.n_cols, pl.ky, pl.span, plan.rows_buf[q], pl.pitch,
+                  *offsets[2 * q : 2 * q + 2], *offsets[4 + 2 * q : 6 + 2 * q]]
+                 for q, pl in enumerate((plan.luma, plan.chroma))]
+    assert list(geom) == [*hw, plan.runs, plan.band_rows, plan.warp_rows, plan.shared_words, plan.band_words,
+                          *per_plane[0], *per_plane[1]]
+    with pytest.raises(ValueError, match="packed yuv row"):
+        yuv.k3_launch_args(packed[..., :-2 + (not tagged)].contiguous(), out, hw, 0.8, 0)
 
 
 def _perturbed(variables, seed: int):
