@@ -70,7 +70,18 @@ Phases, each fatal on failure:
      gives it (recorded by wrapping _Quantizer.conv), and at the ragged
      chip_probes.K4_CASES with every form of chip_probes.K4_FORMS; each of the 79 timed at
      its shape with its form beside its bound (the form's bytes), the plain version, the
-     cuDNN bf16 conv and torch._int_mm + the epilogue's torch ops at the 1x1 shapes.
+     cuDNN bf16 conv and torch._int_mm + the epilogue's torch ops at the 1x1 shapes;
+ 12. training the models the serving path runs: one fa pretraining step (UNet++, 2 x
+     224^2) and one action training step (I3Res50 with its head, 2 videos x 3 'trip'
+     views of 16 x 112^2) on the card held against the CPU's float64 step from the same
+     weights, batch and draw (TF32 off, dropout 0): the card's float64 step on the loss,
+     every gradient and every BN statistic, its float32 step on the loss and statistics
+     (its gradients printed), the CPU's step on another batch the control; the
+     full-width bf16 steps timed (UNet++ 32 x 224^2; I3Res50 16 videos x 3 views of
+     16 x 224^2, 8 where 16 do not fit) with peak memory and a device profile; then
+     train_reconstruction and anonymized train_action (through the fa just saved) for
+     one short epoch each, their checkpoints reloaded bit-equal and served through the
+     extraction step. No kernel launches on this path.
 
 Prints the kernel table as one JSON line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero, printing no result,
@@ -142,6 +153,29 @@ STEP_LOSS_RTOL, STEP_GRAD_RTOL, STEP_STATS_RTOL = 1e-5, 1e-4, 1e-5
 # float32 reads up to 1.4e-4 (PERF.md §6, the MGFN stage); TF32 must read above it (the control).
 STEP_F32_RTOL = 1e-3
 EVAL_AUC_ATOL = 1e-4
+
+# Phase 12: training. Full-width steps at the stages' default batches (UNet++ fa: 32
+# images of 224^2; I3Res50 ft with its 102-class head: 16 videos x 3 'trip' views of
+# 16 x 224^2, FrozenBN, dropout 0.5), bf16 under autocast; 8 videos where 16 do not fit.
+TRAIN_FA_BATCH = 32
+TRAIN_FT_BATCHES = (16, 8)
+TRAIN_TIMED_STEPS = 5
+# Card step vs the CPU's float64 step from the same weights, batch and draw, TF32 off,
+# dropout 0: the loss, each gradient tensor and each BN running statistic
+# (||card - cpu|| / ||cpu||). The card's float64 step is held to all three, its float32
+# step to the loss and the statistics; its float32 gradients are printed: train-mode
+# BN's fast variance and L1's sign put 2e-3 (ft) to 4e-3 (fa) between the card's
+# float32 gradients and float64 ones on an H100 (PERF.md §6, the training stages; the
+# CPU's own float32 step reads 6.8e-4 and 6.0e-3). The CPU's float32 step on another
+# batch (the control) must exceed each limit.
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_STATS_RTOL = 1e-4, 1e-3, 1e-4
+TRAIN_GATE_FA = (2, 224)  # images, side
+TRAIN_GATE_FT = (2, 112)  # videos (x 3 views of 16 frames), side
+# A gradient that is zero in exact arithmetic (the MLP head's fc1 bias, which its
+# train-mode BN removes) is rounding noise on both sides: held absolutely, below this
+# share of the largest gradient, on both.
+TRAIN_NULL_GRAD = 1e-5
+TRAIN_DRIVER_STEPS = 2  # steps in each stage driver's one epoch
 
 
 T0 = time.perf_counter()
@@ -1244,6 +1278,325 @@ def int8_path(device, workdir: str, fa, card: str) -> tuple[dict, dict]:
     return entry, launches
 
 
+def _train_readings(model) -> tuple[dict, dict]:
+    """(gradients, BN running statistics) of a model after a step, float64 on the CPU."""
+    grads = {n: q.grad.double().cpu() for n, q in model.named_parameters()}
+    stats = {n: t.double().cpu() for n, t in model.named_buffers() if "running" in n}
+    return grads, stats
+
+
+def _fa_gate_step(device, dtype, images, draw) -> tuple:
+    """One fa pretraining step (TF32 off) of the seeded full-width UNet++ in ``dtype``:
+    (loss, gradients, statistics, the signs of the L1 residual recon - input)."""
+    import torch
+
+    from ted_spad_tpu_torch.models import load_fa_model
+    from ted_spad_tpu_torch.stages.common import make_optimizer
+    from ted_spad_tpu_torch.stages.fa_pretraining import make_train_step
+    from ted_spad_tpu_torch.utils.device import tf32_off
+
+    side = TRAIN_GATE_FA[1]
+    model = load_fa_model(seed=0, dtype="float32", device=device).to(dtype).requires_grad_(True)
+    seen = {}
+
+    def keep_sign(mod, inp, out) -> None:
+        seen["sign"] = torch.sign(out.detach() - inp[0]).cpu()
+
+    hook = model.register_forward_hook(keep_sign)
+    step = make_train_step(model, make_optimizer(model.parameters(), "adam", 1e-3), (side, side),
+                           compute_dtype="float32", device=device)
+    with tf32_off():
+        loss = float(step(images, draw))
+    hook.remove()
+    return (loss, *_train_readings(model), seen["sign"])
+
+
+def _ft_gate_step(device, dtype, p, batch) -> tuple:
+    """One action training step (TF32 off, dropout 0) of the seeded full-width I3Res50
+    with its head in ``dtype``: (loss, gradients, statistics)."""
+    from ted_spad_tpu_torch.models import load_ft_model
+    from ted_spad_tpu_torch.stages.action_training import make_train_step
+    from ted_spad_tpu_torch.stages.common import make_optimizer
+    from ted_spad_tpu_torch.utils.device import tf32_off
+
+    model = load_ft_model(seed=0, dtype="float32", device=device, num_classes=p.num_classes,
+                          dropout_rate=0.0).to(dtype).requires_grad_(True)
+    opt = make_optimizer(model.parameters(), p.opt_type, p.learning_rate, p.weight_decay, p.momentum)
+    step = make_train_step(model, opt, p, device=device)
+    with tf32_off():
+        loss = float(step(batch.clips, batch.labels, batch.params))
+    return (loss, *_train_readings(model))
+
+
+def _step_against(ref: tuple, got: tuple) -> dict:
+    """A step's readings against a reference step's: the loss's relative error, the
+    worst gradient (||d|| / ||g||, the tensors whose gradient is zero in exact
+    arithmetic held apart, as a share of the largest gradient) and the worst BN
+    statistic (statistics that did not move, FrozenBN's, must be equal)."""
+    import torch
+
+    def rel(a, b) -> float:
+        d, n = float(torch.linalg.norm(a - b)), float(torch.linalg.norm(b))
+        return d / n if n else (0.0 if d == 0 else float("inf"))
+
+    top = max(float(torch.linalg.norm(g)) for g in ref[1].values())
+    null = {k for k, g in ref[1].items() if float(torch.linalg.norm(g)) <= TRAIN_NULL_GRAD * top}
+    grad = max((rel(got[1][k], ref[1][k]), k) for k in ref[1] if k not in null)
+    null_worst = max([float(torch.linalg.norm(got[1][k])) / top for k in null] + [0.0])
+    stats = max((rel(got[2][k], ref[2][k]), k) for k in ref[2])
+    return {"loss": abs(got[0] - ref[0]) / abs(ref[0]), "grad": grad, "stats": stats,
+            "null": (len(null), null_worst)}
+
+
+def training_gate(device, card: str) -> None:
+    """Card against CPU: one step of each stage at full width from the same seeded
+    weights, batch and augmentation draw, TF32 off, dropout 0 (fa: 2 images of 224^2;
+    ft: 2 videos x 3 'trip' views of 16 x 112^2), through make_train_step, held against
+    the CPU's float64 step (TRAIN_* limits; the card's float32 gradients printed, the fa's
+    with its L1 sign flips), the CPU's float32 step on another batch the control."""
+    import numpy as np
+    import torch
+
+    from ted_spad_tpu_torch.config.params import ActionParams
+    from ted_spad_tpu_torch.data.images import ReconstructionSource, sample_image_augment_params
+    from ted_spad_tpu_torch.data.videos import ClipDataset, synthetic_video_items
+
+    n, side = TRAIN_GATE_FA
+    src = ReconstructionSource(synthetic_n=2 * n, seed=0)
+    rng = np.random.default_rng(0)
+    fa_batches = [(src.get_batch(list(range(i * n, (i + 1) * n)))[0],
+                   sample_image_augment_params(rng, n, src.canonical, side, side)) for i in (0, 1)]
+    n, side = TRAIN_GATE_FT
+    p = ActionParams(num_frames=16, reso_h=side, reso_w=side, temporal_loss="trip", batch_size=n,
+                     compute_dtype="float32")
+    items = synthetic_video_items(2 * n, p.num_classes, num_frames=64, h=240, w=320, seed=0)
+    ft_batches = [(b,) for b in list(ClipDataset(items, p, views=3, num_workers=4, seed=0)
+                                     .batches(n, seed=1))[:2]]
+
+    def show(r: dict) -> str:
+        return (f"loss rel {r['loss']:.3e}, worst gradient {r['grad'][0]:.3e} at {r['grad'][1]}, "
+                f"worst BN statistic {r['stats'][0]:.3e} at {r['stats'][1]}, {r['null'][0]} "
+                f"zero-in-exact-arithmetic gradients at most {r['null'][1]:.1e} of the largest")
+
+    f64 = torch.float64
+    for name, run, batches in (("fa", _fa_gate_step, fa_batches),
+                               ("ft", lambda d, t, b: _ft_gate_step(d, t, p, b), ft_batches)):
+        t0 = time.perf_counter()
+        ref = run("cpu", f64, *batches[0])
+        card64 = _step_against(ref, run(device, f64, *batches[0]))
+        got32 = run(device, torch.float32, *batches[0])
+        card32 = _step_against(ref, got32)
+        control = _step_against(ref, run("cpu", torch.float32, *batches[1]))
+        flips = f", L1 residual signs flipped {int((got32[3] != ref[3]).sum())} of {ref[3].numel()}" \
+            if name == "fa" else ""
+        log(f"[train] {name} step against the CPU's float64 step (same weights, batch and draw; TF32 "
+            f"off): card float64 {show(card64)}; card float32 {show(card32)}{flips} (limits: loss "
+            f"{TRAIN_LOSS_RTOL}, gradients {TRAIN_GRAD_RTOL}, statistics {TRAIN_STATS_RTOL}, zero "
+            f"gradients {TRAIN_NULL_GRAD}); control, the CPU's float32 step on another batch: "
+            f"{show(control)}; {time.perf_counter() - t0:.1f}s | {card}")
+        for label, r, grads in (("float64", card64, True), ("float32", card32, False)):
+            if not (r["loss"] <= TRAIN_LOSS_RTOL and r["stats"][0] <= TRAIN_STATS_RTOL
+                    and r["null"][1] <= TRAIN_NULL_GRAD
+                    and (not grads or r["grad"][0] <= TRAIN_GRAD_RTOL)):
+                raise AssertionError(f"the card's {label} {name} train step disagrees with the CPU's")
+        if not (control["loss"] > TRAIN_LOSS_RTOL and control["grad"][0] > TRAIN_GRAD_RTOL
+                and control["stats"][0] > TRAIN_STATS_RTOL):
+            raise AssertionError(f"the {name} step gate does not tell another batch apart")
+
+
+def _timed_steps(step, n: int) -> list[float]:
+    """ms of each of ``n`` steps after one warm-up step, from CUDA events."""
+    import torch
+
+    step()
+    times = []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
+
+
+def training_steps(device, card: str) -> int:
+    """The full-width bf16 steps timed: the fa step (UNet++ at 224^2, batch 32) and the
+    ft step (I3Res50 with its head, 16 x 224^2, 'trip', FrozenBN, dropout 0.5, 16
+    videos x 3 views, or 8 where they do not fit). Returns the ft batch used."""
+    import numpy as np
+    import torch
+
+    from ted_spad_tpu_torch.config.params import ActionParams, ReconstructionParams
+    from ted_spad_tpu_torch.data.images import ReconstructionSource, sample_image_augment_params
+    from ted_spad_tpu_torch.data.videos import ClipDataset, synthetic_video_items
+    from ted_spad_tpu_torch.models import load_fa_model, load_ft_model
+    from ted_spad_tpu_torch.ops.augment import AugmentParams
+    from ted_spad_tpu_torch.stages import action_training, fa_pretraining
+    from ted_spad_tpu_torch.stages.common import make_optimizer
+
+    rp = ReconstructionParams()
+    torch.cuda.reset_peak_memory_stats(device)
+    fa = load_fa_model(rp.arch_fa, seed=0, dtype="float32", device=device).requires_grad_(True)
+    step = fa_pretraining.make_train_step(
+        fa, make_optimizer(fa.parameters(), "adam", rp.learning_rate), (rp.reso_h, rp.reso_w),
+        compute_dtype=rp.compute_dtype, device=device)
+    src = ReconstructionSource(synthetic_n=TRAIN_FA_BATCH, seed=0)
+    images = torch.from_numpy(src.get_batch(list(range(TRAIN_FA_BATCH)))[0]).to(device)
+    draw = sample_image_augment_params(np.random.default_rng(0), TRAIN_FA_BATCH, src.canonical,
+                                       rp.reso_h, rp.reso_w)
+    ms = _timed_steps(lambda: step(images, draw), TRAIN_TIMED_STEPS)
+    n_params = sum(q.numel() for q in fa.parameters())
+    mean = sum(ms) / len(ms)
+    log(f"[train] fa step (UNet++ {n_params:,} params, {TRAIN_FA_BATCH} images of {rp.reso_h}^2, "
+        f"{rp.compute_dtype} autocast, augment + forward + L1 + backward + Adam): steps "
+        f"{json.dumps([round(x, 3) for x in ms])} ms, mean {mean:.3f} ms/step = "
+        f"{TRAIN_FA_BATCH * 1e3 / mean:.1f} images/s, peak device memory "
+        f"{torch.cuda.max_memory_allocated(device) / 2**20:.1f} MiB | {card}")
+    log("[train] where an fa step's time goes:")
+    profile_step(lambda: step(images, draw), steps=2)
+    del fa, step, images
+    torch.cuda.empty_cache()
+
+    p = ActionParams(temporal_loss="trip")
+    items = synthetic_video_items(TRAIN_FT_BATCHES[0], p.num_classes, num_frames=64, h=240, w=320,
+                                  seed=0)
+    batch = next(ClipDataset(items, p, views=3, num_workers=8, seed=0).batches(TRAIN_FT_BATCHES[0]))
+    for b in TRAIN_FT_BATCHES:
+        torch.cuda.reset_peak_memory_stats(device)
+        ft = load_ft_model(p.arch, seed=0, dtype="float32", device=device, num_classes=p.num_classes,
+                           dropout_rate=p.ft_dropout or None).requires_grad_(True)
+        gen = torch.Generator(device=device).manual_seed(0)
+        opt = make_optimizer(ft.parameters(), p.opt_type, p.learning_rate, p.weight_decay, p.momentum)
+        step = action_training.make_train_step(ft, opt, p, generator=gen, device=device)
+        clips = torch.from_numpy(batch.clips[:b]).to(device)
+        draw = AugmentParams(**{k: v[:b * 3] for k, v in vars(batch.params).items()})
+        try:
+            ms = _timed_steps(lambda: step(clips, batch.labels[:b], draw), TRAIN_TIMED_STEPS)
+        except torch.cuda.OutOfMemoryError:
+            log(f"[train] ft step: {b} videos x 3 views do not fit in the card's memory")
+            del ft, step, opt, clips
+            torch.cuda.empty_cache()
+            continue
+        break
+    else:
+        raise AssertionError("no ft batch fits in the card's memory")
+    mean = sum(ms) / len(ms)
+    n_params = sum(q.numel() for q in ft.parameters())
+    log(f"[train] ft step (I3Res50 + head {n_params:,} params, {b} videos x 3 'trip' views of "
+        f"{p.num_frames} x {p.reso_h}^2{'' if b == TRAIN_FT_BATCHES[0] else ', batch cut from 16'}, "
+        f"FrozenBN, dropout {ft.i3d.dropout_rate}, {p.compute_dtype} autocast, augment + forward + "
+        f"CE + triplet + backward + Adam): steps {json.dumps([round(x, 3) for x in ms])} ms, mean "
+        f"{mean:.3f} ms/step = {b * 1e3 / mean:.2f} clips/s ({3 * b * 1e3 / mean:.2f} views/s), peak "
+        f"device memory {torch.cuda.max_memory_allocated(device) / 2**20:.1f} MiB | {card}")
+    log("[train] where an ft step's time goes:")
+    profile_step(lambda: step(clips, batch.labels[:b], draw), steps=2)
+    del ft, step, opt, clips
+    torch.cuda.empty_cache()
+    return b
+
+
+def training_drivers(device, workdir: str, ft_batch: int, card: str) -> dict:
+    """The stage drivers end to end at full width: train_reconstruction (UNet++,
+    224^2, batch 32) and anonymized train_action ('trip', through the fa the first
+    just saved) for one epoch of TRAIN_DRIVER_STEPS steps each on synthetic sources.
+    Checkpoints written and reloading bit-equal, finite losses; then the trained fa and
+    ft load into the serving loaders and extract one batch. Returns the kernels' launch
+    counts from the drivers' run (none expected)."""
+    import numpy as np
+    import torch
+
+    from ted_spad_tpu_torch.config.params import (
+        ActionParams, FeatureExtractionParams, ReconstructionParams,
+    )
+    from ted_spad_tpu_torch.data.images import ReconstructionSource
+    from ted_spad_tpu_torch.data.videos import synthetic_video_items
+    from ted_spad_tpu_torch.models import load_fa_model, load_ft_model
+    from ted_spad_tpu_torch.stages.action_training import train_action
+    from ted_spad_tpu_torch.stages.fa_pretraining import train_reconstruction
+    from ted_spad_tpu_torch.stages.feature_extraction import make_extract_step
+    from ted_spad_tpu_torch.utils.jax_weights import state_dict_to_flax
+
+    root = os.path.join(workdir, "training")
+    rp = ReconstructionParams()
+    ap = ActionParams(temporal_loss="trip", batch_size=ft_batch, v_batch_size=8, num_modes=1,
+                      anonymized=True)
+    stamps = [time.perf_counter()]
+
+    def stage_log(msg: str) -> None:
+        stamps.append(time.perf_counter())
+        log(f"[train] {msg}")
+
+    zero_launch_counts()
+    fa_res = train_reconstruction(
+        rp, train_source=ReconstructionSource(synthetic_n=rp.batch_size * TRAIN_DRIVER_STEPS, seed=0),
+        val_source=ReconstructionSource(synthetic_n=rp.batch_size, seed=1), save_dir=root,
+        max_epochs=1, log_fn=stage_log, device=device)
+    ap = ap.replace(saved_model_fa=fa_res["best_path"])
+    ft_res = train_action(
+        ap, train_items=synthetic_video_items(ft_batch * TRAIN_DRIVER_STEPS, ap.num_classes,
+                                              num_frames=64, h=240, w=320, seed=0),
+        val_items=synthetic_video_items(8, ap.num_classes, num_frames=64, h=240, w=320, seed=1),
+        save_dir=root, max_epochs=1, log_fn=stage_log, device=device)
+    launches = launch_counts()
+    walls = [round(b - a, 3) for a, b in zip(stamps, stamps[1:])]
+    h_fa, h_ft = fa_res["history"], ft_res["history"]
+    log(f"[train] train_reconstruction: {TRAIN_DRIVER_STEPS} steps of {rp.batch_size}, train L1 "
+        f"{h_fa['train_loss']}, val L1 {h_fa['val_loss']}; train_action (anonymized, 'trip', "
+        f"{TRAIN_DRIVER_STEPS} steps of {ft_batch} videos): loss {h_ft['train_loss']}, top-1 "
+        f"{h_ft['val_acc']}; wall time per epoch (train + validation + checkpoints, first steps "
+        f"warm up) {json.dumps(walls)} s; kernel launches {json.dumps(launches)} | {card}")
+    for h, key in ((h_fa, "val_loss"), (h_ft, "val_acc")):
+        if not (len(h["train_loss"]) == len(h[key]) == 1 and np.isfinite(h["train_loss"] + h[key]).all()):
+            raise AssertionError(f"stage history out of range: {h}")
+    temps = [os.path.join(root, r, "model_temp.ckpt") for r in (rp.run_id, ap.run_id)]
+    for path in [fa_res["best_path"], ft_res["best_path"], *temps]:
+        if not (path and os.path.exists(path)):
+            raise AssertionError(f"missing checkpoint {path}")
+
+    # The checkpoints reload bit-equal, then serve: the default extraction step (bf16).
+    fa32 = load_fa_model(saved_model_file=fa_res["best_path"], dtype="float32", device=device)
+    ft32 = load_ft_model(saved_model_file=ft_res["best_path"], dtype="float32", device=device)
+    for trained, reloaded in ((fa_res["model"], fa32), (ft_res["model"], ft32)):
+        a, b = dict(_flat(state_dict_to_flax(trained))), dict(_flat(state_dict_to_flax(reloaded)))
+        if a.keys() != b.keys() or any(not np.array_equal(a[k], b[k]) for k in a):
+            raise AssertionError("a trained model's checkpoint does not reload bit-equal")
+    del fa32, ft32
+    p = FeatureExtractionParams(batch_size=4)
+    fa = load_fa_model(saved_model_file=fa_res["best_path"], device=device)
+    ft = load_ft_model(saved_model_file=ft_res["best_path"], device=device)
+    batch = first_batch([f"synthetic://n=64,h=240,w=320,seed={s}" for s in range(2)], p, device)
+    feats = make_extract_step(ft, p, fa, device=device)(batch)
+    torch.cuda.synchronize(device)
+    if not (feats.shape == (batch.shape[0], FEATURE_DIM) and bool(torch.isfinite(feats).all())):
+        raise AssertionError(f"trained models' features: {tuple(feats.shape)}, finite "
+                             f"{bool(torch.isfinite(feats).all())}")
+    log(f"[train] checkpoints ({os.path.getsize(fa_res['best_path']) / 1e6:.2f} MB fa, "
+        f"{os.path.getsize(ft_res['best_path']) / 1e6:.2f} MB ft, flax msgpack) reload bit-equal; "
+        f"the trained fa and ft ({ft.i3d.fc.out_features}-class head read from the file) extract "
+        f"one {batch.shape[0]}-clip batch through the serving step: {tuple(feats.shape)} finite | {card}")
+    return launches
+
+
+def _flat(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def training_phase(device, workdir: str, card: str) -> dict:
+    """Phase 12: training the models the serving path runs. Returns the kernels' launch
+    counts from the stage drivers' run."""
+    t0 = time.perf_counter()
+    training_gate(device, card)
+    ft_batch = training_steps(device, card)
+    launches = training_drivers(device, workdir, ft_batch, card)
+    log(f"[train] phase time {time.perf_counter() - t0:.1f}s")
+    return launches
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1290,6 +1643,10 @@ def main() -> int:
         k3, launches["yuv"] = yuv_path(device, workdir, fa, fa32, card)
         del fa32
         k4, launches["int8"] = int8_path(device, workdir, fa, card)
+        del fa
+        launches["training"] = training_phase(device, workdir, card)
+        if any(launches["training"].values()):
+            raise AssertionError(f"the training path launched a kernel: {launches['training']}")
     # Each kernel's launches on its own main path (K1: the default UNet++ path, K2: the
     # plain-UNet path, K3: the YUV path, K4: the int8 path), and on every path driven.
     for k, name, path in ((k1, "K1 preprocess", "unet++"), (k2, "K2 double_conv", "unet"),

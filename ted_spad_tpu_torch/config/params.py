@@ -1,33 +1,144 @@
-"""Typed configuration of the port: the fields of ted_spad_tpu's ``StageParams`` /
-``FeatureExtractionParams`` / ``MGFNParams`` that the port reads, with the same names
-and defaults so one configuration reads the same in both."""
+"""Typed configuration of the port: ted_spad_tpu's ``StageParams``, ``VideoParams``,
+``ReconstructionParams``, ``ActionParams``, ``FeatureExtractionParams`` and
+``MGFNParams`` (the fields the port reads), with the same names and defaults so one
+configuration reads the same in both. Schedule arrays (``warmup_array``,
+``cosine_lr_array``) are computed from scalars, as the reference's formulas."""
 
 from __future__ import annotations
 
 import dataclasses
 import importlib.util
+import math
 import sys
-from typing import Any
+from typing import Any, Sequence
+
+
+def _linspace(a: float, b: float, n: int) -> list[float]:
+    if n == 1:
+        return [a]  # np.linspace(a, b, 1) == [a]
+    step = (b - a) / (n - 1)
+    return [a + step * i for i in range(n)]
 
 
 @dataclasses.dataclass
 class StageParams:
-    """Fields shared by every stage."""
+    """Fields shared by every stage (params_action.py:12-40, params_anonymization.py)."""
 
+    run_id: str = "run"
+    num_workers: int = 4
     batch_size: int = 8
+    v_batch_size: int = 8
+    learning_rate: float = 1e-4
+    num_epochs: int = 100
+    data_percentage: float = 1.0
     reso_h: int = 224
     reso_w: int = 224
+    # Validation views.
+    hflip: Sequence[int] = (0,)
+    cropping_facs: Sequence[float] = (0.8,)
+    # Per-epoch LR control (params_action.py:27-40): 'cosine' | 'patience_based' |
+    # 'loss_based' | 'warmup_drop'.
+    warmup: int = 10
+    lr_patience: int = 2
+    lr_reduce_factor: float = 2.0
+    lr_scheduler: str = "cosine"
+    opt_type: str = "adam"  # 'adam' | 'adamw' | 'sgd'
+    momentum: float = 0.9
+    weight_decay: float = 1e-4
+    val_freq: int = 5
     compute_dtype: str = "bfloat16"
     seed: int = 0
+
+    @property
+    def warmup_array(self) -> list[float]:
+        # params_anonymization.py:36: np.linspace(0.01, 1, warmup) + 1e-9
+        return [x + 1e-9 for x in _linspace(0.01, 1.0, self.warmup)]
+
+    @property
+    def cosine_lr_array(self) -> list[float]:
+        # params_anonymization.py:48: a 5-epoch linear ramp, then a half cosine to ~0.
+        ramp = _linspace(0.01, 1.0, 5)
+        n = max(self.num_epochs - 5, 1)
+        return ramp + [(math.cos(x) + 1) / 2 for x in _linspace(0, math.pi / 0.99, n)]
 
     def replace(self, **kw: Any):
         return dataclasses.replace(self, **kw)
 
 
 @dataclasses.dataclass
+class VideoParams(StageParams):
+    """Clip sampling of the UCF101 stages (params_action.py:12-17)."""
+
+    num_classes: int = 102
+    num_frames: int = 16
+    fix_skip: int = 2
+    num_modes: int = 5
+    num_skips: int = 1
+    min_crop_factor_training: float = 0.6
+    temporal_align: bool = False
+    weak_aug: bool = False
+    frame_wise_aug: bool = False  # per-frame colour jitter (ucf101_dl.py:127-135)
+    no_ar_distortion: bool = False
+    aspect_ratio_aug: bool = False
+    ori_reso_h: int = 240
+    ori_reso_w: int = 320
+
+
+@dataclasses.dataclass
+class ReconstructionParams(StageParams):
+    """fa pretraining (fa_pretraining/parameters.py)."""
+
+    run_id: str = "fa_recon"
+    batch_size: int = 32
+    learning_rate: float = 1e-3
+    warmup: int = 5
+    scheduled_drop: int = 5
+    lr_patience: int = 0
+    fix_skip: int = 2
+    num_modes: int = 5
+    num_skips: int = 1
+    arch_fa: str = "unet++"
+
+
+@dataclasses.dataclass
+class ActionParams(VideoParams):
+    """ft action training (action_training/params_action.py); with ``anonymized``,
+    every clip passes through a frozen fa first (train_anonymized_action.py)."""
+
+    run_id: str = "baseline_action"
+    arch: str = "largei3d"
+    saved_model: str | None = None
+    restart: bool = False
+    batch_size: int = 16
+    v_batch_size: int = 16
+    loss: str = "ce"  # 'ce' | 'con' (SupCon on two normalized views)
+    temporal_loss: str | None = None  # 'trip' | 'con' | None
+    temporal_loss_weight: float = 0.1
+    temporal_distance: int | None = None
+    triplet_loss_margin: float = 1.0
+    ft_dropout: float = 0.0  # 0 keeps the module's default rate, 0.5 (see stages/action_training.py)
+    eval_only: bool = False
+    three_crop: bool = False  # two corner views beside the centre (ucf101_dl.py:199-203, 297-320)
+    val_freq: int = 3
+    kin_pretrained: bool = False
+    anonymized: bool = False
+    # The reference's scrambled fa-input reshape (train_anonymized_action.py:47-58).
+    quirk_compat: bool = False
+    saved_model_fa: str | None = None
+    arch_fa: str = "unet++"
+
+    @property
+    def val_array(self) -> list[int]:
+        # params_action.py:44
+        return [1] + [5 * x for x in range(1, 8)] + [2 * x for x in range(21, 25)]
+
+
+@dataclasses.dataclass
 class FeatureExtractionParams(StageParams):
     """Clip feature extraction (feature_extraction/params_feature_ex.py)."""
 
+    run_id: str = "feature_extraction"
+    num_classes: int = 102
     num_frames: int = 16
     fix_skip: int = 2
     batch_size: int = 1  # clips per device step

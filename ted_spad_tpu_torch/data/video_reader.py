@@ -49,6 +49,9 @@ def _load_library():
         lib.vd_width.argtypes = [ctypes.c_void_p]
         lib.vd_height.restype = ctypes.c_int
         lib.vd_height.argtypes = [ctypes.c_void_p]
+        lib.vd_read_indices.restype = ctypes.c_int64
+        lib.vd_read_indices.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64),
+                                        ctypes.c_int64, ctypes.POINTER(ctypes.c_uint8)]
         lib.vd_read_strided.restype = ctypes.c_int64
         lib.vd_read_strided.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
                                         ctypes.c_int64, ctypes.POINTER(ctypes.c_uint8)]
@@ -127,6 +130,21 @@ class VideoReader:
         self._raise_or_pad(got, n, (out,), (0,))
         return out
 
+    def get_batch(self, indices) -> np.ndarray:
+        """decord ``VideoReader.get_batch`` semantics (ucf101_dl.py:68, 91): the frames
+        at ``indices`` in the requested order -> (n, H, W, 3) uint8. The palindrome
+        completion of short clips asks for non-monotonic lists, so each distinct frame
+        is decoded once, in ascending order (the decoder seeks forward), and the
+        frames are gathered back into request order."""
+        req = np.asarray([int(i) for i in indices], dtype=np.int64)
+        uniq = np.unique(req)
+        dec = np.empty((len(uniq), self.height, self.width, 3), dtype=np.uint8)
+        got = self._lib.vd_read_indices(
+            self._handle(), uniq.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), len(uniq),
+            dec.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+        self._raise_or_pad(got, len(uniq), (dec,), (0,))
+        return dec[np.searchsorted(uniq, req)]
+
     def read_strided_yuv(self, start: int, n: int, stride: int):
         """Planar read of the same frames: ``(y (n, H, W), u (n, H/2, W/2), v (n, H/2,
         W/2), full_range)`` uint8 at the stream's native resolution, 1.5 bytes per pixel
@@ -191,9 +209,13 @@ class SyntheticVideoReader:
 
     colorspace = 601  # the emulated planar encode below is BT.601
 
+    def get_batch(self, indices) -> np.ndarray:
+        """The frames at ``indices`` in the requested order; past-EOF indices clamp to
+        the last frame, as the native reader pads."""
+        return np.stack([self._frame(min(int(i), self._n - 1)) for i in indices])
+
     def read_strided(self, start: int, n: int, stride: int) -> np.ndarray:
-        # Past-EOF indices clamp to the last frame, as the native reader pads.
-        return np.stack([self._frame(min(start + i * stride, self._n - 1)) for i in range(n)])
+        return self.get_batch([start + i * stride for i in range(n)])
 
     def read_strided_yuv(self, start: int, n: int, stride: int):
         """Planar read emulated from the RGB frames: a BT.601 limited-range encode with

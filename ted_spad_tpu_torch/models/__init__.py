@@ -14,14 +14,14 @@ import torch
 from torch import nn
 
 from ted_spad_tpu_torch.models.i3d import InceptionI3d
-from ted_spad_tpu_torch.models.i3res50 import I3Res50, WrapperI3D
+from ted_spad_tpu_torch.models.i3res50 import I3Res50, MlpHead, NonLocalBlock3D, WrapperI3D
 from ted_spad_tpu_torch.models.mgfn import MGFN
 from ted_spad_tpu_torch.models.mvit import MViTv2S
 from ted_spad_tpu_torch.models.r3d import R3D18
 from ted_spad_tpu_torch.models.resnet2d import ResNet2D
 from ted_spad_tpu_torch.models.unet import UNet, UNetPlusPlus
 from ted_spad_tpu_torch.utils.device import resolve_device, torch_dtype
-from ted_spad_tpu_torch.utils.jax_weights import FT_HEADS, load_jax_checkpoint
+from ted_spad_tpu_torch.utils.jax_weights import load_jax_checkpoint, load_jax_variables
 
 __all__ = [
     "FT_FEATURE_DIMS",
@@ -29,6 +29,8 @@ __all__ = [
     "InceptionI3d",
     "MGFN",
     "MViTv2S",
+    "MlpHead",
+    "NonLocalBlock3D",
     "R3D18",
     "ResNet2D",
     "UNet",
@@ -100,21 +102,31 @@ def load_ft_model(
     """Utility model factory (model_loaders.py:56-91): ``"largei3d"`` (I3Res50, the
     default), ``"i3d"`` (InceptionI3d), ``"r3d_18"`` or ``"mvitv2"`` (MViTv2-S, built
     for ``clip_shape``, (T, H, W), which sizes its rel-pos tables). Each has
-    ``extract_features`` (FT_FEATURE_DIMS wide). The last three hold their classifier
-    (``num_classes``; ``dropout_rate`` is InceptionI3d's) as the JAX modules do, and
-    read it from a checkpoint too; the port's I3Res50 holds the feature path only, so
-    a checkpoint's classifier and MLP head (``FT_HEADS``) are not read, and
-    ``num_classes`` / ``dropout_rate`` do not apply to it. ``tiny`` exists for
-    ``"largei3d"`` only, as in the JAX package."""
+    ``extract_features`` (FT_FEATURE_DIMS wide) and holds its classifier
+    (``num_classes``), as the JAX modules do; ``dropout_rate`` is I3Res50's and
+    InceptionI3d's (None keeps the module default, 0.5). The largei3d wrapper holds
+    the MLP head too, and reads its classifier's width from a checkpoint that has
+    one (as the JAX package's restore takes the checkpoint's arrays), so an action
+    checkpoint of any class count serves. ``tiny`` exists for ``"largei3d"`` only,
+    as in the JAX package."""
     if tiny and arch != "largei3d":
         raise ValueError(f"tiny variant only exists for 'largei3d', not {arch!r}")
     g = torch.Generator().manual_seed(seed)
-    skip: tuple = ()
+    kw = {"dropout_rate": dropout_rate} if dropout_rate is not None else {}
+    tree = None
+    if saved_model_file:
+        from ted_spad_tpu_torch.utils.checkpoint import load_checkpoint
+
+        state = load_checkpoint(saved_model_file)
+        tree = state.get("ft_model_state_dict", state)
     if arch == "largei3d":
-        kw = dict(layer_specs=_TINY_FT_SPECS, stem_width=8) if tiny else {}
-        model, skip = WrapperI3D(generator=g, **kw), FT_HEADS
+        if tiny:
+            kw.update(layer_specs=_TINY_FT_SPECS, stem_width=8)
+        fc = (tree or {}).get("params", {}).get("i3d", {}).get("fc")
+        if fc is not None:
+            num_classes = int(fc["kernel"].shape[-1])
+        model = WrapperI3D(num_classes, generator=g, **kw)
     elif arch == "i3d":
-        kw = {"dropout_rate": dropout_rate} if dropout_rate is not None else {}
         model = InceptionI3d(num_classes, generator=g, **kw)
     elif arch == "r3d_18":
         model = R3D18(num_classes, generator=g)
@@ -123,8 +135,8 @@ def load_ft_model(
     else:
         raise ValueError(f"Architecture {arch!r} invalid for ft_model. Try 'i3d', 'largei3d', "
                          f"'mvitv2', or 'r3d_18'")
-    if saved_model_file:
-        load_jax_checkpoint(model, saved_model_file, "ft_model_state_dict", skip=skip)
+    if tree is not None:
+        load_jax_variables(model, tree)
     # MViT works on token sequences; its only convs are the patch embed and the poolings.
     return _place(model, device, torch_dtype(dtype), None if arch == "mvitv2" else "channels_last_3d")
 

@@ -3,6 +3,11 @@ ted_spad_tpu/models/layers.py).
 
 Modules work in PyTorch's NCHW / NCDHW layouts; the spatial helpers below take
 those layouts. Initialization draws from an explicit ``torch.Generator``.
+
+Train mode follows flax, not torch: ``flax_batch_norm`` normalises with the biased
+batch variance and moves the running statistics as ``ra = 0.9 ra + 0.1 stat``
+(torch's train-mode BatchNorm stores the unbiased variance, with momentum meaning the
+reverse, so it is never used), and ``dropout`` draws from an explicit generator.
 """
 
 from __future__ import annotations
@@ -14,8 +19,65 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-# Torch BatchNorm defaults (the reference's): eps 1e-5.
+from ted_spad_tpu_torch.utils.device import at_least_f32
+
+# Torch BatchNorm defaults (the reference's): eps 1e-5, momentum 0.1 (flax's 0.9).
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9
+
+
+def flax_batch_norm(bn: nn.modules.batchnorm._NormBase, x: torch.Tensor,
+                    momentum: float = BN_MOMENTUM) -> torch.Tensor:
+    """flax ``nn.BatchNorm(use_running_average=False)`` on (B, C, ...): normalise with
+    the batch mean and the biased batch variance over every axis but the channels',
+    taken as E[x^2] - E[x]^2 in float32 (flax's fast variance; float64 stays float64),
+    and move ``bn``'s running statistics as ``ra = momentum * ra + (1 - momentum) *
+    stat`` with that biased variance. Gradients flow through the batch statistics;
+    the output is in ``x``'s dtype."""
+    xf = at_least_f32(x)
+    dims = [0] + list(range(2, x.dim()))
+    mean = xf.mean(dim=dims)
+    var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+    with torch.no_grad():
+        bn.running_mean.copy_(momentum * bn.running_mean + (1.0 - momentum) * mean)
+        bn.running_var.copy_(momentum * bn.running_var + (1.0 - momentum) * var)
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return ((xf - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)).to(x.dtype)
+
+
+def batch_norm(bn: nn.modules.batchnorm._NormBase, x: torch.Tensor, train: bool = False,
+               frozen: bool = False) -> torch.Tensor:
+    """``bn`` in flax's semantics: batch statistics (updating the running ones) with
+    ``train``, else the running statistics, never updated; ``frozen`` (the reference's
+    FrozenBN, large_i3d.py:8-39) keeps the running statistics in train mode too while
+    the affine parameters still train."""
+    if train and not frozen:
+        return flax_batch_norm(bn, x)
+    return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias, False, 0.0,
+                        bn.eps)
+
+
+def magnitude_dropout(shape, rate: float, generator: torch.Generator | None,
+                      device: torch.device) -> torch.Tensor | None:
+    """flax ``Dropout(rate)`` applied to ones (MGFN's magnitude dropout, mgfn.py:217-219):
+    each entry is kept with probability 1 - rate and then reads 1 / (1 - rate), else 0.
+    The mask comes from ``generator`` (on ``device``), never from torch's global RNG.
+    None at rate 0, where flax's Dropout is the identity."""
+    if rate == 0.0:
+        return None
+    if generator is None:
+        raise ValueError("dropout in train mode needs an explicit torch.Generator")
+    keep = 1.0 - rate
+    draw = torch.rand(shape, generator=generator, device=generator.device).to(device)
+    return torch.where(draw < keep, torch.full_like(draw, 1.0 / keep), torch.zeros_like(draw))
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+    """flax ``nn.Dropout(rate)`` in train mode: ``x`` times ``magnitude_dropout``'s mask
+    (kept entries scaled by 1 / (1 - rate)); the identity at rate 0."""
+    mask = magnitude_dropout(x.shape, rate, generator, x.device)
+    return x if mask is None else x * mask.to(x.dtype)
 
 
 def kaiming_normal_fan_out_(weight: torch.Tensor, generator: torch.Generator) -> None:
@@ -26,8 +88,9 @@ def kaiming_normal_fan_out_(weight: torch.Tensor, generator: torch.Generator) ->
 
 
 class ConvBN(nn.Module):
-    """conv -> BN -> optional ReLU, 2D or 3D by the rank of ``kernel_size``, BN in
-    eval mode (running statistics). Parameter names follow the flax module:
+    """conv -> BN -> optional ReLU, 2D or 3D by the rank of ``kernel_size``; BN in
+    flax's semantics (``batch_norm``): running statistics unless ``train``, and with
+    ``frozen_bn`` in train mode too. Parameter names follow the flax module:
     ``conv.weight[/bias]``, ``bn.weight/bias/running_mean/running_var``."""
 
     def __init__(
@@ -52,8 +115,8 @@ class ConvBN(nn.Module):
         if use_bias:
             nn.init.zeros_(self.conv.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.bn(self.conv(x))
+    def forward(self, x: torch.Tensor, train: bool = False, frozen_bn: bool = False) -> torch.Tensor:
+        x = batch_norm(self.bn, self.conv(x), train, frozen_bn)
         return F.relu(x, inplace=True) if self.act else x
 
 
@@ -90,8 +153,8 @@ def max_pool_valid(x: torch.Tensor, window: Sequence[int], strides: Sequence[int
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
-    """Mean over all spatial dims in float32: (B, C, ...) -> (B, C)."""
-    return x.float().mean(dim=tuple(range(2, x.dim())))
+    """Mean over all spatial dims in float32 (float64 stays float64): (B, C, ...) -> (B, C)."""
+    return at_least_f32(x).mean(dim=tuple(range(2, x.dim())))
 
 
 def tf_same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:

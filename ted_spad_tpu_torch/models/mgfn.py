@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ted_spad_tpu_torch.models.layers import flax_batch_norm, magnitude_dropout
 from ted_spad_tpu_torch.utils.device import at_least_f32
 
 
@@ -102,24 +103,6 @@ class Glance(nn.Module):
         return self.to_out(out.transpose(2, 3).reshape(b, self.heads * self.dim_head, t))
 
 
-def flax_batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor, momentum: float = 0.9) -> torch.Tensor:
-    """flax ``nn.BatchNorm(use_running_average=False, momentum=0.9)`` on (B, C, T):
-    normalise with the batch mean and the *biased* batch variance over (B, T), taken
-    as E[x^2] - E[x]^2 (flax's fast variance), and move the running statistics as
-    ``ra = momentum * ra + (1 - momentum) * stat`` with that biased variance. torch's
-    train-mode BatchNorm would store the unbiased variance, with momentum meaning
-    the reverse. The statistics see every position: the mask is not applied here,
-    as in flax (training batches are the fixed 32 segments)."""
-    xf = at_least_f32(x)
-    mean = xf.mean(dim=(0, 2))
-    var = torch.clamp((xf * xf).mean(dim=(0, 2)) - mean * mean, min=0.0)
-    with torch.no_grad():
-        bn.running_mean.copy_(momentum * bn.running_mean + (1.0 - momentum) * mean)
-        bn.running_var.copy_(momentum * bn.running_var + (1.0 - momentum) * var)
-    mul = torch.rsqrt(var + bn.eps) * bn.weight
-    return ((xf - mean[:, None]) * mul[:, None] + bn.bias[:, None]).to(x.dtype)
-
-
 class Focus(nn.Module):
     """Local per-head temporal aggregation (utils.py:124-147): BN -> 1x1 to_v ->
     grouped conv1d (groups=heads, kernel 5) over the ``heads`` channels that share a
@@ -176,21 +159,6 @@ class Backbone(nn.Module):
         return x
 
 
-def magnitude_dropout(shape, rate: float, generator: torch.Generator | None,
-                      device: torch.device) -> torch.Tensor | None:
-    """flax ``Dropout(rate)`` applied to ones (mgfn.py:217-219): each entry is kept
-    with probability 1 - rate and then reads 1 / (1 - rate), else 0. The mask comes
-    from ``generator`` (on ``device``), never from torch's global RNG. None at rate 0,
-    where flax's Dropout is the identity."""
-    if rate == 0.0:
-        return None
-    if generator is None:
-        raise ValueError("the magnitude dropout needs an explicit torch.Generator in train mode")
-    keep = 1.0 - rate
-    draw = torch.rand(shape, generator=generator, device=generator.device).to(device)
-    return torch.where(draw < keep, torch.full_like(draw, 1.0 / keep), torch.zeros_like(draw))
-
-
 def msnsd(features: torch.Tensor, scores: torch.Tensor, ncrops: int, k: int, *,
           inference: bool = True, dropout_rate: float = 0.0,
           generator: torch.Generator | None = None):
@@ -205,10 +173,10 @@ def msnsd(features: torch.Tensor, scores: torch.Tensor, ncrops: int, k: int, *,
     Returns (score_abnormal (batch,1), score_normal (batch,1), abn_feamagnitude
     (ncrops*batch, k, F), nor_feamagnitude, scores (bs, T, 1)).
 
-    Ties: where fewer than k positions survive the dropout (a few videos in a
-    thousand at T = 32, rate 0.7), zeros tie. ``lax.top_k`` then takes the lowest
-    indices; ``torch.topk`` promises no order among ties, so the picks may differ
-    from JAX's there. Not emulated."""
+    Ties: where fewer than k positions survive the dropout, or fewer than k tokens
+    have a non-zero magnitude, zeros tie. The picks are the first k of a stable
+    descending sort, so among ties the lowest indices come first, as
+    ``lax.top_k``'s."""
     bc, t, f = features.shape
     bs = bc // ncrops
     batch = bs if inference else bs // 2
@@ -222,7 +190,7 @@ def msnsd(features: torch.Tensor, scores: torch.Tensor, ncrops: int, k: int, *,
         if not inference:
             drop = magnitude_dropout(mag.shape, dropout_rate, generator, mag.device)
             mag = mag if drop is None else mag * drop
-        idx = torch.topk(mag, k, dim=1).indices  # (batch, k)
+        idx = torch.sort(mag, dim=1, descending=True, stable=True).indices[:, :k]  # (batch, k)
         # Crop-major concat ordering as the reference's per-crop loop (mgfn.py:61-66).
         sel = torch.gather(feats[lo:hi], 2, idx[:, None, :, None].expand(hi - lo, ncrops, k, f))
         sel = sel.transpose(0, 1).reshape(ncrops * (hi - lo), k, f)

@@ -25,9 +25,9 @@ class BasicBlock(nn.Module):
             if downsample else None
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        residual = x if self.downsample is None else self.downsample(x)
-        out = self.conv2(self.conv1(x))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        residual = x if self.downsample is None else self.downsample(x, train)
+        out = self.conv2(self.conv1(x, train), train)
         return F.relu(out + residual, inplace=True)
 
 
@@ -36,7 +36,7 @@ class ResNet2D(nn.Module):
     [input, stem(/2), layer1(/4), layer2(/8), layer3(/16), layer4(/32)][: depth+1].
 
     Only ``block="basic"`` is ported; the bottleneck variant (fb ResNet-50) comes
-    with the training stages."""
+    with privacy training."""
 
     def __init__(
         self,
@@ -70,9 +70,10 @@ class ResNet2D(nn.Module):
             self.stage_names.append(names)
         self.channels = [3, width] + [width * (1, 2, 4, 8)[i] for i in range(len(self.stage_names))]
 
-    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+    def forward(self, x: torch.Tensor, train: bool = False) -> list[torch.Tensor]:
+        """Per-stage feature maps; ``train`` uses and updates BN's batch statistics."""
         feats = [x]
-        x = self.stem(x)
+        x = self.stem(x, train)
         feats.append(x)
         if self.depth < 2:
             return feats
@@ -80,6 +81,6 @@ class ResNet2D(nn.Module):
         x = F.max_pool2d(x, 3, 2, padding=1)
         for names in self.stage_names:
             for name in names:
-                x = getattr(self, name)(x)
+                x = getattr(self, name)(x, train)
             feats.append(x)
         return feats

@@ -1,7 +1,9 @@
 """Anonymizer fa architectures (counterpart of ted_spad_tpu/models/unet.py):
 
 - ``UNet``: the classic UNet (unet_model.py, bilinear variant), nine DoubleConv
-  blocks, each one launch of kernel K2 on the card; sigmoid RGB output.
+  blocks, each one launch of kernel K2 on the card in eval mode; sigmoid RGB output.
+  In train mode each DoubleConv runs its two ConvBNs unfolded (K2 folds eval-mode
+  BN and has no backward).
 - ``UNetPlusPlus``: smp's ``UnetPlusPlus(encoder_name='resnet18', encoder_depth=4,
   decoder_channels=(256,128,64,32), classes=3, activation=None)``; raw RGB output.
 
@@ -45,9 +47,12 @@ class DoubleConv(nn.Module):
                        bn.eps, bias=conv.bias.float())
         return w.to(conv.weight.dtype).contiguous(), b.contiguous()
 
-    def forward(self, x: torch.Tensor, use_kernel: bool = True) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, use_kernel: bool = True, train: bool = False) -> torch.Tensor:
         """(N, Cin, H, W) ``channels_last`` -> (N, Cout, H, W) ``channels_last``.
-        ``use_kernel=False`` runs the plain version on any device."""
+        ``use_kernel=False`` runs the plain version on any device. ``train`` runs the
+        two ConvBNs unfolded, with BN's batch statistics, as the flax module does."""
+        if train:
+            return self.conv2(self.conv1(x, True), True)
         w1, b1 = self._folded(self.conv1)
         w2, b2 = self._folded(self.conv2)
         fn = fused_double_conv if use_kernel else double_conv_reference
@@ -74,14 +79,15 @@ class UNet(nn.Module):
         nn.init.normal_(self.outc.weight, 0.0, (1.0 / 64) ** 0.5, generator=g)
         nn.init.zeros_(self.outc.bias)
 
-    def forward(self, x: torch.Tensor, use_kernel: bool = True) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, use_kernel: bool = True, train: bool = False) -> torch.Tensor:
         """(N, 3, H, W) -> (N, n_classes, H, W) float32 in [0, 1]. ``use_kernel=False``
-        runs every DoubleConv through its plain version."""
+        runs every DoubleConv through its plain version; ``train`` runs them unfolded
+        with BN's batch statistics."""
         cl = torch.channels_last
         x = x.to(self.outc.weight.dtype).contiguous(memory_format=cl)
 
         def block(module: DoubleConv, t: torch.Tensor) -> torch.Tensor:
-            return module(t, use_kernel=use_kernel)
+            return module(t, use_kernel=use_kernel, train=train)
 
         def down(module: DoubleConv, t: torch.Tensor) -> torch.Tensor:
             return block(module, max_pool_valid(t, (2, 2), (2, 2)).contiguous(memory_format=cl))
@@ -110,12 +116,12 @@ class UnetPPDecoderBlock(nn.Module):
         self.conv1 = ConvBN(in_ch + skip_ch, features, (3, 3), 1, 1, generator=generator)
         self.conv2 = ConvBN(features, features, (3, 3), 1, 1, generator=generator)
 
-    def forward(self, x: torch.Tensor, skip: torch.Tensor | None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, skip: torch.Tensor | None, train: bool = False) -> torch.Tensor:
         x = resize_nearest(x, 2)
         if skip is not None:
             x = pad_to_match(x, skip.shape[-2], skip.shape[-1])
             x = torch.cat([x, skip], dim=1)
-        return self.conv2(self.conv1(x))
+        return self.conv2(self.conv1(x, train), train)
 
 
 class UNetPlusPlus(nn.Module):
@@ -157,16 +163,17 @@ class UNetPlusPlus(nn.Module):
         nn.init.normal_(self.head.weight, 0.0, (1.0 / (dec[3] * 9)) ** 0.5, generator=g)
         nn.init.zeros_(self.head.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(N, 3, H, W) -> (N, out_channels, H, W) float32."""
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """(N, 3, H, W) -> (N, out_channels, H, W) float32; ``train`` uses and updates
+        BN's batch statistics."""
         in_h, in_w = x.shape[-2], x.shape[-1]
         x = x.to(self.head.weight.dtype)
-        f = self.encoder(x)[1:][::-1]
-        x_0_0 = self.x_0_0(f[0], f[1])  # /8
-        x_1_1 = self.x_1_1(f[1], f[2])  # /4
-        x_2_2 = self.x_2_2(f[2], f[3])  # /2
-        x_0_1 = self.x_0_1(x_0_0, torch.cat([x_1_1, f[2]], dim=1))  # /4
-        x_1_2 = self.x_1_2(x_1_1, torch.cat([x_2_2, f[3]], dim=1))  # /2
-        x_0_2 = self.x_0_2(x_0_1, torch.cat([x_1_2, x_2_2, f[3]], dim=1))  # /2
-        x_0_3 = pad_to_match(self.x_0_3(x_0_2, None), in_h, in_w)  # /1
+        f = self.encoder(x, train)[1:][::-1]
+        x_0_0 = self.x_0_0(f[0], f[1], train)  # /8
+        x_1_1 = self.x_1_1(f[1], f[2], train)  # /4
+        x_2_2 = self.x_2_2(f[2], f[3], train)  # /2
+        x_0_1 = self.x_0_1(x_0_0, torch.cat([x_1_1, f[2]], dim=1), train)  # /4
+        x_1_2 = self.x_1_2(x_1_1, torch.cat([x_2_2, f[3]], dim=1), train)  # /2
+        x_0_2 = self.x_0_2(x_0_1, torch.cat([x_1_2, x_2_2, f[3]], dim=1), train)  # /2
+        x_0_3 = pad_to_match(self.x_0_3(x_0_2, None, train), in_h, in_w)  # /1
         return self.head(x_0_3).float()

@@ -1,7 +1,8 @@
-"""Frame-level anomaly metrics in numpy (counterpart of ted_spad_tpu/ops/metrics.py;
-reference test.py:32-48): ROC AUC, PR AUC (trapezoidal, as the reference's
-``auc(recall, precision)``) and average precision with scikit-learn's conventions,
-and the expansion of clip scores to the frame timeline."""
+"""Metrics in numpy (counterpart of ted_spad_tpu/ops/metrics.py): the frame-level
+anomaly metrics (reference test.py:32-48) -- ROC AUC, PR AUC (trapezoidal, as the
+reference's ``auc(recall, precision)``) and average precision with scikit-learn's
+conventions, and the expansion of clip scores to the frame timeline -- and the action
+stage's top-1 accuracy."""
 
 from __future__ import annotations
 
@@ -70,6 +71,12 @@ def average_precision(labels: np.ndarray, scores: np.ndarray) -> float:
     precision = tps / np.maximum(tps + fps, 1)
     recall = tps / p
     return float(np.sum((recall - np.r_[0.0, recall[:-1]]) * precision))
+
+
+def top1_accuracy(mean_probs: np.ndarray, labels: np.ndarray) -> float:
+    """Top-1 of (N, C) class probabilities already averaged over each video's views
+    (train_action.py:347-376)."""
+    return float((np.argmax(mean_probs, axis=1) == np.asarray(labels)).mean())
 
 
 def frame_level_scores(

@@ -32,23 +32,17 @@ from ted_spad_tpu_torch.data.prefetch import prefetch
 from ted_spad_tpu_torch.models.mgfn import MGFN
 from ted_spad_tpu_torch.ops.losses import mgfn_loss, smoothness_loss, sparsity_loss
 from ted_spad_tpu_torch.ops.metrics import frame_level_scores, pr_auc, roc_auc
+from ted_spad_tpu_torch.stages.common import make_optimizer as common_optimizer
+from ted_spad_tpu_torch.stages.common import module_device
 from ted_spad_tpu_torch.utils.device import resolve_device, tf32_off
-
-
-def _model_device(model: MGFN, device) -> torch.device:
-    device = resolve_device(device)
-    if next(model.parameters()).device != device:
-        raise ValueError(f"model on {next(model.parameters()).device}, step on {device}")
-    return device
 
 
 def make_optimizer(model: MGFN, p: MGFNParams) -> torch.optim.Adam:
     """Adam, lr ``p.lr``, weight decay ``p.weight_decay`` added to the gradient
-    before the moments (torch's coupled L2, main.py:72), eps 1e-8 outside the square
-    root, over every parameter (LayerNorm and BatchNorm scales and biases too; the
-    running statistics are buffers, not parameters)."""
-    return torch.optim.Adam(model.parameters(), lr=p.lr, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=p.weight_decay)
+    before the moments (torch's coupled L2, main.py:72): the common ``adam`` chain
+    over every parameter (LayerNorm and BatchNorm scales and biases too; the running
+    statistics are buffers, not parameters)."""
+    return common_optimizer(model.parameters(), "adam", p.lr, p.weight_decay)
 
 
 def make_train_step(model: MGFN, optimizer: torch.optim.Optimizer, p: MGFNParams, *,
@@ -59,7 +53,7 @@ def make_train_step(model: MGFN, optimizer: torch.optim.Optimizer, p: MGFNParams
     may be numpy arrays or tensors: features (B, ncrops, seg_length, F+1), labels
     (B,). ``generator`` (on ``device``) draws the magnitude-dropout masks. After the
     step each parameter's ``.grad`` holds the step's gradient."""
-    device = _model_device(model, device)
+    device = module_device(model, device)
     dtype = next(model.parameters()).dtype  # float32; float64 for a reference run
 
     def to_device(x) -> torch.Tensor:
@@ -91,7 +85,7 @@ def make_score_fn(model: MGFN, *, device: str | torch.device = "cuda") -> Callab
     Masked bucket padding keeps results equal to per-video native-length scoring
     (models/mgfn.py), so same-bucket videos batch freely. Runs in float32 with TF32
     off during each call (utils/device.tf32_off)."""
-    device = _model_device(model, device)
+    device = module_device(model, device)
 
     def score_fn(video, mask) -> torch.Tensor:
         video = torch.as_tensor(video, dtype=torch.float32, device=device)

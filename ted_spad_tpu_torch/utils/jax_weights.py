@@ -12,8 +12,9 @@ The port's modules carry the flax modules' names, so a variables tree
   -> ``running_mean``/``running_var``; every other leaf keeps its name.
 
 Loading is strict: a key the module does not have, a module key the tree does not
-fill, or a shape that differs raises. ``skip`` names subtrees the port's module
-does not hold (e.g. the ft classifier and MLP head, which its feature path never runs).
+fill, or a shape that differs raises. ``skip`` names subtrees that are not read:
+the tree's are ignored and the module's keep their weights (e.g. ``FT_HEADS``, the
+ft classifier and MLP head, for feature-path weights that do not carry them).
 
 Buffers a module does not save (``persistent=False``: MViT's rel-pos index tables) have
 no flax counterpart and are left out both ways.
@@ -75,20 +76,23 @@ def load_jax_variables(module: nn.Module, variables: Mapping[str, Any],
     extra = sorted(set(sd) - set(target))
     if extra:
         raise KeyError(f"variables hold keys the module does not: {extra[:8]}")
-    missing = sorted(k for k in set(target) - set(sd) if not k.endswith("num_batches_tracked"))
+    skip = tuple(skip)
+    missing = sorted(k for k in set(target) - set(sd) if not k.endswith("num_batches_tracked")
+                     and not any(k.startswith(s + ".") for s in skip))
     if missing:
         raise KeyError(f"module keys the variables do not fill: {missing[:8]}")
     for key, value in sd.items():
         if tuple(value.shape) != tuple(target[key].shape):
             raise ValueError(f"{key}: variables shape {tuple(value.shape)} != module shape "
                              f"{tuple(target[key].shape)}")
-    for key in set(target) - set(sd):  # BatchNorm's num_batches_tracked counters
+    for key in set(target) - set(sd):  # num_batches_tracked counters and skipped subtrees
         sd[key] = target[key]
     module.load_state_dict(sd, strict=True)
     return module
 
 
-# Subtrees of a flax WrapperI3D that the port's feature path does not hold.
+# Subtrees of a flax WrapperI3D that the feature path does not read: the classifier
+# and the MLP head.
 FT_HEADS = ("i3d.fc", "mlp")
 
 

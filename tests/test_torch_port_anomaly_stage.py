@@ -297,9 +297,9 @@ def test_train_mgfn_cli_and_test_only_on_cpu(tmp_path, monkeypatch):
 
 def test_score_video_reads_jax_checkpoints(tmp_path):
     """score_video with --saved_model_fa / --saved_model_ft / --mgfn_ckpt files that
-    the JAX package's save_checkpoint wrote (the ft one with the classifier and MLP
-    head the feature path skips) gives the same scores as the same weights through
-    the .npz flags."""
+    the JAX package's save_checkpoint wrote (the ft one with a 102-class classifier,
+    as action training writes it, whose width load_ft_model takes from the file)
+    gives the same scores as the same weights through the .npz flags."""
     rng = np.random.default_rng(0)
 
     def moved(tree):
@@ -311,7 +311,7 @@ def test_score_video_reads_jax_checkpoints(tmp_path):
     mp = MGFNParams.for_dataset("UCF").replace(dims=(16, 32, 64), depths=(1, 1, 1), dim_head=16)
     mg = moved(state_dict_to_flax(load_mgfn_model(mp, device="cpu")))
     ft_ckpt = {**ft, "params": {**ft["params"], "i3d": {**ft["params"]["i3d"], "fc": {
-        "kernel": np.ones((2048, 400), np.float32)}}, "mlp": {"w": np.zeros(3, np.float32)}}}
+        "kernel": np.ones((2048, 102), np.float32), "bias": np.zeros(102, np.float32)}}}}
     ckpts, npzs = {}, {}
     for name, key, tree, ckpt_tree in (("fa", "fa_model_state_dict", fa, fa),
                                        ("ft", "ft_model_state_dict", ft, ft_ckpt),

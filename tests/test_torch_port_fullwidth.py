@@ -20,7 +20,7 @@ import jax.numpy as jnp
 from ted_spad_tpu.models.i3res50 import WrapperI3D as JaxWrapperI3D
 from ted_spad_tpu.models.unet import UNetPlusPlus as JaxUNetPlusPlus
 from ted_spad_tpu_torch.models import load_fa_model, load_ft_model
-from ted_spad_tpu_torch.utils.jax_weights import FT_HEADS, load_jax_variables, state_dict_to_flax
+from ted_spad_tpu_torch.utils.jax_weights import load_jax_variables, state_dict_to_flax
 
 torch.set_num_threads(1)
 
@@ -37,8 +37,7 @@ def bridged(module, jax_module, example, seed: int):
             for k, v in jax.tree_util.tree_flatten_with_path(shapes)[0]}
     got = {jax.tree_util.keystr(k): v.shape
            for k, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
-    heads = {k for k in want if "['i3d']['fc']" in k or "['mlp']" in k}  # FT_HEADS
-    assert got == {k: v for k, v in want.items() if k not in heads}
+    assert got == want
     rng = np.random.default_rng(seed)
 
     def leaf(path, x):
@@ -76,7 +75,7 @@ def test_full_width_i3res50_matches_jax_extract_features():
     variables = bridged(ft, jmodel, jnp.asarray(x), seed=2)
     ref = np.asarray(jax.jit(functools.partial(jmodel.apply, train=False,
                                                method="extract_features"))(variables, x))
-    load_jax_variables(ft, variables, skip=FT_HEADS)
+    load_jax_variables(ft, variables)
     with torch.inference_mode():
         ours = ft.extract_features(torch.from_numpy(x).permute(0, 4, 1, 2, 3)).numpy()
     assert ours.shape == (2, 2048)

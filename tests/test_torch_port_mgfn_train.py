@@ -167,6 +167,33 @@ def test_msnsd_train_branch_matches_jax(ncrops):
     np.testing.assert_allclose(ours[4].numpy(), np.asarray(ref[4]), rtol=1e-6, atol=0)
 
 
+@pytest.mark.parametrize("inference", [True, False])
+def test_msnsd_ties_pick_as_lax_top_k(inference):
+    """Videos with fewer than k = 3 non-zero token magnitudes (all-zero tokens tie at
+    0): the picks are lax.top_k's, the lowest indices first among ties, so the
+    selected features are the very rows JAX selects, in inference and in train mode."""
+    rng = np.random.default_rng(7)
+    ncrops, n = 2, 2 * BATCH
+    feats = rng.standard_normal((n * ncrops, SEG, 8)).astype(np.float32)
+    live = [[], [5], [3, 30], [0, 1, 2, 3], [31], [], [16, 17], [9]]  # non-zero tokens per video
+    for v, keep in enumerate(live):
+        mask = np.zeros(SEG, bool)
+        mask[keep] = True
+        feats[v * ncrops:(v + 1) * ncrops, ~mask] = 0.0
+    scores = rng.uniform(0, 1, (n * ncrops, SEG, 1)).astype(np.float32)
+    ref = jax_msnsd(jnp.asarray(feats), jnp.asarray(scores), ncrops, 3, lambda ones: ones,
+                    inference=inference)
+    ours = msnsd(torch.from_numpy(feats), torch.from_numpy(scores), ncrops, 3, inference=inference)
+    np.testing.assert_array_equal(ours[2].numpy(), np.asarray(ref[2]))
+    np.testing.assert_array_equal(ours[3].numpy(), np.asarray(ref[3]))
+    for o, r in zip(ours[:2], ref[:2]):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=1e-6, atol=0)
+    # torch.topk, which the port used before, picks other tied rows on these inputs.
+    mag = torch.linalg.vector_norm(torch.from_numpy(feats), dim=2).reshape(n, ncrops, SEG).mean(1)
+    assert not torch.equal(torch.topk(mag, 3, dim=1).indices.sort(dim=1).values,
+                           torch.sort(mag, dim=1, descending=True, stable=True).indices[:, :3].sort(dim=1).values)
+
+
 def test_focus_batch_norm_train_mode_matches_flax():
     """Three train-mode forwards move Focus's running statistics as flax's
     BatchNorm(momentum=0.9) does (biased variance): rel 1e-6 per tensor; the train

@@ -152,11 +152,13 @@ def _to_resnet3d_names(key: str) -> str:
 
 def test_bridge_is_the_inverse_of_torch_convert():
     """JAX I3Res50 variables -> bridge -> port state_dict -> pytorch-resnet3d names
-    -> convert_i3res50 gives back the original tree, exactly."""
+    -> convert_i3res50 gives back the original tree, exactly. The backbone only:
+    the classifier and the MLP head (FT_HEADS) are not pytorch-resnet3d's."""
     variables = _full_i3res50_variables(8)
     ft = load_jax_variables(load_ft_model(dtype="float32", device="cpu"), variables, skip=FT_HEADS)
+    heads = tuple(h + "." for h in FT_HEADS)
     sd = {_to_resnet3d_names(k): v for k, v in ft.state_dict().items()
-          if not k.endswith("num_batches_tracked")}
+          if not k.endswith("num_batches_tracked") and not k.startswith(heads)}
     back = convert_i3res50(sd)
     orig = {"params": {k: v for k, v in variables["params"]["i3d"].items() if k != "fc"},
             "batch_stats": variables["batch_stats"]["i3d"]}

@@ -289,12 +289,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          timeout=300, env={**os.environ, "PYTHONPATH": ROOT})
     assert out.returncode == 0, out.stderr
     *_, names, count = out.stdout.strip().splitlines()
-    assert int(count) >= 46
+    assert int(count) >= 53
     slice7 = {"cli", "data.gt_builders", "extract_features", "make_gt", "models.i3d", "models.mvit",
               "models.r3d"}  # the extraction options' and gt builders' modules
     slice8 = {"ops.yuv", "ops.int8conv", "ops.fast_unetpp", "ops.quant_unetpp",
               "ops.quant_i3d"}  # YUV ingest and the int8 serving mode
-    assert {f"ted_spad_tpu_torch.{m}" for m in slice7 | slice8} <= set(names.split())
+    training = {"config.paths", "data.videos", "data.images", "stages.fa_pretraining",
+                "stages.action_training", "train_reconstruction",
+                "train_action"}  # fa pretraining and action training, with their CLIs
+    assert {f"ted_spad_tpu_torch.{m}" for m in slice7 | slice8 | training} <= set(names.split())
 
 
 def test_score_video_cli_synthetic_on_cpu(tmp_path):
