@@ -81,7 +81,22 @@ Phases, each fatal on failure:
      16 x 224^2, 8 where 16 do not fit) with peak memory and a device profile; then
      train_reconstruction and anonymized train_action (through the fa just saved) for
      one short epoch each, their checkpoints reloaded bit-equal and served through the
-     extraction step. No kernel launches on this path.
+     extraction step. No kernel launches on this path;
+ 13. the privacy side: the privacy step (ResNet50Classifier, 4 x 224^2 through the
+     UNet++ fa), the adversarial fa step and fb/ft step (UNet++, ResNet50SSL, I3Res50
+     with its head; 2 videos x 3 views x 16 x 112^2 + 4 VISPR pairs) on the card under
+     remat "on" held against the CPU's float64 step under "off" from the same weights,
+     batch and draw (TF32 off, dropout 0; loss, every gradient, every BN statistic;
+     the card's float32 step beside it; the CPU's step on another batch the control;
+     no gradient on the fa step's frozen fb and ft); the full-width bf16 steps timed
+     with peak memory and a device profile (privacy: 32 x 224^2; fa and fb/ft: 8
+     videos x 3 views x 16 x 224^2 + 12 pairs under remat "auto" and "blocks", and 4
+     videos under "auto", which resolves to no remat there); the privacy batch through
+     the bf16 plain-UNet fa with K2 against its plain version; train_privacy (anon,
+     plain-UNet fa: K2 9 times per fa forward) and train_anonymizer (plain-UNet fa: K2
+     on the fb/ft step's, the preview's and the validation's fa forwards) for one short
+     epoch each, their checkpoints reloaded bit-equal, the adversarial fa and ft served
+     through the extraction step and its fb loaded as the SSL fb.
 
 Prints the kernel table as one JSON line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero, printing no result,
@@ -176,6 +191,25 @@ TRAIN_GATE_FT = (2, 112)  # videos (x 3 views of 16 frames), side
 # share of the largest gradient, on both.
 TRAIN_NULL_GRAD = 1e-5
 TRAIN_DRIVER_STEPS = 2  # steps in each stage driver's one epoch
+
+# Phase 13: the privacy side. The gate: card against CPU, the card's step under
+# remat "on", the CPU's under "off", TF32 off, dropout 0, phase 12's float64 limits
+# (TRAIN_*_RTOL; the card's float32 step on the loss): the privacy step (ResNet50Classifier, 7 attributes, 4 images of 224^2
+# through the UNet++ fa), the fa step and the fb/ft step (UNet++, ResNet50SSL, I3Res50
+# with its head; 2 videos x 3 views x 16 x 112^2 and 4 VISPR pairs of 112^2).
+PRIV_GATE = (4, 224)  # images, side
+ADV_GATE = (2, 4, 112)  # videos (x 3 views of 16 frames), VISPR pairs, side
+# Full-width bf16 steps timed (1 warm-up, ADV_TIMED_STEPS timed): the privacy step at
+# PrivacyParams' batch (32 images of 224^2, through the bf16 UNet++ fa), and the fa and
+# fb/ft steps at AnonymizationParams' (8 videos x 3 views x 16 x 224^2 + 12 VISPR pairs)
+# under remat "auto" (full remat at this size) and "blocks", and at 4 videos + 12 pairs
+# under "auto" (no remat: below REMAT_AUTO_PIXELS).
+ADV_TIMED_STEPS = 3
+ADV_TIMED = (("auto", 8), ("blocks", 8), ("auto", 4))  # (remat, videos)
+# The stage drivers: train_privacy (anon through the plain-UNet fa, K2) for one epoch of
+# 2 steps of 32 images and 1 validation batch; train_anonymizer (plain-UNet fa) for one
+# epoch of 4 batches (2 fa steps, 2 fb/ft steps) of 2 videos and 4 VISPR pairs at 224^2.
+ADV_DRIVER = (2, 4)  # videos, VISPR pairs per batch
 
 
 T0 = time.perf_counter()
@@ -1515,7 +1549,6 @@ def training_drivers(device, workdir: str, ft_batch: int, card: str) -> dict:
     from ted_spad_tpu_torch.stages.action_training import train_action
     from ted_spad_tpu_torch.stages.fa_pretraining import train_reconstruction
     from ted_spad_tpu_torch.stages.feature_extraction import make_extract_step
-    from ted_spad_tpu_torch.utils.jax_weights import state_dict_to_flax
 
     root = os.path.join(workdir, "training")
     rp = ReconstructionParams()
@@ -1558,8 +1591,7 @@ def training_drivers(device, workdir: str, ft_batch: int, card: str) -> dict:
     fa32 = load_fa_model(saved_model_file=fa_res["best_path"], dtype="float32", device=device)
     ft32 = load_ft_model(saved_model_file=ft_res["best_path"], dtype="float32", device=device)
     for trained, reloaded in ((fa_res["model"], fa32), (ft_res["model"], ft32)):
-        a, b = dict(_flat(state_dict_to_flax(trained))), dict(_flat(state_dict_to_flax(reloaded)))
-        if a.keys() != b.keys() or any(not np.array_equal(a[k], b[k]) for k in a):
+        if not _same_weights(trained, reloaded):
             raise AssertionError("a trained model's checkpoint does not reload bit-equal")
     del fa32, ft32
     p = FeatureExtractionParams(batch_size=4)
@@ -1594,6 +1626,364 @@ def training_phase(device, workdir: str, card: str) -> dict:
     ft_batch = training_steps(device, card)
     launches = training_drivers(device, workdir, ft_batch, card)
     log(f"[train] phase time {time.perf_counter() - t0:.1f}s")
+    return launches
+
+
+def _priv_batches(n: int, side: int, count: int = 2) -> list:
+    """``count`` privacy batches of ``n`` synthetic images (256^2 canonical): (images,
+    labels, draw at ``side``)."""
+    import numpy as np
+
+    from ted_spad_tpu_torch.data.images import SyntheticImageSource, sample_image_augment_params
+
+    src = SyntheticImageSource(n=n * count, seed=0)
+    rng = np.random.default_rng(0)
+    return [(*src.get_batch(list(range(i * n, (i + 1) * n))),
+             sample_image_augment_params(rng, n, src.canonical, side, side)) for i in range(count)]
+
+
+def _privacy_gate_step(device, dtype, images, labels, draw) -> tuple:
+    """One privacy step (TF32 off) of the seeded full-width ResNet50Classifier in
+    ``dtype`` on images anonymized by the seeded UNet++: (loss, gradients, statistics)."""
+    import torch
+
+    from ted_spad_tpu_torch.models import load_fa_model, load_fb_model
+    from ted_spad_tpu_torch.stages.common import make_optimizer
+    from ted_spad_tpu_torch.stages.privacy_training import make_steps
+    from ted_spad_tpu_torch.utils.device import tf32_off
+
+    side = PRIV_GATE[1]
+    fb = load_fb_model(seed=0, dtype="float32", device=device).to(dtype).requires_grad_(True)
+    fa = load_fa_model(seed=0, dtype="float32", device=device).to(dtype)
+    train_step, _ = make_steps(fb, fa, make_optimizer(fb.parameters(), "adam", 1e-3), (side, side),
+                               compute_dtype="float32", device=device)
+    with tf32_off():
+        loss = float(train_step(images, labels, draw))
+    del fa
+    return (loss, *_train_readings(fb))
+
+
+def _adv_inputs(p, n_videos: int, n_pairs: int, count: int = 2) -> list:
+    """``count`` adversarial batches, augmented on the CPU in float64: (vispr1, vispr2,
+    clips, labels) of ``n_pairs`` VISPR pairs and ``n_videos`` videos x 3 views."""
+    import torch
+
+    from ted_spad_tpu_torch.data.images import SyntheticImageSource, vispr_batches
+    from ted_spad_tpu_torch.data.videos import ClipDataset, synthetic_video_items
+    from ted_spad_tpu_torch.stages.anonymization_training import augment_inputs
+
+    items = synthetic_video_items(n_videos * count, p.num_classes, num_frames=64, h=240, w=320, seed=0)
+    ds = ClipDataset(items, p, views=3, num_workers=8, seed=0)
+    try:
+        videos = list(ds.batches(n_videos, seed=1))[:count]
+    finally:
+        ds.close()
+    pairs = list(vispr_batches(SyntheticImageSource(n=n_pairs * count, seed=0), n_pairs, ssl=True,
+                               out_h=p.reso_h, out_w=p.reso_w, seed=1))[:count]
+    return [augment_inputs(v, c, p, torch.device("cpu"), torch.float64) for v, c in zip(pairs, videos)]
+
+
+def _adv_models(device, dtype, p, dropout_rate: float | None = 0.0) -> tuple:
+    """The seeded full-width fa (``p.arch_fa``), fb (ResNet50SSL) and ft (I3Res50 with
+    its head) in ``dtype``, each requiring grad."""
+    from ted_spad_tpu_torch.models import load_fa_model, load_fb_model, load_ft_model
+
+    kw = dict(seed=0, dtype="float32", device=device)
+    fa = load_fa_model(p.arch_fa, **kw)
+    fb = load_fb_model(ssl=True, **kw)
+    ft = load_ft_model(num_classes=p.num_classes, dropout_rate=dropout_rate, **kw)
+    return tuple(m.to(dtype).requires_grad_(True) for m in (fa, fb, ft))
+
+
+def _adv_gate_step(device, dtype, which: str, p, inputs) -> tuple:
+    """One fa step or fb/ft step (TF32 off, dropout 0) from the seeded full-width
+    models in ``dtype``: (loss, gradients, statistics) of the models it trains. The fa
+    step's frozen fb and ft must hold no gradient afterwards."""
+    import torch
+
+    from ted_spad_tpu_torch.stages import anonymization_training as anon
+    from ted_spad_tpu_torch.stages.common import make_optimizer
+    from ted_spad_tpu_torch.utils.device import tf32_off
+
+    fa, fb, ft = _adv_models(device, dtype, p)
+    v1, v2, clips, labels = (t.to(device, dtype) if t.is_floating_point() else t.to(device)
+                             for t in inputs)
+    with tf32_off():
+        if which == "fa":
+            step = anon.make_fa_step(fa, fb, ft, make_optimizer(fa.parameters(), "adam", 1e-3), p,
+                                     device=device)
+            loss = float(step(v1, v2, clips, labels)[0])
+            if any(q.grad is not None for m in (fb, ft) for q in m.parameters()):
+                raise AssertionError("the fa step left a gradient on the frozen fb or ft")
+            trained = {"fa": fa}
+        else:
+            step = anon.make_fbft_step(fa, fb, ft, make_optimizer(fb.parameters(), "adam", 1e-3),
+                                       make_optimizer(ft.parameters(), "adam", 1e-3), p,
+                                       generator=torch.Generator(device=device).manual_seed(0),
+                                       device=device)
+            losses = step(v1, v2, clips, labels)
+            loss = float(losses[0] + losses[1])
+            trained = {"fb": fb, "ft": ft}
+    grads, stats = {}, {}
+    for name, m in trained.items():
+        g, st = _train_readings(m)
+        grads.update({f"{name}.{k}": v for k, v in g.items()})
+        stats.update({f"{name}.{k}": v for k, v in st.items()})
+    return loss, grads, stats
+
+
+def privacy_gate(device, card: str) -> None:
+    """Card against CPU: the privacy step, the fa step and the fb/ft step at full width
+    from the same seeded weights, batch and augmentation draw (TF32 off, dropout 0);
+    the card under remat "on", the CPU under "off"; held to phase 12's float64 limits
+    (TRAIN_*: loss, every gradient, every BN statistic), the card's float32 step to the
+    loss limit with its gradients and statistics printed (the fb/ft step's MLP head
+    normalizes 6 embeddings in train mode, and float32 rounding moves its statistics by
+    2.3e-4 on an H100), the CPU's float32 step on another batch the control, which must
+    exceed each limit."""
+    import torch
+
+    from ted_spad_tpu_torch.config.params import AnonymizationParams
+
+    def show(r: dict) -> str:
+        return (f"loss rel {r['loss']:.3e}, worst gradient {r['grad'][0]:.3e} at {r['grad'][1]}, "
+                f"worst BN statistic {r['stats'][0]:.3e} at {r['stats'][1]}, {r['null'][0]} "
+                f"zero-in-exact-arithmetic gradients at most {r['null'][1]:.1e} of the largest")
+
+    n_videos, n_pairs, side = ADV_GATE
+    base = dict(num_frames=16, reso_h=side, reso_w=side, compute_dtype="float32")
+    p_on = AnonymizationParams(**base, remat="on")
+    p_off = AnonymizationParams(**base, remat="off")
+    adv = _adv_inputs(p_on, n_videos, n_pairs)
+    cases = (
+        ("privacy", lambda d, t, b: _privacy_gate_step(d, t, *b), _priv_batches(*PRIV_GATE),
+         "4 images of 224^2 through the UNet++ fa"),
+        ("fa", lambda d, t, b: _adv_gate_step(d, t, "fa", p_on if d != "cpu" else p_off, b), adv,
+         f"{n_videos} videos x 3 views x 16 x {side}^2 + {n_pairs} VISPR pairs"),
+        ("fb/ft", lambda d, t, b: _adv_gate_step(d, t, "fbft", p_on if d != "cpu" else p_off, b), adv,
+         f"{n_videos} videos x 3 views x 16 x {side}^2 + {n_pairs} VISPR pairs"),
+    )
+    f64 = torch.float64
+    for name, run, batches, what in cases:
+        t0 = time.perf_counter()
+        ref = run("cpu", f64, batches[0])
+        card64 = _step_against(ref, run(device, f64, batches[0]))
+        card32 = _step_against(ref, run(device, torch.float32, batches[0]))
+        control = _step_against(ref, run("cpu", torch.float32, batches[1]))
+        log(f"[privacy] {name} step ({what}) against the CPU's float64 step (same weights, batch "
+            f"and draw; TF32 off; card remat on, CPU off): card float64 {show(card64)}; card float32 "
+            f"{show(card32)} (limits: loss {TRAIN_LOSS_RTOL}, gradients {TRAIN_GRAD_RTOL}, statistics "
+            f"{TRAIN_STATS_RTOL}, zero gradients {TRAIN_NULL_GRAD}); control, the CPU's float32 step "
+            f"on another batch: {show(control)}; {time.perf_counter() - t0:.1f}s | {card}")
+        if not (card64["loss"] <= TRAIN_LOSS_RTOL and card64["stats"][0] <= TRAIN_STATS_RTOL
+                and card64["null"][1] <= TRAIN_NULL_GRAD and card64["grad"][0] <= TRAIN_GRAD_RTOL):
+            raise AssertionError(f"the card's float64 {name} step disagrees with the CPU's")
+        if not card32["loss"] <= TRAIN_LOSS_RTOL:
+            raise AssertionError(f"the card's float32 {name} step's loss disagrees with the CPU's")
+        if not (control["loss"] > TRAIN_LOSS_RTOL and control["grad"][0] > TRAIN_GRAD_RTOL
+                and control["stats"][0] > TRAIN_STATS_RTOL):
+            raise AssertionError(f"the {name} step gate does not tell another batch apart")
+
+
+def _step_line(tag: str, what: str, ms: list, items: float, unit: str, device, card: str) -> None:
+    import torch
+
+    mean = sum(ms) / len(ms)
+    log(f"[{tag}] {what}: steps {json.dumps([round(x, 3) for x in ms])} ms, mean {mean:.3f} ms/step "
+        f"= {items * 1e3 / mean:.2f} {unit}/s, peak device memory "
+        f"{torch.cuda.max_memory_allocated(device) / 2**20:.1f} MiB | {card}")
+
+
+def privacy_steps(device, card: str) -> None:
+    """The full-width bf16 steps timed: the privacy step at PrivacyParams' defaults
+    (32 images of 224^2 through the bf16 UNet++ fa), then the fa step and the fb/ft
+    step at AnonymizationParams' defaults under each ADV_TIMED configuration, with
+    peak memory and a device profile."""
+    import torch
+
+    from ted_spad_tpu_torch.config.params import AnonymizationParams, PrivacyParams
+    from ted_spad_tpu_torch.models import load_fa_model, load_fb_model
+    from ted_spad_tpu_torch.stages import anonymization_training as anon
+    from ted_spad_tpu_torch.stages.common import make_optimizer
+    from ted_spad_tpu_torch.stages.privacy_training import make_steps
+
+    pp = PrivacyParams()
+    fb = load_fb_model(num_pa=pp.num_pa, seed=0, dtype="float32", device=device).requires_grad_(True)
+    fa = load_fa_model(seed=0, dtype=pp.compute_dtype, device=device)
+    torch.cuda.reset_peak_memory_stats(device)
+    train_step, _ = make_steps(fb, fa, make_optimizer(fb.parameters(), "adam", pp.learning_rate),
+                               (pp.reso_h, pp.reso_w), compute_dtype=pp.compute_dtype, device=device)
+    images, labels, draw = _priv_batches(pp.batch_size, pp.reso_h, count=1)[0]
+    images = torch.from_numpy(images).to(device)
+    ms = _timed_steps(lambda: train_step(images, labels, draw), ADV_TIMED_STEPS)
+    _step_line("privacy", f"privacy step (ResNet50Classifier {sum(q.numel() for q in fb.parameters()):,} "
+               f"params, {pp.batch_size} images of {pp.reso_h}^2 through the {pp.compute_dtype} UNet++ fa, "
+               f"{pp.compute_dtype} autocast, augment + fa + forward + BCE + backward + Adam)", ms,
+               pp.batch_size, "images", device, card)
+    log("[privacy] where a privacy step's time goes:")
+    profile_step(lambda: train_step(images, labels, draw), steps=1)
+    del fb, fa, train_step, images
+    torch.cuda.empty_cache()
+
+    p = AnonymizationParams()
+    fa, fb, ft = _adv_models(device, torch.float32, p, dropout_rate=None)
+    inputs = _adv_inputs(p, p.batch_size, p.batch_size_vispr, count=1)[0]
+    v1, v2, clips, labels = (t.to(device, torch.float32) if t.is_floating_point() else t.to(device)
+                             for t in inputs)
+    gen = torch.Generator(device=device).manual_seed(0)
+    opts = [make_optimizer(m.parameters(), p.opt_type, lr, p.weight_decay)
+            for m, lr in ((fa, p.learning_rate_fa), (fb, p.learning_rate_fb), (ft, p.learning_rate_ft))]
+    for remat, b in ADV_TIMED:
+        q = p.replace(remat=remat)
+        resolved = anon._resolve_remat(q, clips[:b].shape, v1.shape)
+        steps = (("fa", anon.make_fa_step(fa, fb, ft, opts[0], q, device=device)),
+                 ("fb/ft", anon.make_fbft_step(fa, fb, ft, opts[1], opts[2], q, generator=gen, device=device)))
+        for name, step in steps:
+            torch.cuda.reset_peak_memory_stats(device)
+            ms = _timed_steps(lambda: step(v1, v2, clips[:b], labels[:b]), ADV_TIMED_STEPS)
+            _step_line("adversarial", f"{name} step (remat {remat!r} -> {resolved!r}, {b} videos x 3 views "
+                       f"x {p.num_frames} x {p.reso_h}^2 + {p.batch_size_vispr} VISPR pairs, "
+                       f"{p.compute_dtype} autocast)", ms, b, "videos", device, card)
+            if (remat, b) == ADV_TIMED[0]:
+                log(f"[adversarial] where an {name} step's time goes:")
+                profile_step(lambda: step(v1, v2, clips[:b], labels[:b]), steps=1)
+    del fa, fb, ft, opts, v1, v2, clips
+    torch.cuda.empty_cache()
+
+
+def privacy_k2(device, card: str) -> None:
+    """The privacy step's anonymized batch (32 augmented images of 224^2) through the
+    bf16 plain-UNet fa with K2 and with its plain version: max |K2 - plain| within
+    K2_BF16_TOL of max |plain|, and the error over the between-frame spread printed."""
+    import torch
+
+    from ted_spad_tpu_torch.config.params import PrivacyParams
+    from ted_spad_tpu_torch.models import load_fa_model
+    from ted_spad_tpu_torch.ops.augment import augment_batch
+
+    pp = PrivacyParams()
+    fa = load_fa_model("unet", seed=0, dtype=pp.compute_dtype, device=device)
+    with torch.no_grad():
+        fa.outc.weight.mul_(UNET_OUTC_GAIN)
+    images, _, draw = _priv_batches(pp.batch_size, pp.reso_h, count=1)[0]
+    with torch.inference_mode():
+        x = augment_batch(torch.from_numpy(images).to(device)[:, None], draw, pp.reso_h, pp.reso_w)[:, 0]
+        x = x.permute(0, 3, 1, 2)
+        got = fa(x).double()
+        ref = fa(x, use_kernel=False).double()
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    spread = float(torch.linalg.norm(got - ref) / torch.linalg.norm(ref - ref.mean(0)))
+    log(f"[privacy] the privacy batch ({pp.batch_size} images of {pp.reso_h}^2) through the bf16 UNet fa "
+        f"(outc x{UNET_OUTC_GAIN}): K2 against its plain version max |d| {err:.3e} = {err / scale:.3e} of "
+        f"max |plain| {scale:.4f} (limit {K2_BF16_TOL:.3e}); error / between-image spread {spread:.3e} | {card}")
+    if not err <= K2_BF16_TOL * scale:
+        raise AssertionError("K2 disagrees with its plain version on the privacy batch")
+
+
+def privacy_drivers(device, workdir: str, card: str) -> tuple[dict, dict]:
+    """The stage drivers end to end on synthetic sources: train_privacy (anon through
+    the plain-UNet fa, so K2) and train_anonymizer (plain-UNet fa) for one short epoch
+    each; checkpoints written and reloading bit-equal, finite losses; then the
+    adversarially trained fa and ft serve (load_fa_model / load_ft_model -> the
+    extraction step) and its fb loads in load_fb_model. Returns the kernels' launch
+    counts from the train_privacy run and from the train_anonymizer run."""
+    import numpy as np
+    import torch
+
+    from ted_spad_tpu_torch.config.params import (
+        AnonymizationParams, FeatureExtractionParams, PrivacyParams,
+    )
+    from ted_spad_tpu_torch.data.images import SyntheticImageSource
+    from ted_spad_tpu_torch.data.videos import synthetic_video_items
+    from ted_spad_tpu_torch.models import load_fa_model, load_fb_model, load_ft_model
+    from ted_spad_tpu_torch.stages.anonymization_training import train_anonymizer
+    from ted_spad_tpu_torch.stages.feature_extraction import make_extract_step
+    from ted_spad_tpu_torch.stages.privacy_training import train_privacy
+
+    root = os.path.join(workdir, "privacy")
+    pp = PrivacyParams(anon=True, run_id="privacy_smoke")
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    res = train_privacy(pp, train_source=SyntheticImageSource(n=2 * pp.batch_size, seed=0),
+                        val_source=SyntheticImageSource(n=pp.v_batch_size, seed=1), save_dir=root,
+                        fa_arch="unet", max_epochs=1, log_fn=lambda m: log(f"[privacy] {m}"),
+                        device=device)
+    priv = launch_counts()
+    log(f"[privacy] train_privacy (anon, plain-UNet fa): 2 steps of {pp.batch_size} + 1 validation batch in "
+        f"{time.perf_counter() - t0:.1f}s, history {json.dumps(res['history'])}; kernel launches "
+        f"{json.dumps(priv)} | {card}")
+    h = res["history"]
+    if not (all(len(v) == 1 for v in h.values()) and np.isfinite([v[0] for v in h.values()]).all()):
+        raise AssertionError(f"train_privacy history out of range: {h}")
+    if priv != expected(K2=9 * 3):
+        raise AssertionError(f"expected K2 x27 (9 per fa forward, 2 train + 1 validation): {priv}")
+    fb = load_fb_model(saved_model_file=res["best_path"], dtype="float32", device=device)
+    if not _same_weights(fb, res["model"]):
+        raise AssertionError("the privacy checkpoint does not reload bit-equal")
+
+    n_videos, n_pairs = ADV_DRIVER
+    ap = AnonymizationParams(arch_fa="unet", batch_size=n_videos, batch_size_vispr=n_pairs,
+                             v_batch_size=2, num_modes=1, save_acc_threshold=-1.0, run_id="adv_smoke")
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    res = train_anonymizer(
+        ap, train_items=synthetic_video_items(4 * n_videos, ap.num_classes, num_frames=64, h=240, w=320, seed=0),
+        val_items=synthetic_video_items(2, ap.num_classes, num_frames=64, h=240, w=320, seed=1),
+        vispr_source=SyntheticImageSource(n=4 * n_pairs, seed=0), save_dir=root, max_epochs=1,
+        log_fn=lambda m: log(f"[adversarial] {m}"), device=device)
+    adv = launch_counts()
+    log(f"[adversarial] train_anonymizer (plain-UNet fa, {n_videos} videos + {n_pairs} VISPR pairs per batch, "
+        f"4 batches at {ap.reso_h}^2): {time.perf_counter() - t0:.1f}s, history {json.dumps(res['history'])}; "
+        f"kernel launches {json.dumps(adv)} | {card}")
+    h = res["history"]
+    if not (all(len(v) == 1 for v in h.values()) and np.isfinite([v[0] for v in h.values()]).all()):
+        raise AssertionError(f"train_anonymizer history out of range: {h}")
+    # 9 per eval fa forward: 2 fb/ft steps x 3 (two VISPR views, the clips), the
+    # preview grid, one validation batch.
+    if adv != expected(K2=9 * 8):
+        raise AssertionError(f"expected K2 x72 on the adversarial path: {adv}")
+    path = res["best_path"]
+    fa32 = load_fa_model("unet", saved_model_file=path, dtype="float32", device=device)
+    ft32 = load_ft_model(saved_model_file=path, dtype="float32", device=device)
+    fb32 = load_fb_model(saved_model_file=path, ssl=True, dtype="float32", device=device)
+    for name, trained, reloaded in (("fa", res["fa"], fa32), ("ft", res["ft"], ft32), ("fb", res["fb"], fb32)):
+        if not _same_weights(trained, reloaded):
+            raise AssertionError(f"the adversarial checkpoint's {name} does not reload bit-equal")
+    del fa32, ft32, fb32
+    p = FeatureExtractionParams(batch_size=4, arch_fa="unet")
+    fa = load_fa_model("unet", saved_model_file=path, device=device)
+    ft = load_ft_model(saved_model_file=path, device=device)
+    batch = first_batch([f"synthetic://n=64,h=240,w=320,seed={s}" for s in range(2)], p, device)
+    feats = make_extract_step(ft, p, fa, device=device)(batch)
+    torch.cuda.synchronize(device)
+    if not (feats.shape == (batch.shape[0], FEATURE_DIM) and bool(torch.isfinite(feats).all())):
+        raise AssertionError(f"adversarially trained models' features: {tuple(feats.shape)}")
+    log(f"[adversarial] checkpoint {os.path.getsize(path) / 1e6:.2f} MB (fa, fb, ft, flax msgpack) reloads "
+        f"bit-equal; the trained UNet fa and ft extract one {batch.shape[0]}-clip batch through the serving "
+        f"step: {tuple(feats.shape)} finite | {card}")
+    return priv, adv
+
+
+def _same_weights(a, b) -> bool:
+    """Whether two modules hold bit-equal weights (their flax trees)."""
+    import numpy as np
+
+    from ted_spad_tpu_torch.utils.jax_weights import state_dict_to_flax
+
+    x, y = dict(_flat(state_dict_to_flax(a))), dict(_flat(state_dict_to_flax(b)))
+    return x.keys() == y.keys() and all(np.array_equal(x[k], y[k]) for k in x)
+
+
+def privacy_phase(device, workdir: str, card: str) -> tuple[dict, dict]:
+    """Phase 13: the privacy side. Returns the kernels' launch counts from the
+    train_privacy run and from the train_anonymizer run."""
+    t0 = time.perf_counter()
+    privacy_gate(device, card)
+    privacy_steps(device, card)
+    privacy_k2(device, card)
+    launches = privacy_drivers(device, workdir, card)
+    log(f"[privacy] phase time {time.perf_counter() - t0:.1f}s")
     return launches
 
 
@@ -1647,6 +2037,7 @@ def main() -> int:
         launches["training"] = training_phase(device, workdir, card)
         if any(launches["training"].values()):
             raise AssertionError(f"the training path launched a kernel: {launches['training']}")
+        launches["privacy"], launches["adversarial"] = privacy_phase(device, workdir, card)
     # Each kernel's launches on its own main path (K1: the default UNet++ path, K2: the
     # plain-UNet path, K3: the YUV path, K4: the int8 path), and on every path driven.
     for k, name, path in ((k1, "K1 preprocess", "unet++"), (k2, "K2 double_conv", "unet"),

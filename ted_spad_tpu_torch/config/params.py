@@ -1,6 +1,7 @@
 """Typed configuration of the port: ted_spad_tpu's ``StageParams``, ``VideoParams``,
-``ReconstructionParams``, ``ActionParams``, ``FeatureExtractionParams`` and
-``MGFNParams`` (the fields the port reads), with the same names and defaults so one
+``ReconstructionParams``, ``ActionParams``, ``AnonymizationParams``,
+``PrivacyParams``, ``FeatureExtractionParams`` and ``MGFNParams`` (the fields the port
+reads), with the same names and defaults so one
 configuration reads the same in both. Schedule arrays (``warmup_array``,
 ``cosine_lr_array``) are computed from scalars, as the reference's formulas."""
 
@@ -131,6 +132,97 @@ class ActionParams(VideoParams):
     def val_array(self) -> list[int]:
         # params_action.py:44
         return [1] + [5 * x for x in range(1, 8)] + [2 * x for x in range(21, 25)]
+
+
+@dataclasses.dataclass
+class AnonymizationParams(VideoParams):
+    """The adversarial anonymizer stage (anonymization_training/params_anonymization.py)."""
+
+    run_id: str = "baseline_anonymization"
+    arch_ft: str = "largei3d"
+    arch_fa: str = "unet++"
+    arch_fb: str = "r50"
+    saved_model_fa: str | None = None
+    saved_model_ft: str | None = None
+    saved_model_fb: str | None = None
+
+    num_pa: int = 7
+    data_percentage_vispr: float = 1.0
+    batch_size: int = 8
+    batch_size_vispr: int = 12
+    learning_rate: float = 1e-5
+    loss: str = "ce"  # 'ce' | 'con' (SupCon on two normalized views)
+    temporal_loss: str = "trip"
+    weak_aug: bool = True
+
+    # Scaled per-model LRs (params_anonymization.py:55-57).
+    fa_lr_scale: float = 0.4
+    fb_lr_scale: float = 1.0
+    ft_lr_scale: float = 1.0
+
+    # Adversarial loss composition (params_anonymization.py:58-61; train_anonymizer.py:119).
+    ft_loss_weight: float = 0.7
+    fb_loss_weight: float = 1.0
+    temporal_loss_weight: float = 0.1
+    triplet_loss_margin: float = 1.0
+    temporal_distance: int | None = None
+
+    # NT-Xent (train_anonymizer.py:82): temperature 0.1, dot-product similarity.
+    nt_xent_temperature: float = 0.1
+    nt_xent_cosine: bool = False
+
+    # Microbatches of the fa step (gradients and losses averaged; see
+    # stages/anonymization_training.py for the contrastive losses under it).
+    accum_steps: int = 1
+
+    # Activation checkpointing in the adversarial backwards: "auto" (off below 12M
+    # frame-pixels per step, else full), "on", "off", or "blocks" (each fa and ft
+    # stage checkpointed on its own; stages/anonymization_training.py).
+    remat: str = "auto"
+
+    # The reference's scrambled fa-input reshape (train_anonymizer.py:86-92), on clips.
+    quirk_compat: bool = False
+
+    # Checkpoint gating (train_anonymizer.py:511): every validation above this top-1.
+    save_acc_threshold: float = 0.6
+
+    @property
+    def learning_rate_fa(self) -> float:
+        return self.fa_lr_scale * self.learning_rate
+
+    @property
+    def learning_rate_fb(self) -> float:
+        return self.fb_lr_scale * self.learning_rate
+
+    @property
+    def learning_rate_ft(self) -> float:
+        return self.ft_lr_scale * self.learning_rate
+
+    # The reference's per-epoch scheduler block is commented out
+    # (train_anonymizer.py:432-450): constant scaled LRs unless this is set, then
+    # the cosine array.
+    use_lr_schedule: bool = False
+
+    @property
+    def val_array(self) -> list[int]:
+        # train_anonymizer.py:401.
+        return [1, 5, 10, 12, 15, 20, 25, 30, 35] + [40 + x * 2 for x in range(30)]
+
+
+@dataclasses.dataclass
+class PrivacyParams(StageParams):
+    """fb privacy-attack evaluation (privacy_training/params_privacy.py)."""
+
+    run_id: str = "default_privacy"
+    saved_model: str | None = None  # fa checkpoint when anon=True
+    anon: bool = False
+    num_pa: int = 7
+    batch_size: int = 32
+    v_batch_size: int = 32
+    learning_rate: float = 1e-3
+    warmup: int = 5
+    lr_reduce_factor: float = 5.0
+    lr_patience: int = 0
 
 
 @dataclasses.dataclass

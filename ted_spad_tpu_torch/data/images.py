@@ -1,22 +1,37 @@
-"""Image sources of fa pretraining (counterpart of part of ted_spad_tpu/data/images.py;
-reference fa_pretraining/reconstruction_dl.py:17 and aux_code/vispr_dl.py).
+"""Image sources (counterpart of ted_spad_tpu/data/images.py): the VISPR
+privacy-attribute splits of privacy training and the adversarial stage
+(aux_code/vispr_dl.py: vispr_dataset :18, vispr_ssl_dataset :133,
+vispr_boring_dataset :255) and the image mix of fa pretraining
+(fa_pretraining/reconstruction_dl.py:17).
 
 The host decodes JPEGs (PIL) to a canonical square so batches are dense; the
 augmentation draw is numpy here (``sample_image_augment_params``, the JAX package's
-draw order) and the pixel work runs on the images' device (ops/augment.py). The
-VISPR privacy-attribute pipeline comes with privacy training.
+draw order, so one seed gives the same batches in both) and the pixel work runs on
+the images' device (ops/augment.py). Labels are multi-hot privacy-attribute vectors
+from ``{split}_labels.pkl``. As in the JAX package, crops are taken on the canonical
+host copy, not on the original resolution.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import glob
+import os
+import pickle
 from concurrent.futures import ThreadPoolExecutor
-from typing import Sequence
+from typing import Iterator, Sequence
 
 import numpy as np
 
 from ted_spad_tpu_torch.ops.augment import AugmentParams
 
 CANONICAL = 256  # host-side canonical square size fed to device-side crops
+
+
+def load_vispr_labels(pkl_path: str) -> dict[str, np.ndarray]:
+    """{image name: multi-hot attribute vector} (vispr_dl.py:21)."""
+    with open(pkl_path, "rb") as f:
+        return pickle.load(f)
 
 
 def decode_image_canonical(path: str, size: int = CANONICAL) -> np.ndarray:
@@ -35,10 +50,47 @@ def decode_image_canonical(path: str, size: int = CANONICAL) -> np.ndarray:
         return np.asarray(im, dtype=np.uint8)
 
 
+class VisprImageSource:
+    """File-backed VISPR split: a folder of jpgs and its labels pickle
+    (vispr_dl.py:18-33). ``shuffle`` permutes the sorted paths with ``seed`` before
+    ``data_percentage`` keeps their head, as the JAX package does."""
+
+    def __init__(
+        self,
+        data_dir: str,
+        labels_pkl: str,
+        shuffle: bool = True,
+        data_percentage: float = 1.0,
+        seed: int = 0,
+        canonical: int = CANONICAL,
+        num_workers: int = 8,
+    ):
+        self.labels = load_vispr_labels(labels_pkl)
+        paths = sorted(glob.glob(os.path.join(data_dir, "*.jpg")))
+        if shuffle:
+            np.random.default_rng(seed).shuffle(paths)
+        self.paths = paths[: int(len(paths) * data_percentage)]
+        self.canonical = canonical
+        self._pool = ThreadPoolExecutor(num_workers)
+
+    def __len__(self) -> int:
+        return len(self.paths)
+
+    def label_of(self, path: str) -> np.ndarray:
+        return np.asarray(self.labels[os.path.basename(path).replace(".jpg", "")], np.float32)
+
+    def get_batch(self, indices: Sequence[int]) -> tuple[np.ndarray, np.ndarray]:
+        paths = [self.paths[i] for i in indices]
+        imgs = list(self._pool.map(lambda p: decode_image_canonical(p, self.canonical), paths))
+        labels = np.stack([self.label_of(p) for p in paths])
+        return np.stack(imgs), labels
+
+
 class SyntheticImageSource:
     """Deterministic procedural images with multi-hot labels, two of the attributes
-    encoded as stripe frequencies: the in-memory stand-in that runs fa pretraining
-    without images on disk (the JAX package's default ``style="stripes"``)."""
+    encoded as stripe frequencies: the in-memory stand-in that runs fa pretraining,
+    privacy training and the adversarial stage without images on disk (the JAX
+    package's default ``style="stripes"``)."""
 
     def __init__(self, n: int = 256, num_pa: int = 7, seed: int = 0, canonical: int = CANONICAL):
         self.n = n
@@ -114,6 +166,60 @@ def sample_image_augment_params(
         erase_h=rng.integers(erase_size // 2, erase_size, size=(batch, 2)).astype(np.int32),
         erase_w=rng.integers(erase_size // 2, erase_size, size=(batch, 2)).astype(np.int32),
     )
+
+
+@dataclasses.dataclass
+class ImageBatch:
+    """Host-side batch: canonical uint8 images, labels, and the augmentation draws
+    (view 1 when training, view 2 for an SSL pair)."""
+
+    images: np.ndarray  # (B, S, S, 3) uint8
+    labels: np.ndarray  # (B, num_pa) float32
+    params: AugmentParams | None = None
+    params2: AugmentParams | None = None
+
+
+def vispr_batches(
+    source,
+    batch_size: int,
+    *,
+    train: bool = True,
+    ssl: bool = False,
+    out_h: int = 224,
+    out_w: int = 224,
+    seed: int = 0,
+    drop_last: bool = True,
+) -> Iterator[ImageBatch]:
+    """One epoch of batches, shuffled with ``seed`` when ``train``. ``ssl`` adds a
+    second draw whose crop shares the first one's origin (the NT-Xent positive pair,
+    vispr_ssl_dataset). Eval batches carry no draw: the stage centre-crops them."""
+    rng = np.random.default_rng(seed)
+    order = np.arange(len(source))
+    if train:
+        rng.shuffle(order)
+    n_steps = len(order) // batch_size if drop_last else -(-len(order) // batch_size)
+    for s in range(n_steps):
+        idx = order[s * batch_size: (s + 1) * batch_size]
+        if len(idx) == 0:
+            return
+        images, labels = source.get_batch(idx)
+        if not train:
+            yield ImageBatch(images, labels)
+            continue
+        src = images.shape[1]
+        p1 = sample_image_augment_params(rng, len(idx), src, out_h, out_w)
+        if not ssl:
+            yield ImageBatch(images, labels, p1)
+            continue
+        p2 = sample_image_augment_params(rng, len(idx), src, out_h, out_w,
+                                         shared_crop_origin=(p1.y0.copy(), p1.x0.copy()))
+        yield ImageBatch(images, labels, p1, p2)
+
+
+def boring_video_batch(images: np.ndarray, num_frames: int) -> np.ndarray:
+    """vispr_boring_dataset (vispr_dl.py:255-308): each image repeated ``num_frames``
+    times as a still video, (B, S, S, 3) -> (B, T, S, S, 3)."""
+    return np.repeat(images[:, None], num_frames, axis=1)
 
 
 class ReconstructionSource:

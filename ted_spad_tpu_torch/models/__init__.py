@@ -1,6 +1,7 @@
 """Model zoo + factories of the port (counterpart of ted_spad_tpu/models/__init__.py).
 
-``load_fa_model`` / ``load_ft_model`` / ``load_mgfn_model`` build a module in eval
+``load_fa_model`` / ``load_ft_model`` / ``load_fb_model`` / ``load_mgfn_model`` build a
+module in eval
 mode with weights drawn from a seeded ``torch.Generator``, cast to ``dtype`` and
 placed on ``device`` (CUDA by default; see utils/device.py). Trained weights come
 from ``saved_model_file``, a checkpoint the JAX package (or the port) wrote, read
@@ -18,7 +19,7 @@ from ted_spad_tpu_torch.models.i3res50 import I3Res50, MlpHead, NonLocalBlock3D,
 from ted_spad_tpu_torch.models.mgfn import MGFN
 from ted_spad_tpu_torch.models.mvit import MViTv2S
 from ted_spad_tpu_torch.models.r3d import R3D18
-from ted_spad_tpu_torch.models.resnet2d import ResNet2D
+from ted_spad_tpu_torch.models.resnet2d import ResNet2D, ResNet50Classifier, ResNet50SSL
 from ted_spad_tpu_torch.models.unet import UNet, UNetPlusPlus
 from ted_spad_tpu_torch.utils.device import resolve_device, torch_dtype
 from ted_spad_tpu_torch.utils.jax_weights import load_jax_checkpoint, load_jax_variables
@@ -33,10 +34,13 @@ __all__ = [
     "NonLocalBlock3D",
     "R3D18",
     "ResNet2D",
+    "ResNet50Classifier",
+    "ResNet50SSL",
     "UNet",
     "UNetPlusPlus",
     "WrapperI3D",
     "load_fa_model",
+    "load_fb_model",
     "load_ft_model",
     "load_mgfn_model",
 ]
@@ -139,6 +143,35 @@ def load_ft_model(
         load_jax_variables(model, tree)
     # MViT works on token sequences; its only convs are the patch embed and the poolings.
     return _place(model, device, torch_dtype(dtype), None if arch == "mvitv2" else "channels_last_3d")
+
+
+def load_fb_model(
+    arch: str = "r50",
+    saved_model_file: str | None = None,
+    num_pa: int = 7,
+    ssl: bool = False,
+    *,
+    image_size: tuple[int, int] = (224, 224),
+    dtype: str | None = "bfloat16",
+    tiny: bool = False,
+    seed: int = 0,
+    device: str | torch.device = "cuda",
+) -> ResNet50Classifier | ResNet50SSL:
+    """Privacy model factory (model_loaders.py:94-121): the ResNet-50 multi-label
+    classifier of ``num_pa`` attributes, or with ``ssl`` the SimCLR model of the
+    adversarial stage. ``saved_model_file`` holds ``fb_model_state_dict``. ``tiny``
+    is ``layers=(1, 1, 1, 1), width=8``, as in the JAX package. ``image_size`` is
+    accepted for the JAX signature (flax initializes from a dummy input of that size);
+    the torch modules need none."""
+    del image_size
+    if arch != "r50":
+        raise ValueError(f"Architecture {arch!r} invalid for fb_model. Try 'r50'")
+    g = torch.Generator().manual_seed(seed)
+    kw: dict = {"layers": (1, 1, 1, 1), "width": 8} if tiny else {}
+    model = ResNet50SSL(generator=g, **kw) if ssl else ResNet50Classifier(num_pa, generator=g, **kw)
+    if saved_model_file:
+        load_jax_checkpoint(model, saved_model_file, "fb_model_state_dict")
+    return _place(model, device, torch_dtype(dtype), "channels_last")
 
 
 def load_mgfn_model(params=None, saved_model_file: str | None = None, *,

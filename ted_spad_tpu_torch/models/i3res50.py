@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ted_spad_tpu_torch.models.layers import (
-    ConvBN, batch_norm, dropout, global_avg_pool, lecun_normal_, max_pool_valid,
+    ConvBN, batch_norm, checkpoint, dropout, global_avg_pool, lecun_normal_, max_pool_valid,
 )
 from ted_spad_tpu_torch.ops.losses import l2_normalize
 from ted_spad_tpu_torch.utils.device import at_least_f32
@@ -135,21 +135,25 @@ class I3Res50(nn.Module):
             x = getattr(self, f"blocks_layer{li + 1}_{bi}")(x, train, frozen_bn)
         return x
 
-    def features(self, x: torch.Tensor, train: bool = False, frozen_bn: bool = False) -> torch.Tensor:
-        """(B, 3, T, H, W) -> (B, 2048) float32 (== extract_features, large_i3d.py:249-263)."""
-        x = self.stem(x.to(self.stem.conv.weight.dtype), train, frozen_bn)
+    def features(self, x: torch.Tensor, train: bool = False, frozen_bn: bool = False,
+                 remat_blocks: bool = False) -> torch.Tensor:
+        """(B, 3, T, H, W) -> (B, 2048) float32 (== extract_features, large_i3d.py:249-263).
+        ``remat_blocks`` checkpoints the stem and each of the four stages on its own
+        (``layers.checkpoint``): their outputs stay resident."""
+        run = checkpoint if remat_blocks else (lambda fn, *a: fn(*a))
+        x = run(lambda t: self.stem(t, train, frozen_bn), x.to(self.stem.conv.weight.dtype))
         x = max_pool_valid(x, (2, 3, 3), (2, 2, 2))
-        x = self._layer(x, 0, train, frozen_bn)
+        x = run(lambda t: self._layer(t, 0, train, frozen_bn), x)
         x = max_pool_valid(x, (2, 1, 1), (2, 1, 1))
         for li in (1, 2, 3):
-            x = self._layer(x, li, train, frozen_bn)
+            x = run(lambda t, li=li: self._layer(t, li, train, frozen_bn), x)
         return global_avg_pool(x)
 
     def forward(self, x: torch.Tensor, train: bool = False, frozen_bn: bool = False,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, remat_blocks: bool = False):
         """(logits, pooled feature), float32 (float64 for a float64 model): the logits
         from the feature through dropout (train mode, ``generator``) and ``fc``."""
-        feat = self.features(x, train, frozen_bn)
+        feat = self.features(x, train, frozen_bn, remat_blocks)
         h = feat.to(self.fc.weight.dtype)
         if train:
             h = dropout(h, self.dropout_rate, generator)
@@ -191,6 +195,6 @@ class WrapperI3D(nn.Module):
         return self.i3d.features(x)
 
     def forward(self, x: torch.Tensor, train: bool = False, frozen_bn: bool = False,
-                generator: torch.Generator | None = None):
-        logits, feat = self.i3d(x, train, frozen_bn, generator)
+                generator: torch.Generator | None = None, remat_blocks: bool = False):
+        logits, feat = self.i3d(x, train, frozen_bn, generator, remat_blocks)
         return logits, self.mlp(feat, train)

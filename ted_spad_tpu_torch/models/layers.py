@@ -8,15 +8,22 @@ Train mode follows flax, not torch: ``flax_batch_norm`` normalises with the bias
 batch variance and moves the running statistics as ``ra = 0.9 ra + 0.1 stat``
 (torch's train-mode BatchNorm stores the unbiased variance, with momentum meaning the
 reverse, so it is never used), and ``dropout`` draws from an explicit generator.
+
+``checkpoint`` is activation checkpointing (JAX's ``jax.checkpoint``, the adversarial
+stage's ``remat``) that keeps both of these exact: the running statistics move once
+per forward the step asks for, not again while the backward recomputes, and a
+recompute replays the dropout masks its first run drew.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
+import threading
+from typing import Callable, Sequence
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ted_spad_tpu_torch.utils.device import at_least_f32
@@ -25,6 +32,54 @@ from ted_spad_tpu_torch.utils.device import at_least_f32
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9
 
+# Set on the thread that recomputes a checkpointed forward during the backward.
+_recompute = threading.local()
+
+
+def recomputing() -> bool:
+    """Whether the current thread is recomputing a ``checkpoint``ed forward."""
+    return getattr(_recompute, "active", False)
+
+
+def checkpoint(fn: Callable, *args, generators: Sequence[torch.Generator] = ()):
+    """``fn(*args)`` under ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``:
+    only the inputs are kept, and the backward runs ``fn`` again for its
+    intermediates. Two traps of a train-mode forward are closed:
+
+    - BN statistics: ``flax_batch_norm`` moves the running statistics in place; while
+      recomputing it does not (``recomputing()``), so they move once, as under
+      ``jax.checkpoint``, which is functional;
+    - dropout: ``torch.utils.checkpoint`` restores only torch's default RNG states,
+      not an explicit generator's. The states of ``generators`` (those ``fn`` draws
+      from) are taken before the first run and set again for the recompute, which so
+      draws the same masks; afterwards each generator is put back where it was.
+
+    Without grad mode this is ``fn(*args)``."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    generators = tuple(generators)
+    first = [g.get_state() for g in generators]
+    runs = []
+
+    def run(*inputs):
+        if not runs:
+            runs.append(1)
+            return fn(*inputs)
+        now = [g.get_state() for g in generators]
+        for g, state in zip(generators, first):
+            g.set_state(state)
+        outer, _recompute.active = recomputing(), True
+        try:
+            return fn(*inputs)
+        finally:
+            _recompute.active = outer
+            for g, state in zip(generators, now):
+                g.set_state(state)
+
+    # Every draw goes through an explicit generator: torch's own RNG states need no copy.
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False,
+                                             preserve_rng_state=False)
+
 
 def flax_batch_norm(bn: nn.modules.batchnorm._NormBase, x: torch.Tensor,
                     momentum: float = BN_MOMENTUM) -> torch.Tensor:
@@ -32,15 +87,17 @@ def flax_batch_norm(bn: nn.modules.batchnorm._NormBase, x: torch.Tensor,
     the batch mean and the biased batch variance over every axis but the channels',
     taken as E[x^2] - E[x]^2 in float32 (flax's fast variance; float64 stays float64),
     and move ``bn``'s running statistics as ``ra = momentum * ra + (1 - momentum) *
-    stat`` with that biased variance. Gradients flow through the batch statistics;
-    the output is in ``x``'s dtype."""
+    stat`` with that biased variance (not while a ``checkpoint``ed forward is
+    recomputed). Gradients flow through the batch statistics; the output is in
+    ``x``'s dtype."""
     xf = at_least_f32(x)
     dims = [0] + list(range(2, x.dim()))
     mean = xf.mean(dim=dims)
     var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
-    with torch.no_grad():
-        bn.running_mean.copy_(momentum * bn.running_mean + (1.0 - momentum) * mean)
-        bn.running_var.copy_(momentum * bn.running_var + (1.0 - momentum) * var)
+    if not recomputing():
+        with torch.no_grad():
+            bn.running_mean.copy_(momentum * bn.running_mean + (1.0 - momentum) * mean)
+            bn.running_var.copy_(momentum * bn.running_var + (1.0 - momentum) * var)
     shape = (1, -1) + (1,) * (x.dim() - 2)
     mul = torch.rsqrt(var + bn.eps) * bn.weight
     return ((xf - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)).to(x.dtype)

@@ -18,7 +18,7 @@ import torch
 from torch import nn
 
 from ted_spad_tpu_torch.models.layers import (
-    ConvBN, max_pool_valid, pad_to_match, resize_bilinear, resize_nearest,
+    ConvBN, checkpoint, max_pool_valid, pad_to_match, resize_bilinear, resize_nearest,
 )
 from ted_spad_tpu_torch.models.resnet2d import ResNet2D
 from ted_spad_tpu_torch.ops.doubleconv import double_conv_reference, fold_bn, fused_double_conv
@@ -28,7 +28,7 @@ class DoubleConv(nn.Module):
     """(conv3x3 => BN => ReLU) * 2 (unet_parts.py:8-25), eval mode, as one fused
     DoubleConv: BN and the conv bias are folded into the weights in float32 on every
     call (so weights loaded later are always the ones used), the folded weights are
-    rounded to the module's dtype, and ``fused_double_conv`` (K2 on the card) runs
+    rounded to the input's dtype, and ``fused_double_conv`` (K2 on the card) runs
     both convs. ``conv1`` / ``conv2`` hold the flax module's parameters."""
 
     def __init__(self, in_ch: int, features: int, mid_features: int | None = None, *,
@@ -39,13 +39,13 @@ class DoubleConv(nn.Module):
         self.conv2 = ConvBN(mid, features, (3, 3), 1, 1, use_bias=True, generator=generator)
 
     @staticmethod
-    def _folded(block: ConvBN) -> tuple[torch.Tensor, torch.Tensor]:
-        """(w (3, 3, I, O) in the module dtype, b float32) of one ConvBN."""
+    def _folded(block: ConvBN, dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+        """(w (3, 3, I, O) in ``dtype``, b float32) of one ConvBN."""
         conv, bn = block.conv, block.bn
         w, b = fold_bn(conv.weight.float().permute(2, 3, 1, 0), bn.weight.float(),
                        bn.bias.float(), bn.running_mean.float(), bn.running_var.float(),
                        bn.eps, bias=conv.bias.float())
-        return w.to(conv.weight.dtype).contiguous(), b.contiguous()
+        return w.to(dtype).contiguous(), b.contiguous()
 
     def forward(self, x: torch.Tensor, use_kernel: bool = True, train: bool = False) -> torch.Tensor:
         """(N, Cin, H, W) ``channels_last`` -> (N, Cout, H, W) ``channels_last``.
@@ -53,8 +53,8 @@ class DoubleConv(nn.Module):
         two ConvBNs unfolded, with BN's batch statistics, as the flax module does."""
         if train:
             return self.conv2(self.conv1(x, True), True)
-        w1, b1 = self._folded(self.conv1)
-        w2, b2 = self._folded(self.conv2)
+        w1, b1 = self._folded(self.conv1, x.dtype)
+        w2, b2 = self._folded(self.conv2, x.dtype)
         fn = fused_double_conv if use_kernel else double_conv_reference
         return fn(x.permute(0, 2, 3, 1), w1, b1, w2, b2).permute(0, 3, 1, 2)
 
@@ -79,14 +79,23 @@ class UNet(nn.Module):
         nn.init.normal_(self.outc.weight, 0.0, (1.0 / 64) ** 0.5, generator=g)
         nn.init.zeros_(self.outc.bias)
 
-    def forward(self, x: torch.Tensor, use_kernel: bool = True, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, use_kernel: bool = True, train: bool = False,
+                remat_blocks: bool = False) -> torch.Tensor:
         """(N, 3, H, W) -> (N, n_classes, H, W) float32 in [0, 1]. ``use_kernel=False``
         runs every DoubleConv through its plain version; ``train`` runs them unfolded
-        with BN's batch statistics."""
+        with BN's batch statistics; ``remat_blocks`` checkpoints each DoubleConv on its
+        own (``layers.checkpoint``). In eval mode under autocast the DoubleConvs run
+        in the autocast dtype (a float32 fa being trained, frozen for a step, runs
+        them as the module's compute dtype would)."""
         cl = torch.channels_last
-        x = x.to(self.outc.weight.dtype).contiguous(memory_format=cl)
+        dtype = self.outc.weight.dtype
+        if not train and torch.is_autocast_enabled(x.device.type):
+            dtype = torch.get_autocast_dtype(x.device.type)
+        x = x.to(dtype).contiguous(memory_format=cl)
 
         def block(module: DoubleConv, t: torch.Tensor) -> torch.Tensor:
+            if remat_blocks:
+                return checkpoint(lambda u: module(u, use_kernel=use_kernel, train=train), t)
             return module(t, use_kernel=use_kernel, train=train)
 
         def down(module: DoubleConv, t: torch.Tensor) -> torch.Tensor:
@@ -163,17 +172,26 @@ class UNetPlusPlus(nn.Module):
         nn.init.normal_(self.head.weight, 0.0, (1.0 / (dec[3] * 9)) ** 0.5, generator=g)
         nn.init.zeros_(self.head.bias)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, remat_blocks: bool = False) -> torch.Tensor:
         """(N, 3, H, W) -> (N, out_channels, H, W) float32; ``train`` uses and updates
-        BN's batch statistics."""
+        BN's batch statistics. ``remat_blocks`` checkpoints each encoder stage and
+        each decoder block on its own (``layers.checkpoint``): the block outputs stay
+        resident, as under the JAX package's ``save_only_these_names`` policy over
+        them, and only the insides are recomputed."""
         in_h, in_w = x.shape[-2], x.shape[-1]
         x = x.to(self.head.weight.dtype)
-        f = self.encoder(x, train)[1:][::-1]
-        x_0_0 = self.x_0_0(f[0], f[1], train)  # /8
-        x_1_1 = self.x_1_1(f[1], f[2], train)  # /4
-        x_2_2 = self.x_2_2(f[2], f[3], train)  # /2
-        x_0_1 = self.x_0_1(x_0_0, torch.cat([x_1_1, f[2]], dim=1), train)  # /4
-        x_1_2 = self.x_1_2(x_1_1, torch.cat([x_2_2, f[3]], dim=1), train)  # /2
-        x_0_2 = self.x_0_2(x_0_1, torch.cat([x_1_2, x_2_2, f[3]], dim=1), train)  # /2
-        x_0_3 = pad_to_match(self.x_0_3(x_0_2, None, train), in_h, in_w)  # /1
+        f = self.encoder(x, train, remat_blocks)[1:][::-1]
+
+        def dec(block: UnetPPDecoderBlock, t: torch.Tensor, skip: torch.Tensor | None) -> torch.Tensor:
+            if remat_blocks:
+                return checkpoint(lambda u, v: block(u, v, train), t, skip)
+            return block(t, skip, train)
+
+        x_0_0 = dec(self.x_0_0, f[0], f[1])  # /8
+        x_1_1 = dec(self.x_1_1, f[1], f[2])  # /4
+        x_2_2 = dec(self.x_2_2, f[2], f[3])  # /2
+        x_0_1 = dec(self.x_0_1, x_0_0, torch.cat([x_1_1, f[2]], dim=1))  # /4
+        x_1_2 = dec(self.x_1_2, x_1_1, torch.cat([x_2_2, f[3]], dim=1))  # /2
+        x_0_2 = dec(self.x_0_2, x_0_1, torch.cat([x_1_2, x_2_2, f[3]], dim=1))  # /2
+        x_0_3 = pad_to_match(dec(self.x_0_3, x_0_2, None), in_h, in_w)  # /1
         return self.head(x_0_3).float()

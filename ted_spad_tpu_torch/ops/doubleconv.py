@@ -10,7 +10,8 @@ Layouts are the JAX package's: x (N, H, W, Cin), weights (3, 3, I, O), biases f3
   the same again for conv2 with the result in the input dtype.
 - ``fused_double_conv``: the kernel wrapper (K2, csrc/doubleconv.cu). On a CUDA
   tensor it launches the hand-written kernel; on a CPU tensor it runs the plain
-  version. Its ``launches`` attribute counts kernel launches.
+  version. Its ``launches`` attribute counts kernel launches. K2 has no backward:
+  on the card it refuses (``refuse_grad``) inputs that ask for a gradient.
 - ``k2_tile_plan``: the kernel's tile class and shared memory for a shape, computed
   as the kernel lays them out; raises ``ValueError`` where no class fits.
 """
@@ -138,6 +139,17 @@ def _check(x, w1, b1, w2, b2) -> None:
                              "view of a channels_last tensor); it would be copied")
 
 
+def refuse_grad(*tensors: torch.Tensor) -> None:
+    """Raise where autograd would record through K2: grad mode on and any of
+    ``tensors`` requiring grad. K2 writes its output through raw pointers, so the
+    output would carry no ``grad_fn`` and the caller's gradient would be cut
+    silently; eval-mode callers next to an autograd graph run under ``no_grad``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError("fused_double_conv: kernel K2 has no backward, and an input "
+                           "requires grad; run it under torch.no_grad() (a frozen fa) or "
+                           "in train mode (unfolded ConvBNs)")
+
+
 def fused_double_conv(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                       w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """relu(conv3x3(relu(conv3x3(x, w1) + b1), w2) + b2), SAME padding, BN folded.
@@ -146,13 +158,16 @@ def fused_double_conv(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     ``t.permute(0, 2, 3, 1)`` of a ``channels_last`` NCHW tensor is);
     w1: (3, 3, Cin, Cmid) and w2: (3, 3, Cmid, Cout) in x.dtype; b1, b2: float32.
     Returns (N, H, W, Cout) in x.dtype, contiguous. On CUDA this launches kernel K2
-    on the current stream; on the CPU it runs ``double_conv_reference``.
+    on the current stream, and raises ``RuntimeError`` under grad mode when an input
+    requires grad (``refuse_grad``); on the CPU it runs ``double_conv_reference``,
+    which is differentiable.
     """
     _check(x, w1, b1, w2, b2)
     if x.device.type == "cpu":
         return double_conv_reference(x, w1, b1, w2, b2)
     if x.device.type != "cuda":
         raise ValueError(f"fused_double_conv runs on cuda or cpu, not {x.device}")
+    refuse_grad(x, w1, b1, w2, b2)
     n, h, w, cin = x.shape
     cmid, cout = w1.shape[-1], w2.shape[-1]
     if not 0 < n <= 65535 or h * w == 0:

@@ -1,8 +1,8 @@
 """Metrics in numpy (counterpart of ted_spad_tpu/ops/metrics.py): the frame-level
 anomaly metrics (reference test.py:32-48) -- ROC AUC, PR AUC (trapezoidal, as the
 reference's ``auc(recall, precision)``) and average precision with scikit-learn's
-conventions, and the expansion of clip scores to the frame timeline -- and the action
-stage's top-1 accuracy."""
+conventions, and the expansion of clip scores to the frame timeline -- the action
+stage's top-1 accuracy, and the privacy stage's cMAP and macro P/R/F1."""
 
 from __future__ import annotations
 
@@ -71,6 +71,32 @@ def average_precision(labels: np.ndarray, scores: np.ndarray) -> float:
     precision = tps / np.maximum(tps + fps, 1)
     recall = tps / p
     return float(np.sum((recall - np.r_[0.0, recall[:-1]]) * precision))
+
+
+def macro_average_precision(labels: np.ndarray, scores: np.ndarray) -> tuple[float, np.ndarray]:
+    """cMAP over the privacy attributes: each class's average precision, then their
+    unweighted mean (train_privacy.py:113-119); a class with no positive reads 0.
+    ``labels`` / ``scores``: (N, num_classes). Returns (cMAP, per-class AP)."""
+    labels = np.asarray(labels)
+    scores = np.asarray(scores)
+    per_class = np.array([average_precision(labels[:, c], scores[:, c])
+                          for c in range(labels.shape[1])])
+    return float(per_class.mean()), per_class
+
+
+def multilabel_prf1(labels: np.ndarray, scores: np.ndarray,
+                    threshold: float = 0.5) -> tuple[float, float, float]:
+    """Macro precision, recall and F1 at a fixed score threshold (train_privacy.py:104-112)."""
+    labels = np.asarray(labels) > 0.5
+    preds = np.asarray(scores) > threshold
+    eps = 1e-12
+    tp = (labels & preds).sum(0).astype(np.float64)
+    fp = (~labels & preds).sum(0).astype(np.float64)
+    fn = (labels & ~preds).sum(0).astype(np.float64)
+    precision = tp / np.maximum(tp + fp, eps)
+    recall = tp / np.maximum(tp + fn, eps)
+    f1 = 2 * precision * recall / np.maximum(precision + recall, eps)
+    return float(precision.mean()), float(recall.mean()), float(f1.mean())
 
 
 def top1_accuracy(mean_probs: np.ndarray, labels: np.ndarray) -> float:

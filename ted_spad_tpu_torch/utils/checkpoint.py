@@ -8,9 +8,8 @@ tree onto a module and back.
 Semantics kept from the JAX package: atomic writes (``.tmp`` then ``os.replace``),
 a background writer whose host snapshot is taken on the caller, same-path saves that
 supersede a queued one, best-metric gated saves named
-``{name}_{epoch}_best_{metric:.4f}.ckpt``, and a rolling ``{name}_temp.ckpt``. (The
-JAX package's save-every-epoch-above-a-threshold mode of ``BestCheckpointer`` serves
-the anonymizer stage and comes with it.)
+``{name}_{epoch}_best_{metric:.4f}.ckpt`` (or, with a threshold, every epoch past
+it), and a rolling ``{name}_temp.ckpt``.
 """
 
 from __future__ import annotations
@@ -154,29 +153,37 @@ def load_checkpoint(path: str) -> dict[str, Any]:
 
 
 class BestCheckpointer:
-    """Best-metric gated saving: a checkpoint for every strict improvement;
-    ``best_path`` tracks the best one."""
+    """Best-metric gated saving: a checkpoint for every strict improvement. With a
+    ``threshold``, every epoch past it is saved instead (the anonymizer writes one
+    for each validation above its accuracy threshold, train_anonymizer.py:511-525).
+    ``best_path`` tracks the best one either way."""
 
-    def __init__(self, directory: str, name: str, mode: str = "max"):
+    def __init__(self, directory: str, name: str, mode: str = "max",
+                 threshold: float | None = None):
         self.directory = directory
         self.name = name
         self.mode = mode
+        self.threshold = threshold
         self.best: float | None = None
         self.best_path: str | None = None
 
+    def _beats(self, value: float, ref: float) -> bool:
+        return value > ref if self.mode == "max" else value < ref
+
     def is_better(self, value: float) -> bool:
-        if self.best is None:
-            return True
-        return value > self.best if self.mode == "max" else value < self.best
+        if self.threshold is not None:
+            return self._beats(value, self.threshold)
+        return self.best is None or self._beats(value, self.best)
 
     def maybe_save(self, value: float, epoch: int, payload: Mapping[str, Any]) -> str | None:
         if not self.is_better(value):
             return None
         path = os.path.join(self.directory, f"{self.name}_{epoch}_best_{value:.4f}.ckpt")
-        self.best = value
-        self.best_path = async_writer().save(
-            path, {**payload, "epoch": int(epoch), "metric": float(value)})
-        return self.best_path
+        saved = async_writer().save(path, {**payload, "epoch": int(epoch), "metric": float(value)})
+        if self.best is None or self._beats(value, self.best):
+            self.best = value
+            self.best_path = saved
+        return saved
 
 
 def save_temp(directory: str, name: str, payload: Mapping[str, Any]) -> str:

@@ -1,14 +1,17 @@
 """Run-scoped metrics logging and step timing (counterpart of
 ted_spad_tpu/utils/logging.py). :class:`MetricsWriter` appends JSONL scalars to
 ``<log_dir>/<run_id>/metrics.jsonl`` and mirrors them to tensorboardX where that
-package is installed, as the reference logs them (mgfn main.py:46, 97-102)."""
+package is installed, as the reference logs them (mgfn main.py:46, 97-102);
+:func:`config_dump` writes a run's configuration beside them."""
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
 import time
+from typing import Any
 
 
 class MetricsWriter:
@@ -70,3 +73,13 @@ class StepTimer:
     def rate(self, items_per_step: int = 1) -> float:
         m = self.mean_step_s()
         return items_per_step / m if m > 0 else 0.0
+
+
+def config_dump(writer: MetricsWriter, params: Any) -> None:
+    """The run's configuration as text, one ``field: value`` line per dataclass field,
+    in ``<run dir>/config.txt`` (mgfn main.py:21-27 save_config)."""
+    if dataclasses.is_dataclass(params):
+        content = "\n".join(f"{f.name}: {getattr(params, f.name)}" for f in dataclasses.fields(params))
+    else:
+        content = str(params)
+    writer.text("config", content)

@@ -138,6 +138,20 @@ def test_double_conv_kernel_rejects_what_it_does_not_take(cuda_device):
 
 
 @pytest.mark.cuda
+def test_double_conv_kernel_refuses_to_cut_a_gradient(cuda_device):
+    """K2 has no backward: under grad mode with an input that requires grad it raises
+    and launches nothing; under no_grad the same call runs."""
+    x, w1, b1, w2, b2 = _double_conv_operands(cuda_device, (1, 8, 8, 16, 16, 16), torch.bfloat16)
+    before = dc.fused_double_conv.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        dc.fused_double_conv(x, w1.requires_grad_(True), b1, w2, b2)
+    assert dc.fused_double_conv.launches == before
+    with torch.no_grad():
+        out = dc.fused_double_conv(x, w1, b1, w2, b2)
+    assert out.grad_fn is None and dc.fused_double_conv.launches == before + 1
+
+
+@pytest.mark.cuda
 def test_double_conv_kernel_refuses_a_cmid_no_tile_fits(cuda_device):
     x, w1, b1, w2, b2 = _double_conv_operands(cuda_device, (1, 8, 8, 16, 1024, 16), torch.bfloat16)
     launches = dc.fused_double_conv.launches

@@ -289,7 +289,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          timeout=300, env={**os.environ, "PYTHONPATH": ROOT})
     assert out.returncode == 0, out.stderr
     *_, names, count = out.stdout.strip().splitlines()
-    assert int(count) >= 53
+    assert int(count) >= 57
     slice7 = {"cli", "data.gt_builders", "extract_features", "make_gt", "models.i3d", "models.mvit",
               "models.r3d"}  # the extraction options' and gt builders' modules
     slice8 = {"ops.yuv", "ops.int8conv", "ops.fast_unetpp", "ops.quant_unetpp",
@@ -297,7 +297,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     training = {"config.paths", "data.videos", "data.images", "stages.fa_pretraining",
                 "stages.action_training", "train_reconstruction",
                 "train_action"}  # fa pretraining and action training, with their CLIs
-    assert {f"ted_spad_tpu_torch.{m}" for m in slice7 | slice8 | training} <= set(names.split())
+    privacy = {"stages.privacy_training", "stages.anonymization_training", "train_privacy",
+               "train_anonymizer", "models.resnet2d", "ops.metrics", "utils.logging",
+               "utils.checkpoint"}  # privacy training and the adversarial stage, with their CLIs
+    assert {f"ted_spad_tpu_torch.{m}" for m in slice7 | slice8 | training | privacy} <= set(names.split())
 
 
 def test_score_video_cli_synthetic_on_cpu(tmp_path):
