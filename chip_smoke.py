@@ -96,7 +96,28 @@ Phases, each fatal on failure:
      plain-UNet fa: K2 9 times per fa forward) and train_anonymizer (plain-UNet fa: K2
      on the fb/ft step's, the preview's and the validation's fa forwards) for one short
      epoch each, their checkpoints reloaded bit-equal, the adversarial fa and ft served
-     through the extraction step and its fb loaded as the SSL fb.
+     through the extraction step and its fb loaded as the SSL fb;
+ 14. the visualization stage (anonymize_video at its defaults, float32, chunks of 32) on a
+     96-frame 240x320 synthetic video: the UNet++ fa (no kernel; its first frames held
+     against the CPU's float32 stage within 1 level) and the plain UNet, whose nine
+     DoubleConvs run K2's float32 form (27 launches; frames held against the same stage
+     through the plain DoubleConv within 1 level and a share of 1e-3), then in bf16 (K2's
+     bf16 form, 27 launches, held to the fa-fidelity limit against the float32 plain
+     frames), each gate with two controls that must exceed it; ms per frame, frames/s,
+     peak memory and the writer (mp4 through the native encoder, or y4m without it);
+     the grid PNG read back, the mp4 decoded against it; the CLI
+     (python -m ted_spad_tpu_torch.visualize_anonymization --synthetic); K2's float32
+     form timed at one chunk's nine DoubleConvs beside its plain version, the cuDNN
+     float32 pairs (TF32 off) and its bound;
+ 15. the InceptionI3d, R3D-18 and MViTv2-S fts in training: per family, one action step
+     ('trip', 'ce') and one adversarial fa step and fb/ft step (card remat "on") on the
+     card in float64 held against the CPU's float64 step (remat "off") from the same
+     weights, batch and draw (TF32 off, dropout 0; phase 12's limits; the card's float32
+     loss beside it; the CPU's float32 step on another batch the control); the full-width
+     bf16 steps at ActionParams' and AnonymizationParams' defaults timed, each batch
+     halved while it does not fit; train_action with r3d_18 and train_anonymizer with the
+     i3d ft (UNet++ fa: no kernel) for one epoch of 2 steps, checkpoints reloading
+     bit-equal.
 
 Prints the kernel table as one JSON line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero, printing no result,
@@ -105,6 +126,7 @@ without a CUDA card or outside a checkout of the repository.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -211,6 +233,29 @@ ADV_TIMED = (("auto", 8), ("blocks", 8), ("auto", 4))  # (remat, videos)
 # epoch of 4 batches (2 fa steps, 2 fb/ft steps) of 2 videos and 4 VISPR pairs at 224^2.
 ADV_DRIVER = (2, 4)  # videos, VISPR pairs per batch
 
+# Phase 14: the visualization stage at its defaults (float32, chunks of 32 frames of
+# 240x320) on one synthetic video of three chunks. Gates on the anonymized uint8 frames:
+# at most VIS_LEVEL_TOL level apart (K2 against the plain DoubleConv: also at most
+# VIS_DIFF_SHARE of the values differ), each with controls that must exceed it; the
+# decoded mp4 within VIS_MP4_MEAN mean levels of the grid (tests/test_visualization_stage.py:33).
+VIS_FRAMES, VIS_CHUNK_FRAMES = 96, 32
+VIS_VIDEO = f"synthetic://n={VIS_FRAMES},h=240,w=320,seed=3"
+VIS_CPU_FRAMES = 2  # UNet++ frames held against the CPU's float32 run (next two: a control)
+VIS_LEVEL_TOL = 1
+VIS_DIFF_SHARE = 1e-3
+VIS_MP4_MEAN = 16
+F32_FLOPS = 67e12  # H100 SXM float32 rate outside the tensor cores (CUDA-core FMAs)
+
+# Phase 15: the other ft families in training. The gate (card float64 against the CPU's
+# float64 step, TF32 off, dropout 0, phase 12's limits): videos x 3 views and the clip
+# (T, H, W) of each family: i3d at its smallest clip, r3d_18 at 112^2, mvitv2 at the
+# smallest clip its full-width model and the UNet++ fa take; FT_GATE_PAIRS VISPR pairs.
+FT_FAMILIES = ("i3d", "r3d_18", "mvitv2")
+FT_GATE = {"i3d": (1, (9, 193, 193)), "r3d_18": (2, (8, 112, 112)), "mvitv2": (2, (2, 16, 16))}
+FT_GATE_PAIRS = 4
+FT_TIMED_STEPS = 3
+FT_DRIVER_STEPS = 2  # batches in each driver's one epoch
+
 
 T0 = time.perf_counter()
 
@@ -273,10 +318,9 @@ def check_double_conv(device, registers: dict) -> dict:
     and the hard cases, then its times at the serving batch. ``registers``: K2's
     ptxas report by instantiation (phase_build)."""
     import torch
-    import torch.nn.functional as F
 
     from ted_spad_tpu_torch.chip_probes import (
-        K2_CLASS_RAGGED, UNET_DOUBLECONVS, UNETPP_CLUSTER, double_conv_operands, time_ms,
+        K2_CLASS_RAGGED, UNET_DOUBLECONVS, UNETPP_CLUSTER, double_conv_operands,
     )
     from ted_spad_tpu_torch.ops import doubleconv as dc
     from ted_spad_tpu_torch.utils.device import tf32_off
@@ -305,19 +349,8 @@ def check_double_conv(device, registers: dict) -> dict:
     for where, table in (("unet", UNET_DOUBLECONVS), ("unet++ decoder", UNETPP_CLUSTER)):
         for name, s, ci, cm, co in table:
             shape = (K2_TIMED_FRAMES, s, s, ci, cm, co)
-            x, w1, b1, w2, b2 = double_conv_operands(device, shape, torch.bfloat16, seed=99)
-            ms = time_ms(lambda: dc.fused_double_conv(x, w1, b1, w2, b2), reps=3, inner=1)
-            with tf32_off():
-                plain_ms = time_ms(lambda: dc.double_conv_reference(x, w1, b1, w2, b2),
-                                   reps=3, inner=1)
-            # The yardstick: cuDNN bf16 channels_last conv + bias + ReLU, twice, on the
-            # same folded weights (the port never calls it).
-            xc = x.permute(0, 3, 1, 2)
-            w1c, w2c = (t.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-                        for t in (w1, w2))
-            b1c, b2c = b1.to(torch.bfloat16), b2.to(torch.bfloat16)
-            library_ms = time_ms(lambda: F.relu(F.conv2d(F.relu(F.conv2d(xc, w1c, b1c, padding=1)),
-                                                        w2c, b2c, padding=1)), reps=3, inner=1)
+            ms, plain_ms, library_ms = _k2_times(
+                *double_conv_operands(device, shape, torch.bfloat16, seed=99))
             by_ops, by_bytes = double_conv_bound(*shape)
             bound_ms = max(by_ops, by_bytes)
             flops = by_ops * 1e-3 * BF16_FLOPS
@@ -333,7 +366,6 @@ def check_double_conv(device, registers: dict) -> dict:
                 f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({shapes[-1]['bound_by']}; "
                 f"bytes {by_bytes:.4f} ms), {ms / bound_ms:.1f}x the bound, "
                 f"{ms / library_ms:.2f}x cuDNN, {plain_ms / ms:.2f}x faster than plain")
-            del x, w1, w2, xc, w1c, w2c
     unet = [r for r in shapes if r["path"] == "unet"]
     by_ops, by_bytes = (sum(t) for t in zip(*(double_conv_bound(K2_TIMED_FRAMES, *r["shape"])
                                               for r in unet)))
@@ -349,6 +381,28 @@ def check_double_conv(device, registers: dict) -> dict:
         "bound_by": "operations" if by_ops >= by_bytes else "bytes",
         "shapes": shapes,
     }
+
+
+def _k2_times(x, w1, b1, w2, b2) -> tuple[float, float, float]:
+    """ms of K2, of its plain version and of the yardstick, cuDNN's channels_last conv +
+    bias + ReLU twice on the same folded weights in x's dtype (the port never calls it),
+    on these operands; the last two with TF32 off."""
+    import torch
+    import torch.nn.functional as F
+
+    from ted_spad_tpu_torch.chip_probes import time_ms
+    from ted_spad_tpu_torch.ops import doubleconv as dc
+    from ted_spad_tpu_torch.utils.device import tf32_off
+
+    ms = time_ms(lambda: dc.fused_double_conv(x, w1, b1, w2, b2), reps=3, inner=1)
+    xc = x.permute(0, 3, 1, 2)
+    w1c, w2c = (t.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last) for t in (w1, w2))
+    b1c, b2c = b1.to(x.dtype), b2.to(x.dtype)
+    with tf32_off():
+        plain_ms = time_ms(lambda: dc.double_conv_reference(x, w1, b1, w2, b2), reps=3, inner=1)
+        library_ms = time_ms(lambda: F.relu(F.conv2d(F.relu(F.conv2d(xc, w1c, b1c, padding=1)), w2c, b2c,
+                                                     padding=1)), reps=3, inner=1)
+    return ms, plain_ms, library_ms
 
 
 def profile_step(fn, steps: int) -> None:
@@ -1346,15 +1400,17 @@ def _fa_gate_step(device, dtype, images, draw) -> tuple:
 
 
 def _ft_gate_step(device, dtype, p, batch) -> tuple:
-    """One action training step (TF32 off, dropout 0) of the seeded full-width I3Res50
-    with its head in ``dtype``: (loss, gradients, statistics)."""
+    """One action training step (TF32 off, dropout 0) of the seeded full-width ft of
+    ``p.arch`` (I3Res50 with its head by default) in ``dtype``: (loss, gradients,
+    statistics)."""
     from ted_spad_tpu_torch.models import load_ft_model
     from ted_spad_tpu_torch.stages.action_training import make_train_step
     from ted_spad_tpu_torch.stages.common import make_optimizer
     from ted_spad_tpu_torch.utils.device import tf32_off
 
-    model = load_ft_model(seed=0, dtype="float32", device=device, num_classes=p.num_classes,
-                          dropout_rate=0.0).to(dtype).requires_grad_(True)
+    model = load_ft_model(p.arch, seed=0, dtype="float32", device=device, num_classes=p.num_classes,
+                          dropout_rate=0.0, clip_shape=(p.num_frames, p.reso_h, p.reso_w))
+    model = model.to(dtype).requires_grad_(True)
     opt = make_optimizer(model.parameters(), p.opt_type, p.learning_rate, p.weight_decay, p.momentum)
     step = make_train_step(model, opt, p, device=device)
     with tf32_off():
@@ -1377,9 +1433,16 @@ def _step_against(ref: tuple, got: tuple) -> dict:
     null = {k for k, g in ref[1].items() if float(torch.linalg.norm(g)) <= TRAIN_NULL_GRAD * top}
     grad = max((rel(got[1][k], ref[1][k]), k) for k in ref[1] if k not in null)
     null_worst = max([float(torch.linalg.norm(got[1][k])) / top for k in null] + [0.0])
-    stats = max((rel(got[2][k], ref[2][k]), k) for k in ref[2])
+    stats = max([(rel(got[2][k], ref[2][k]), k) for k in ref[2]] or [(0.0, "none (no BN)")])
     return {"loss": abs(got[0] - ref[0]) / abs(ref[0]), "grad": grad, "stats": stats,
             "null": (len(null), null_worst)}
+
+
+def show_step(r: dict) -> str:
+    """One line of a step against a reference step (``_step_against``)."""
+    return (f"loss rel {r['loss']:.3e}, worst gradient {r['grad'][0]:.3e} at {r['grad'][1]}, "
+            f"worst BN statistic {r['stats'][0]:.3e} at {r['stats'][1]}, {r['null'][0]} "
+            f"zero-in-exact-arithmetic gradients at most {r['null'][1]:.1e} of the largest")
 
 
 def training_gate(device, card: str) -> None:
@@ -1407,11 +1470,6 @@ def training_gate(device, card: str) -> None:
     ft_batches = [(b,) for b in list(ClipDataset(items, p, views=3, num_workers=4, seed=0)
                                      .batches(n, seed=1))[:2]]
 
-    def show(r: dict) -> str:
-        return (f"loss rel {r['loss']:.3e}, worst gradient {r['grad'][0]:.3e} at {r['grad'][1]}, "
-                f"worst BN statistic {r['stats'][0]:.3e} at {r['stats'][1]}, {r['null'][0]} "
-                f"zero-in-exact-arithmetic gradients at most {r['null'][1]:.1e} of the largest")
-
     f64 = torch.float64
     for name, run, batches in (("fa", _fa_gate_step, fa_batches),
                                ("ft", lambda d, t, b: _ft_gate_step(d, t, p, b), ft_batches)):
@@ -1424,10 +1482,10 @@ def training_gate(device, card: str) -> None:
         flips = f", L1 residual signs flipped {int((got32[3] != ref[3]).sum())} of {ref[3].numel()}" \
             if name == "fa" else ""
         log(f"[train] {name} step against the CPU's float64 step (same weights, batch and draw; TF32 "
-            f"off): card float64 {show(card64)}; card float32 {show(card32)}{flips} (limits: loss "
+            f"off): card float64 {show_step(card64)}; card float32 {show_step(card32)}{flips} (limits: loss "
             f"{TRAIN_LOSS_RTOL}, gradients {TRAIN_GRAD_RTOL}, statistics {TRAIN_STATS_RTOL}, zero "
             f"gradients {TRAIN_NULL_GRAD}); control, the CPU's float32 step on another batch: "
-            f"{show(control)}; {time.perf_counter() - t0:.1f}s | {card}")
+            f"{show_step(control)}; {time.perf_counter() - t0:.1f}s | {card}")
         for label, r, grads in (("float64", card64, True), ("float32", card32, False)):
             if not (r["loss"] <= TRAIN_LOSS_RTOL and r["stats"][0] <= TRAIN_STATS_RTOL
                     and r["null"][1] <= TRAIN_NULL_GRAD
@@ -1663,6 +1721,19 @@ def _privacy_gate_step(device, dtype, images, labels, draw) -> tuple:
     return (loss, *_train_readings(fb))
 
 
+def _first_videos(batch, n: int):
+    """A training ClipBatch cut to its first ``n`` videos (their views' draws with
+    them): the dataset drops batches of one video (the reference's collate filter)."""
+    import dataclasses
+
+    from ted_spad_tpu_torch.ops.augment import AugmentParams
+
+    v = batch.clips.shape[1]
+    draw = AugmentParams(**{k: x[:n * v] for k, x in vars(batch.params).items()})
+    return dataclasses.replace(batch, clips=batch.clips[:n], labels=batch.labels[:n], params=draw,
+                               indices=None if batch.indices is None else batch.indices[:n])
+
+
 def _adv_inputs(p, n_videos: int, n_pairs: int, count: int = 2) -> list:
     """``count`` adversarial batches, augmented on the CPU in float64: (vispr1, vispr2,
     clips, labels) of ``n_pairs`` VISPR pairs and ``n_videos`` videos x 3 views."""
@@ -1672,10 +1743,10 @@ def _adv_inputs(p, n_videos: int, n_pairs: int, count: int = 2) -> list:
     from ted_spad_tpu_torch.data.videos import ClipDataset, synthetic_video_items
     from ted_spad_tpu_torch.stages.anonymization_training import augment_inputs
 
-    items = synthetic_video_items(n_videos * count, p.num_classes, num_frames=64, h=240, w=320, seed=0)
+    items = synthetic_video_items(max(n_videos, 2) * count, p.num_classes, num_frames=64, h=240, w=320, seed=0)
     ds = ClipDataset(items, p, views=3, num_workers=8, seed=0)
     try:
-        videos = list(ds.batches(n_videos, seed=1))[:count]
+        videos = [_first_videos(b, n_videos) for b in list(ds.batches(max(n_videos, 2), seed=1))[:count]]
     finally:
         ds.close()
     pairs = list(vispr_batches(SyntheticImageSource(n=n_pairs * count, seed=0), n_pairs, ssl=True,
@@ -1684,14 +1755,15 @@ def _adv_inputs(p, n_videos: int, n_pairs: int, count: int = 2) -> list:
 
 
 def _adv_models(device, dtype, p, dropout_rate: float | None = 0.0) -> tuple:
-    """The seeded full-width fa (``p.arch_fa``), fb (ResNet50SSL) and ft (I3Res50 with
-    its head) in ``dtype``, each requiring grad."""
+    """The seeded full-width fa (``p.arch_fa``), fb (ResNet50SSL) and ft (``p.arch_ft``,
+    I3Res50 with its head by default) in ``dtype``, each requiring grad."""
     from ted_spad_tpu_torch.models import load_fa_model, load_fb_model, load_ft_model
 
     kw = dict(seed=0, dtype="float32", device=device)
     fa = load_fa_model(p.arch_fa, **kw)
     fb = load_fb_model(ssl=True, **kw)
-    ft = load_ft_model(num_classes=p.num_classes, dropout_rate=dropout_rate, **kw)
+    ft = load_ft_model(p.arch_ft, num_classes=p.num_classes, dropout_rate=dropout_rate,
+                       clip_shape=(p.num_frames, p.reso_h, p.reso_w), **kw)
     return tuple(m.to(dtype).requires_grad_(True) for m in (fa, fb, ft))
 
 
@@ -1745,11 +1817,6 @@ def privacy_gate(device, card: str) -> None:
 
     from ted_spad_tpu_torch.config.params import AnonymizationParams
 
-    def show(r: dict) -> str:
-        return (f"loss rel {r['loss']:.3e}, worst gradient {r['grad'][0]:.3e} at {r['grad'][1]}, "
-                f"worst BN statistic {r['stats'][0]:.3e} at {r['stats'][1]}, {r['null'][0]} "
-                f"zero-in-exact-arithmetic gradients at most {r['null'][1]:.1e} of the largest")
-
     n_videos, n_pairs, side = ADV_GATE
     base = dict(num_frames=16, reso_h=side, reso_w=side, compute_dtype="float32")
     p_on = AnonymizationParams(**base, remat="on")
@@ -1771,10 +1838,10 @@ def privacy_gate(device, card: str) -> None:
         card32 = _step_against(ref, run(device, torch.float32, batches[0]))
         control = _step_against(ref, run("cpu", torch.float32, batches[1]))
         log(f"[privacy] {name} step ({what}) against the CPU's float64 step (same weights, batch "
-            f"and draw; TF32 off; card remat on, CPU off): card float64 {show(card64)}; card float32 "
-            f"{show(card32)} (limits: loss {TRAIN_LOSS_RTOL}, gradients {TRAIN_GRAD_RTOL}, statistics "
+            f"and draw; TF32 off; card remat on, CPU off): card float64 {show_step(card64)}; card float32 "
+            f"{show_step(card32)} (limits: loss {TRAIN_LOSS_RTOL}, gradients {TRAIN_GRAD_RTOL}, statistics "
             f"{TRAIN_STATS_RTOL}, zero gradients {TRAIN_NULL_GRAD}); control, the CPU's float32 step "
-            f"on another batch: {show(control)}; {time.perf_counter() - t0:.1f}s | {card}")
+            f"on another batch: {show_step(control)}; {time.perf_counter() - t0:.1f}s | {card}")
         if not (card64["loss"] <= TRAIN_LOSS_RTOL and card64["stats"][0] <= TRAIN_STATS_RTOL
                 and card64["null"][1] <= TRAIN_NULL_GRAD and card64["grad"][0] <= TRAIN_GRAD_RTOL):
             raise AssertionError(f"the card's float64 {name} step disagrees with the CPU's")
@@ -1987,6 +2054,505 @@ def privacy_phase(device, workdir: str, card: str) -> tuple[dict, dict]:
     return launches
 
 
+
+def _png_rgb(path: str):
+    """The (H, W, 3) uint8 pixels of an 8-bit RGB PNG with unfiltered rows, as
+    stages/visualization.write_png writes it (no image library on the card's machine)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    data = open(path, "rb").read()
+    pos, idat, size = 8, b"", None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if kind == b"IHDR":
+            size = struct.unpack(">II", body[:8])
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h = size
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise AssertionError(f"{path}: filtered PNG rows")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+@contextlib.contextmanager
+def _recorded_frames():
+    """The visualization stage's writers (mp4 and y4m) made to keep a copy of every
+    frame they are given, in order, besides writing it; yields that list."""
+    import numpy as np
+
+    from ted_spad_tpu_torch.stages import visualization as vis
+
+    frames, saved = [], (vis.VideoWriter, vis.Y4MWriter)
+
+    def recording(base):
+        class Recording(base):
+            def write(self, frame):
+                frames.append(np.array(frame))
+                super().write(frame)
+        return Recording
+
+    vis.VideoWriter, vis.Y4MWriter = recording(saved[0]), recording(saved[1])
+    try:
+        yield frames
+    finally:
+        vis.VideoWriter, vis.Y4MWriter = saved
+
+
+def _vis_run(device, workdir: str, tag: str, card: str, **kw) -> dict:
+    """anonymize_video on VIS_VIDEO with ``kw``: its paths, the anonymized uint8 frames
+    it wrote, the kernels' launches, its writer (from its log line), wall time and peak
+    device memory, printed."""
+    import numpy as np
+    import torch
+
+    from ted_spad_tpu_torch.stages.visualization import anonymize_video
+
+    said = []
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    zero_launch_counts()
+    with _recorded_frames() as frames:
+        t0 = time.perf_counter()
+        paths = anonymize_video(VIS_VIDEO, os.path.join(workdir, "vis", tag), log_fn=said.append,
+                                device=device, **kw)
+        torch.cuda.synchronize(device)
+        seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    writer = "mp4" if paths["video"].endswith(".mp4") else "y4m"
+    run = {"paths": paths, "frames": np.stack(frames), "launches": launches, "writer": writer,
+           "seconds": seconds, "peak": torch.cuda.max_memory_allocated(device)}
+    n = VIS_FRAMES
+    log(f"[vis] {tag}: {n} frames of {VIS_VIDEO} in {seconds * 1e3:.1f} ms = {seconds * 1e3 / n:.3f} "
+        f"ms/frame = {n / seconds:.2f} frames/s (decode, fa, writer and grid; host clock), peak "
+        f"device memory {run['peak'] / 2**20:.1f} MiB, writer {writer} ({said[0]}), kernel "
+        f"launches {json.dumps(launches)} | {card}")
+    return run
+
+
+def _level_gap(a, b) -> tuple[int, float]:
+    """(max |a - b|, share of values that differ) of two uint8 frame stacks."""
+    d = abs(a.astype(int) - b.astype(int))
+    return int(d.max()), float((d > 0).mean())
+
+
+def _spread_error(x, ref) -> float:
+    """||x - ref|| / ||ref - mean frame of ref|| over uint8 frame stacks."""
+    import numpy as np
+
+    x, ref = x.astype(np.float64), ref.astype(np.float64)
+    return float(np.linalg.norm(x - ref) / np.linalg.norm(ref - ref.mean(0)))
+
+
+def k2_float32_chunk(device, card: str) -> dict:
+    """K2's float32 form (CUDA-core FMAs, the default visualization's) at the nine
+    DoubleConvs of one VIS_CHUNK chunk, each beside its device-only reading, its plain
+    version and the cuDNN float32 conv + bias + ReLU pair (TF32 off for both) and its
+    bound: 2*9*(Cin*Cmid + Cmid*Cout) FLOP per pixel at the float32 FMA peak, or x, the
+    output, the weights and biases moved once at the memory rate."""
+    import torch
+
+    from ted_spad_tpu_torch.chip_probes import (
+        VIS_CHUNK, double_conv_operands, time_ms, unet_doubleconv_shapes,
+    )
+    from ted_spad_tpu_torch.ops import doubleconv as dc
+    from ted_spad_tpu_torch.utils.device import tf32_off
+
+    n = VIS_CHUNK[0]
+    shapes, worst = [], 0.0
+    for i, (name, h, w, ci, cm, co) in enumerate(unet_doubleconv_shapes(*VIS_CHUNK[1:])):
+        x, w1, b1, w2, b2 = double_conv_operands(device, (n, h, w, ci, cm, co), torch.float32, seed=50 + i)
+        got = dc.fused_double_conv(x, w1, b1, w2, b2)
+        with tf32_off():
+            ref = dc.double_conv_reference(x, w1, b1, w2, b2)
+        err = float((got - ref).abs().max()) / float(ref.abs().max())
+        worst = max(worst, err)
+        ms, plain_ms, library_ms = _k2_times(x, w1, b1, w2, b2)
+        device_ms = time_ms(lambda: dc.fused_double_conv(x, w1, b1, w2, b2), reps=3, inner=1, queued=True)
+        flops = 2 * n * h * w * 9 * (ci * cm + cm * co)
+        by_ops = flops / F32_FLOPS * 1e3
+        by_bytes = 4 * (n * h * w * (ci + co) + 9 * (ci * cm + cm * co) + cm + co) / HBM_BYTES_PER_S * 1e3
+        shapes.append({"block": name, "shape": [h, w, ci, cm, co], "ms": ms, "device_only_ms": device_ms,
+                       "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": max(by_ops, by_bytes),
+                       "flops": flops, "max_rel_err": err})
+        log(f"[K2 f32] {name} {h}x{w} {ci}->{cm}->{co} x{n} float32: max|kernel - plain| {err:.3e} of "
+            f"max|plain| (limit {K2_F32_TOL:.0e}); kernel {ms:.3f} ms ({device_ms:.3f} device-only, "
+            f"{flops / device_ms * 1e-9:.1f} TFLOP/s), plain {plain_ms:.3f}, cuDNN f32 pair {library_ms:.3f}, "
+            f"bound {max(by_ops, by_bytes):.3f} ms ({'operations' if by_ops >= by_bytes else 'bytes'})")
+        del x, w1, w2, got, ref
+        if not err <= K2_F32_TOL:
+            raise AssertionError(f"K2's float32 form disagrees with its plain version at {name}: {err}")
+    total = {k: sum(r[k] for r in shapes) for k in ("ms", "device_only_ms", "plain_ms", "library_ms", "bound_ms",
+                                                     "flops")}
+    log(f"[K2 f32] the nine DoubleConvs of one {n}-frame {VIS_CHUNK[1]}x{VIS_CHUNK[2]} chunk, float32: kernel {total['ms']:.3f} ms "
+        f"({total['device_only_ms']:.3f} device-only), plain {total['plain_ms']:.3f}, cuDNN f32 pairs "
+        f"{total['library_ms']:.3f}, bound {total['bound_ms']:.3f} ms ({total['flops'] / 1e12:.3f} TFLOP at "
+        f"{F32_FLOPS / 1e12:.0f} TFLOP/s; {total['flops'] / n / 1e9:.2f} GFLOP per frame), "
+        f"{total['ms'] / total['bound_ms']:.1f}x the bound | {card}")
+    return {"frames": n, "frame": list(VIS_CHUNK[1:]), "dtype": "float32", **total, "bound_by": "operations",
+            "max_rel_err": worst, "shapes": shapes}
+
+
+def visualization_phase(device, workdir: str, card: str) -> tuple[dict, dict]:
+    """Phase 14: the visualization stage at full width. Returns (K2's float32 reading at
+    the chunk, the kernels' launches by run)."""
+    import subprocess as sp
+
+    import numpy as np
+    import torch
+
+    from ted_spad_tpu_torch.data.video_reader import VideoReader, open_video
+    from ted_spad_tpu_torch.models import load_fa_model
+    from ted_spad_tpu_torch.stages.visualization import make_anonymize_fn
+
+    t0 = time.perf_counter()
+    frames_in = open_video(VIS_VIDEO).read_strided(0, VIS_FRAMES, 1)
+    launches = {}
+
+    # UNet++ at the stage's defaults (float32; the stage loads the seeded fa itself).
+    upp = _vis_run(device, workdir, "unet++", card)
+    launches["visualization unet++"] = upp["launches"]
+    if upp["launches"] != expected():
+        raise AssertionError(f"the UNet++ visualization launched a kernel: {upp['launches']}")
+    fa_cpu = load_fa_model(dtype="float32", device="cpu")
+    cpu_anon = make_anonymize_fn(fa_cpu)
+    to_u8 = lambda out: (out * 255.0 + 0.5).to(torch.uint8).cpu().numpy()  # noqa: E731
+    cpu = to_u8(cpu_anon(frames_in[:2 * VIS_CPU_FRAMES]))
+    gap = _level_gap(upp["frames"][:VIS_CPU_FRAMES], cpu[:VIS_CPU_FRAMES])
+    controls = {"next frames": _level_gap(upp["frames"][:VIS_CPU_FRAMES], cpu[VIS_CPU_FRAMES:]),
+                "R/B swapped": _level_gap(upp["frames"][:VIS_CPU_FRAMES],
+                                          to_u8(cpu_anon(frames_in[:VIS_CPU_FRAMES, :, :, ::-1].copy())))}
+    del fa_cpu
+    log(f"[vis] UNet++ frames 0-{VIS_CPU_FRAMES - 1}, card against the CPU's float32 stage: max |d| {gap[0]} "
+        f"levels, {gap[1]:.2e} of values differ (limit {VIS_LEVEL_TOL} level); controls (max |d|, share): "
+        f"{json.dumps(controls)}")
+    if not gap[0] <= VIS_LEVEL_TOL:
+        raise AssertionError(f"the card's UNet++ visualization disagrees with the CPU's: {gap}")
+    if not all(c[0] > VIS_LEVEL_TOL for c in controls.values()):
+        raise AssertionError(f"the UNet++ visualization gate does not tell its controls apart: {controls}")
+
+    # The plain UNet: K2's float32 form, against the same stage through the plain DoubleConv.
+    fa = load_fa_model("unet", dtype="float32", device=device)
+    with torch.no_grad():
+        fa.outc.weight.mul_(UNET_OUTC_GAIN)
+    unet = _vis_run(device, workdir, "unet", card, fa=fa)
+    plain = _vis_run(device, workdir, "unet plain", card, fa=_PlainDoubleConvs(fa))
+    launches["visualization unet"] = unet["launches"]
+    chunks = -(-VIS_FRAMES // VIS_CHUNK_FRAMES)
+    if unet["launches"] != expected(K2=9 * chunks) or plain["launches"] != expected():
+        raise AssertionError(f"expected K2 x{9 * chunks} on the UNet visualization and none on its plain "
+                             f"run: {unet['launches']}, {plain['launches']}")
+    c = VIS_CHUNK_FRAMES
+    swapped = to_u8(make_anonymize_fn(_PlainDoubleConvs(fa))(frames_in[:c, :, :, ::-1].copy()))
+    gap = _level_gap(unet["frames"], plain["frames"])
+    controls = {"R/B swapped": _level_gap(unet["frames"][:c], swapped),
+                "next chunk": _level_gap(unet["frames"][:c], plain["frames"][c:2 * c])}
+    log(f"[vis] UNet (outc x{UNET_OUTC_GAIN}) float32, K2 against the stage through the plain DoubleConv "
+        f"(TF32 off), {VIS_FRAMES} frames: max |d| {gap[0]} levels, {gap[1]:.2e} of values differ (limits "
+        f"{VIS_LEVEL_TOL} level, {VIS_DIFF_SHARE:.0e}); controls (max |d|, share): {json.dumps(controls)}")
+    if not (gap[0] <= VIS_LEVEL_TOL and gap[1] <= VIS_DIFF_SHARE):
+        raise AssertionError(f"the K2 UNet visualization disagrees with the plain one: {gap}")
+    if not all(x[0] > VIS_LEVEL_TOL and x[1] > VIS_DIFF_SHARE for x in controls.values()):
+        raise AssertionError(f"the UNet visualization gate does not tell its controls apart: {controls}")
+
+    # bf16: K2's bf16 form, held to the fa-fidelity limit against the float32 plain frames.
+    fa16 = load_fa_model("unet", dtype="bfloat16", device=device)
+    with torch.no_grad():
+        fa16.outc.weight.mul_(UNET_OUTC_GAIN)
+    bf16 = _vis_run(device, workdir, "unet bf16", card, fa=fa16)
+    launches["visualization unet bf16"] = bf16["launches"]
+    if bf16["launches"] != expected(K2=9 * chunks):
+        raise AssertionError(f"expected K2 x{9 * chunks} on the bf16 UNet visualization: {bf16['launches']}")
+    err = _spread_error(bf16["frames"], plain["frames"])
+    controls = {"R/B swapped": _spread_error(swapped, plain["frames"][:c]),
+                "previous chunk": _spread_error(plain["frames"][:c], plain["frames"][c:2 * c])}
+    log(f"[vis] UNet bf16 (K2's bf16 form) against the float32 plain frames: error / between-frame spread "
+        f"{err:.6f} (limit {FIDELITY_SPREAD_MAX}); controls {json.dumps(controls)} | {card}")
+    if not err <= FIDELITY_SPREAD_MAX:
+        raise AssertionError("the bf16 UNet visualization drifts from the float32 plain one")
+    if not all(x > FIDELITY_SPREAD_MAX for x in controls.values()):
+        raise AssertionError(f"the bf16 fidelity limit does not reject its controls: {controls}")
+    del fa, fa16
+    torch.cuda.empty_cache()
+
+    # The written files: the grid (originals over anonymized frames), and the mp4 read back.
+    idx = np.linspace(0, VIS_FRAMES - 1, 4).astype(int)
+    for run in (upp, unet):
+        grid = _png_rgb(run["paths"]["grid"])
+        want = np.concatenate([np.concatenate(list(frames_in[idx]), axis=1),
+                               np.concatenate(list(run["frames"][idx]), axis=1)], axis=0)
+        if not np.array_equal(grid, want):
+            raise AssertionError(f"{run['paths']['grid']} does not hold the originals over the anonymized frames")
+        if run["writer"] == "mp4":
+            with VideoReader(run["paths"]["video"]) as v:
+                decoded = v.read_strided(0, len(v), 1)
+            mean = float(np.abs(np.concatenate(list(decoded[idx]), axis=1).astype(int)
+                                - want[frames_in.shape[1]:].astype(int)).mean())
+            log(f"[vis] {os.path.basename(run['paths']['video'])}: {len(decoded)} frames decoded by the port's "
+                f"reader, mean |d| to the grid's anonymized row {mean:.3f} levels (limit {VIS_MP4_MEAN})")
+            if not (len(decoded) == VIS_FRAMES and mean < VIS_MP4_MEAN):
+                raise AssertionError(f"the written mp4 does not read back: {len(decoded)} frames, mean {mean}")
+
+    out = sp.run([sys.executable, "-m", "ted_spad_tpu_torch.visualize_anonymization", "--synthetic", "--out_dir",
+                  os.path.join(workdir, "vis_cli")], cwd=ROOT, capture_output=True, text=True, timeout=300,
+                 env={**os.environ, "PYTHONPATH": ROOT})
+    made = sorted(os.listdir(os.path.join(workdir, "vis_cli"))) if out.returncode == 0 else []
+    log(f"[vis] python -m ted_spad_tpu_torch.visualize_anonymization --synthetic (default device): rc "
+        f"{out.returncode}, wrote {made}; {out.stdout.strip().splitlines()[-1:] or out.stderr[-400:]}")
+    if out.returncode != 0 or len(made) != 2:
+        raise AssertionError(f"the visualization CLI failed: {out.stderr[-2000:]}")
+
+    chunk = k2_float32_chunk(device, card)
+    chunk["launches"] = unet["launches"]["K2 double_conv"]
+    log(f"[vis] phase time {time.perf_counter() - t0:.1f}s")
+    return chunk, launches
+
+
+class _PlainDoubleConvs:
+    """A plain-UNet fa called with ``use_kernel=False``: its DoubleConvs through the plain
+    version (float32 convs), the rest as the fa; for the visualization stage's ``fa``."""
+
+    def __init__(self, fa):
+        self.fa = fa
+
+    def parameters(self):
+        return self.fa.parameters()
+
+    def __call__(self, x):
+        return self.fa(x, use_kernel=False)
+
+
+def _family_gate(device, family: str, card: str) -> None:
+    """Phase 15's gate for one ft family: the action step, the adversarial fa step and
+    fb/ft step on the card in float64 (remat "on" for the adversarial steps) against the
+    CPU's float64 step (remat "off") from the same seeded weights, batch and draw, TF32
+    off, dropout 0, held to phase 12's limits; the card's float32 loss printed beside
+    them; the CPU's float32 step on another batch the control, which must exceed each
+    limit (the BN statistics' where the step moves any)."""
+    import torch
+
+    from ted_spad_tpu_torch.config.params import ActionParams, AnonymizationParams
+    from ted_spad_tpu_torch.data.videos import ClipDataset, synthetic_video_items
+
+    n, (t, h, w) = FT_GATE[family]
+    p = ActionParams(arch=family, num_frames=t, reso_h=h, reso_w=w, temporal_loss="trip", loss="ce",
+                     batch_size=n, compute_dtype="float32")
+    m = max(n, 2)
+    ds = ClipDataset(synthetic_video_items(2 * m, p.num_classes, num_frames=64, h=240, w=320, seed=0), p,
+                     views=3, num_workers=4, seed=0)
+    try:
+        action = [(_first_videos(b, n),) for b in list(ds.batches(m, seed=1))[:2]]
+    finally:
+        ds.close()
+    base = dict(arch_ft=family, num_frames=t, reso_h=h, reso_w=w, compute_dtype="float32")
+    p_on, p_off = AnonymizationParams(**base, remat="on"), AnonymizationParams(**base, remat="off")
+    adv = _adv_inputs(p_on, n, FT_GATE_PAIRS)
+    cases = (("action", lambda d, dt, b: _ft_gate_step(d, dt, p, *b), action),
+             ("fa", lambda d, dt, b: _adv_gate_step(d, dt, "fa", p_on if d != "cpu" else p_off, b), adv),
+             ("fb/ft", lambda d, dt, b: _adv_gate_step(d, dt, "fbft", p_on if d != "cpu" else p_off, b), adv))
+
+    f64 = torch.float64
+    for name, run, batches in cases:
+        t0 = time.perf_counter()
+        ref = run("cpu", f64, batches[0])
+        card64 = _step_against(ref, run(device, f64, batches[0]))
+        card32 = _step_against(ref, run(device, torch.float32, batches[0]))
+        control = _step_against(ref, run("cpu", torch.float32, batches[1]))
+        log(f"[ft] {family} {name} step ({n} video{'s' * (n > 1)} x 3 views x {t} x {h}x{w}"
+            f"{f' + {FT_GATE_PAIRS} VISPR pairs' if name != 'action' else ''}) against the CPU's float64 step "
+            f"(TF32 off, dropout 0{', card remat on, CPU off' if name != 'action' else ''}): card float64 "
+            f"{show_step(card64)}; card float32 loss rel {card32['loss']:.3e} (limits: loss "
+            f"{TRAIN_LOSS_RTOL}, gradients {TRAIN_GRAD_RTOL}, statistics {TRAIN_STATS_RTOL}); control, the CPU's "
+            f"float32 step on another batch: {show_step(control)}; {time.perf_counter() - t0:.1f}s | {card}")
+        if not (card64["loss"] <= TRAIN_LOSS_RTOL and card64["stats"][0] <= TRAIN_STATS_RTOL
+                and card64["null"][1] <= TRAIN_NULL_GRAD and card64["grad"][0] <= TRAIN_GRAD_RTOL):
+            raise AssertionError(f"the card's float64 {family} {name} step disagrees with the CPU's")
+        has_stats = bool(ref[2])
+        if not (control["loss"] > TRAIN_LOSS_RTOL and control["grad"][0] > TRAIN_GRAD_RTOL
+                and (not has_stats or control["stats"][0] > TRAIN_STATS_RTOL)):
+            raise AssertionError(f"the {family} {name} step gate does not tell another batch apart")
+
+
+def _timed_with_cuts(make_step, batch: int, what, card: str) -> int:
+    """Time ``make_step(b)``'s step (1 warm-up, FT_TIMED_STEPS timed, CUDA events) at
+    ``batch``, halving the batch while it runs out of memory; prints ms, videos/s, peak
+    memory and the busy share of one profiled step. Returns the batch that ran."""
+    import torch
+
+    from ted_spad_tpu_torch.chip_probes import device_profile
+
+    b = batch
+    while b >= 1:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            step = make_step(b)
+            ms = _timed_steps(step, FT_TIMED_STEPS)
+            peak = torch.cuda.max_memory_allocated()
+            prof = device_profile(step, 1)
+        except torch.cuda.OutOfMemoryError:
+            log(f"[ft] {what(b)}: out of the card's memory; halving the batch")
+            step = None
+            b //= 2
+            continue
+        mean = sum(ms) / len(ms)
+        top = ", ".join(f"{k[:48]} {v:.2f}" for k, v in prof["kernels"][:3])
+        log(f"[ft] {what(b)}{'' if b == batch else f' (cut from {batch})'}: steps "
+            f"{json.dumps([round(x, 3) for x in ms])} ms, mean {mean:.3f} ms/step = {b * 1e3 / mean:.2f} "
+            f"videos/s, peak device memory {peak / 2**20:.1f} MiB, device {prof['device_ms']:.3f} ms/step, "
+            f"busy {prof['busy']:.3f} (top kernels ms: {top}) | {card}")
+        return b
+    raise AssertionError(f"{what(1)} does not fit in the card's memory")
+
+
+def ft_step_inputs(device) -> tuple:
+    """The timed steps' inputs, the same for every family: one training batch at
+    ActionParams' defaults ('trip': 16 videos x 3 views, uint8, with its draw) and one
+    adversarial batch at AnonymizationParams' (8 videos x 3 views + 12 VISPR pairs,
+    augmented, float32 on the card)."""
+    import torch
+
+    from ted_spad_tpu_torch.config.params import ActionParams, AnonymizationParams
+    from ted_spad_tpu_torch.data.videos import ClipDataset, synthetic_video_items
+
+    p = ActionParams(temporal_loss="trip")
+    items = synthetic_video_items(p.batch_size, p.num_classes, num_frames=64, h=240, w=320, seed=0)
+    ds = ClipDataset(items, p, views=3, num_workers=8, seed=0)
+    try:
+        batch = next(ds.batches(p.batch_size))
+    finally:
+        ds.close()
+    q = AnonymizationParams()
+    adv = tuple(x.to(device, torch.float32) if x.is_floating_point() else x.to(device)
+                for x in _adv_inputs(q, q.batch_size, q.batch_size_vispr, count=1)[0])
+    return batch, adv
+
+
+def ft_family_steps(device, family: str, inputs: tuple, card: str) -> dict:
+    """The full-width bf16 steps with one ft family, timed on ``inputs``
+    (``ft_step_inputs``): the action step at ActionParams' defaults ('trip', 16 videos x
+    3 views of 16 x 224^2, dropout 0.5 for i3d) and the adversarial fa and fb/ft steps at
+    AnonymizationParams' (8 videos x 3 views + 12 VISPR pairs, remat "auto"). Returns
+    the batches that ran."""
+    import torch
+
+    from ted_spad_tpu_torch.config.params import ActionParams, AnonymizationParams
+    from ted_spad_tpu_torch.models import load_ft_model
+    from ted_spad_tpu_torch.ops.augment import AugmentParams
+    from ted_spad_tpu_torch.stages import action_training
+    from ted_spad_tpu_torch.stages import anonymization_training as anon
+    from ted_spad_tpu_torch.stages.common import make_optimizer
+
+    batch, (v1, v2, clips, labels) = inputs
+    p = ActionParams(arch=family, temporal_loss="trip")
+    ft = load_ft_model(family, seed=0, dtype="float32", device=device, num_classes=p.num_classes,
+                       clip_shape=(p.num_frames, p.reso_h, p.reso_w),
+                       dropout_rate=p.ft_dropout or None).requires_grad_(True)
+    opt = make_optimizer(ft.parameters(), p.opt_type, p.learning_rate, p.weight_decay, p.momentum)
+    step = action_training.make_train_step(ft, opt, p, generator=torch.Generator(device=device).manual_seed(0),
+                                           device=device)
+    raw = torch.from_numpy(batch.clips).to(device)
+
+    def action_step(b):
+        draw = AugmentParams(**{k: v[:b * 3] for k, v in vars(batch.params).items()})
+        return lambda: step(raw[:b], batch.labels[:b], draw)
+
+    ran = {"action": _timed_with_cuts(action_step, p.batch_size, lambda b: (
+        f"{family} action step ({b} videos x 3 'trip' views of {p.num_frames} x {p.reso_h}^2, "
+        f"{p.compute_dtype} autocast, dropout {p.ft_dropout or 'module default'})"), card)}
+    del ft, opt, step, raw
+    torch.cuda.empty_cache()
+
+    q = AnonymizationParams(arch_ft=family)
+    fa, fb, ft = _adv_models(device, torch.float32, q, dropout_rate=None)
+    opts = [make_optimizer(m.parameters(), q.opt_type, lr, q.weight_decay)
+            for m, lr in ((fa, q.learning_rate_fa), (fb, q.learning_rate_fb), (ft, q.learning_rate_ft))]
+    steps = {"fa": anon.make_fa_step(fa, fb, ft, opts[0], q, device=device),
+             "fb/ft": anon.make_fbft_step(fa, fb, ft, opts[1], opts[2], q, device=device,
+                                          generator=torch.Generator(device=device).manual_seed(0))}
+    for which, adv_step in steps.items():
+        ran[which] = _timed_with_cuts(
+            lambda b, adv_step=adv_step: (lambda: adv_step(v1, v2, clips[:b], labels[:b])), q.batch_size,
+            lambda b, which=which: (
+                f"{family} adversarial {which} step ({b} videos x 3 views x {q.num_frames} x {q.reso_h}^2 + "
+                f"{q.batch_size_vispr} VISPR pairs, remat 'auto' -> "
+                f"{anon._resolve_remat(q, clips[:b].shape, v1.shape)!r}, {q.compute_dtype} autocast)"), card)
+    del fa, fb, ft, opts, steps
+    torch.cuda.empty_cache()
+    return ran
+
+
+def ft_family_drivers(device, workdir: str, card: str) -> dict:
+    """train_action with the R3D-18 ft and train_anonymizer with the InceptionI3d ft
+    (UNet++ fa), one epoch of FT_DRIVER_STEPS steps each on synthetic data; finite
+    histories, checkpoints reloading bit-equal. Returns the kernels' launches from both
+    runs (none expected)."""
+    import numpy as np
+
+    from ted_spad_tpu_torch.config.params import ActionParams, AnonymizationParams
+    from ted_spad_tpu_torch.data.images import SyntheticImageSource
+    from ted_spad_tpu_torch.data.videos import synthetic_video_items
+    from ted_spad_tpu_torch.models import load_ft_model
+    from ted_spad_tpu_torch.stages.action_training import train_action
+    from ted_spad_tpu_torch.stages.anonymization_training import train_anonymizer
+
+    root = os.path.join(workdir, "ft_families")
+    ap = ActionParams(arch="r3d_18", temporal_loss="trip", batch_size=4, v_batch_size=8, num_modes=1,
+                      run_id="r3d_smoke")
+    n_videos, n_pairs = ADV_DRIVER
+    qp = AnonymizationParams(arch_ft="i3d", batch_size=n_videos, batch_size_vispr=n_pairs, v_batch_size=2,
+                             num_modes=1, save_acc_threshold=-1.0, run_id="i3d_adv_smoke")
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    act = train_action(ap, train_items=synthetic_video_items(ap.batch_size * FT_DRIVER_STEPS, ap.num_classes,
+                                                             num_frames=64, h=240, w=320, seed=0),
+                       val_items=synthetic_video_items(8, ap.num_classes, num_frames=64, h=240, w=320, seed=1),
+                       save_dir=root, max_epochs=1, log_fn=lambda m: log(f"[ft] {m}"), device=device)
+    t1 = time.perf_counter()
+    adv = train_anonymizer(
+        qp, train_items=synthetic_video_items(n_videos * FT_DRIVER_STEPS, qp.num_classes, num_frames=64, h=240,
+                                              w=320, seed=0),
+        val_items=synthetic_video_items(2, qp.num_classes, num_frames=64, h=240, w=320, seed=1),
+        vispr_source=SyntheticImageSource(n=n_pairs * FT_DRIVER_STEPS, seed=0), save_dir=root, max_epochs=1,
+        log_fn=lambda m: log(f"[ft] {m}"), device=device)
+    launches = launch_counts()
+    log(f"[ft] train_action (r3d_18, 'trip', {FT_DRIVER_STEPS} steps of {ap.batch_size} videos) {t1 - t0:.1f}s, "
+        f"history {json.dumps(act['history'])}; train_anonymizer (i3d ft, UNet++ fa, {FT_DRIVER_STEPS} batches of "
+        f"{n_videos} videos + {n_pairs} pairs) {time.perf_counter() - t1:.1f}s, history "
+        f"{json.dumps(adv['history'])}; kernel launches {json.dumps(launches)} | {card}")
+    for h in (act["history"], adv["history"]):
+        if not (all(len(v) == 1 for v in h.values()) and np.isfinite([v[0] for v in h.values()]).all()):
+            raise AssertionError(f"a driver's history is out of range: {h}")
+    for path, trained, arch, classes in ((act["best_path"], act["model"], "r3d_18", ap.num_classes),
+                                         (adv["best_path"], adv["ft"], "i3d", qp.num_classes)):
+        reloaded = load_ft_model(arch, saved_model_file=path, num_classes=classes, dtype="float32", device=device)
+        if not _same_weights(trained, reloaded):
+            raise AssertionError(f"the {arch} driver's checkpoint does not reload bit-equal")
+    return launches
+
+
+def ft_families_phase(device, workdir: str, card: str) -> dict:
+    """Phase 15: the InceptionI3d, R3D-18 and MViTv2-S fts in action training and in the
+    adversarial stage. Returns the kernels' launch counts from the drivers' run."""
+    t0 = time.perf_counter()
+    for family in FT_FAMILIES:
+        _family_gate(device, family, card)
+    inputs = ft_step_inputs(device)
+    for family in FT_FAMILIES:
+        ft_family_steps(device, family, inputs, card)
+    del inputs
+    launches = ft_family_drivers(device, workdir, card)
+    if any(launches.values()):
+        raise AssertionError(f"the ft families' drivers launched a kernel: {launches}")
+    log(f"[ft] phase time {time.perf_counter() - t0:.1f}s")
+    return launches
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2038,6 +2604,9 @@ def main() -> int:
         if any(launches["training"].values()):
             raise AssertionError(f"the training path launched a kernel: {launches['training']}")
         launches["privacy"], launches["adversarial"] = privacy_phase(device, workdir, card)
+        k2_f32, vis_launches = visualization_phase(device, workdir, card)
+        launches.update(vis_launches)
+        launches["ft families"] = ft_families_phase(device, workdir, card)
     # Each kernel's launches on its own main path (K1: the default UNet++ path, K2: the
     # plain-UNet path, K3: the YUV path, K4: the int8 path), and on every path driven.
     for k, name, path in ((k1, "K1 preprocess", "unet++"), (k2, "K2 double_conv", "unet"),
@@ -2045,6 +2614,7 @@ def main() -> int:
         k["launches"] = launches[path][name]
         k["launches_by_path"] = {where: counts[name] for where, counts in launches.items()}
     k1["ten_crop"] = ten_crop
+    k2["float32_chunk"] = k2_f32
 
     log(f"[card] command time {time.perf_counter() - T0:.1f}s")
     log(json.dumps({"kernels": [k1, k2, k3, k4]}))

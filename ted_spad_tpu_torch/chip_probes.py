@@ -77,6 +77,17 @@ UNET_DOUBLECONVS = (
     ("down3", 28, 256, 512, 512), ("down4", 14, 512, 512, 512), ("up1", 28, 1024, 512, 256),
     ("up2", 56, 512, 256, 128), ("up3", 112, 256, 128, 64), ("up4", 224, 128, 64, 64),
 )
+# K2's float32 form on the visualization path: the nine at one chunk of 32 frames of
+# 240x320 (stages/visualization.py's defaults).
+VIS_CHUNK = (32, 240, 320)
+
+
+def unet_doubleconv_shapes(h: int, w: int) -> list[tuple]:
+    """The nine DoubleConvs of the plain UNet on an (h, w) input: (block, H, W, Cin,
+    Cmid, Cout), each block at UNET_DOUBLECONVS' scale of its 224^2 size."""
+    return [(name, h * s // 224, w * s // 224, ci, cm, co) for name, s, ci, cm, co in UNET_DOUBLECONVS]
+
+
 # K2 beside the nine is also timed at the UNet++ decoder's 112^2 / 56^2 cluster (name,
 # H = W, Cin, Cmid, Cout; scripts/microbench_fa.py:240-243).
 UNETPP_CLUSTER = (

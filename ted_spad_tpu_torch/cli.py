@@ -9,6 +9,13 @@ import glob
 
 # The i3d ft pools a (2, 7, 7) window of its trunk map: its smallest clip (models/i3d.py).
 I3D_SMALLEST_CLIP = (9, 193, 193)
+SYNTHETIC_CLIP = (8, 32, 32)
+
+
+def synthetic_clip(arch_ft: str) -> tuple[int, int, int]:
+    """(T, H, W) of the ``--synthetic`` runs' clips for an ft family: 8x32x32, or the
+    i3d ft's smallest clip (below it the port raises where JAX returns NaN)."""
+    return I3D_SMALLEST_CLIP if arch_ft == "i3d" else SYNTHETIC_CLIP
 
 
 def add_extraction_args(ap: argparse.ArgumentParser) -> None:
@@ -62,7 +69,8 @@ def extraction_inputs(args, *, n_synthetic: int):
     if args.quant_calib_batches:
         p = p.replace(quant_calib_batches=args.quant_calib_batches)
     if args.synthetic:
-        (t, h, w), n = (I3D_SMALLEST_CLIP, 40) if p.arch_ft == "i3d" else ((8, 32, 32), 120)
+        t, h, w = synthetic_clip(p.arch_ft)
+        n = 40 if p.arch_ft == "i3d" else 120
         p = p.replace(num_frames=t, reso_h=h, reso_w=w, compute_dtype="float32")
         return p, [f"synthetic://n={n},h=40,w=80,seed={i}" for i in range(n_synthetic)], (40, 80)
     if not args.videos_glob:

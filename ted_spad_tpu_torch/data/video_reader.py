@@ -1,8 +1,10 @@
-"""Host video decode for the port (counterpart of ted_spad_tpu/data/video_reader.py,
-RGB and planar YUV420 reads): a ctypes binding of the native C++/FFmpeg decoder in
-native/videodec/libvideodec.so (the GIL is released during decode, so a Python
-thread pool decodes several videos at once), and ``SyntheticVideoReader`` for
-procedural ``synthetic://`` videos that need no media files.
+"""Host video decode and encode for the port (counterpart of
+ted_spad_tpu/data/video_reader.py): a ctypes binding of the native C++/FFmpeg layer in
+native/videodec/libvideodec.so -- RGB and planar YUV420 reads (the GIL is released
+during decode, so a Python thread pool decodes several videos at once) and the
+streaming mp4 encoder (``VideoWriter``, ``write_mp4``) --, ``write_y4m``, a pure numpy
+YUV4MPEG2 writer, and ``SyntheticVideoReader`` for procedural ``synthetic://`` videos
+that need no media files.
 """
 
 from __future__ import annotations
@@ -62,11 +64,23 @@ def _load_library():
         lib.vd_read_strided_yuv.restype = ctypes.c_int64
         lib.vd_read_strided_yuv.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
                                             ctypes.c_int64] + [ctypes.POINTER(ctypes.c_uint8)] * 3
+        lib.ve_open_cs.restype = ctypes.c_void_p
+        lib.ve_open_cs.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_double,
+                                   ctypes.c_char_p, ctypes.c_int]
+        lib.ve_write.restype = ctypes.c_int
+        lib.ve_write.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint8)]
+        lib.ve_close.restype = ctypes.c_int
+        lib.ve_close.argtypes = [ctypes.c_void_p]
         _lib = lib
     except (OSError, subprocess.CalledProcessError, AttributeError) as e:
         _lib_error = str(e)
         _lib = None
     return _lib
+
+
+def native_available() -> bool:
+    """Whether the native decode / encode library builds (or is built) and loads."""
+    return _load_library() is not None
 
 
 class VideoReader:
@@ -251,3 +265,120 @@ def open_video(path: str, out_w: int = 0, out_h: int = 0, threads: int = 0):
             seed=int(kv.get("seed", 0)),
         )
     return VideoReader(path, out_w, out_h, threads=threads)
+
+
+class VideoWriter:
+    """Streaming RGB24 -> mp4 encoder over the native layer (libx264, mpeg4 where x264
+    is missing; the reference's imageio.mimwrite, visualize_anonymization.py:84-115).
+    Odd frame sizes are cropped by one pixel (yuv420p needs even sizes).
+
+    ``colorspace``: 0 writes an untagged stream converted with swscale's default
+    (BT.601) matrix; 601 / 709 tag the stream (limited range) and convert with that
+    matrix, so decoders that honour the tag, this package's reader included, get the
+    input RGB back."""
+
+    def __init__(self, path: str, width: int, height: int, fps: float = 25.0, codec: str = "",
+                 colorspace: int = 0):
+        lib = _load_library()
+        if lib is None:
+            raise RuntimeError(f"native videodec unavailable: {_lib_error}")
+        if colorspace not in (0, 601, 709):
+            raise ValueError(f"colorspace must be 0, 601 or 709, got {colorspace}")
+        self._lib = lib
+        self.width = width - width % 2
+        self.height = height - height % 2
+        self._h = lib.ve_open_cs(path.encode(), self.width, self.height, float(fps), codec.encode(),
+                                 colorspace)
+        if not self._h:
+            raise IOError(f"cannot open encoder for {path}: {lib.vd_last_error().decode()}")
+        self.path = path
+
+    def write(self, frame: np.ndarray) -> None:
+        """Encode one (H, W, 3) uint8 RGB frame, cropped to the encoder's size."""
+        frame = np.asarray(frame)
+        if (frame.ndim != 3 or frame.shape[0] < self.height or frame.shape[1] < self.width
+                or frame.shape[2] != 3):
+            # ve_write reads height * width * 3 bytes whatever it is given: a smaller
+            # frame would be read out of bounds.
+            raise ValueError(f"frame shape {frame.shape} does not fit a {self.height}x{self.width}x3 "
+                             f"encoder (larger frames are cropped, never padded)")
+        frame = np.ascontiguousarray(frame[: self.height, : self.width], dtype=np.uint8)
+        if self._lib.ve_write(self._h, frame.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))) != 0:
+            raise IOError(f"encode failed: {self._lib.vd_last_error().decode()}")
+
+    def close(self) -> None:
+        if self._h:
+            rc = self._lib.ve_close(self._h)
+            self._h = None
+            if rc != 0:
+                raise IOError(f"finalizing {self.path} failed")
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:  # noqa: BLE001 -- never raise from a finalizer
+            pass
+
+
+def write_mp4(path: str, frames: np.ndarray, fps: float = 25.0, codec: str = "",
+              colorspace: int = 0) -> str:
+    """(T, H, W, 3) uint8 RGB frames -> an .mp4 through the native encoder;
+    ``colorspace`` as in ``VideoWriter``."""
+    frames = np.asarray(frames, dtype=np.uint8)
+    _, h, w, _ = frames.shape
+    with VideoWriter(path, w, h, fps=fps, codec=codec, colorspace=colorspace) as vw:
+        for frame in frames:
+            vw.write(frame)
+    return path
+
+
+class Y4MWriter:
+    """Streaming RGB24 -> YUV4MPEG2 (C444, BT.601 full range) in numpy alone (no
+    encoder library), frame by frame; the bytes of ``write_y4m`` over the same frames."""
+
+    def __init__(self, path: str, width: int, height: int, fps: int = 25):
+        self.path, self.width, self.height = path, width, height
+        self._f = open(path, "wb")
+        self._f.write(f"YUV4MPEG2 W{width} H{height} F{fps}:1 Ip A1:1 C444 XCOLORRANGE=FULL\n".encode())
+
+    def write(self, frame: np.ndarray) -> None:
+        """Append one (H, W, 3) uint8 RGB frame of the writer's size."""
+        frame = np.asarray(frame, dtype=np.uint8)
+        if frame.shape != (self.height, self.width, 3):
+            raise ValueError(f"frame shape {frame.shape} is not the writer's "
+                             f"({self.height}, {self.width}, 3)")
+        rgb = frame.astype(np.float32)
+        r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+        y = 0.299 * r + 0.587 * g + 0.114 * b
+        cb = 128.0 - 0.168736 * r - 0.331264 * g + 0.5 * b
+        cr = 128.0 + 0.5 * r - 0.418688 * g - 0.081312 * b
+        self._f.write(b"FRAME\n")
+        for plane in (y, cb, cr):
+            self._f.write(np.clip(plane + 0.5, 0, 255).astype(np.uint8).tobytes())
+
+    def close(self) -> None:
+        if not self._f.closed:
+            self._f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def write_y4m(path: str, frames: np.ndarray, fps: int = 25) -> str:
+    """(T, H, W, 3) uint8 RGB -> a YUV4MPEG2 file, C444, BT.601 full range, in numpy
+    alone, so a real container reaches the decoder without an encoder library."""
+    frames = np.asarray(frames, dtype=np.uint8)
+    _, h, w, _ = frames.shape
+    with Y4MWriter(path, w, h, fps) as writer:
+        for frame in frames:
+            writer.write(frame)
+    return path

@@ -7,6 +7,11 @@ in front and the rest behind, from the input's size (``layers.pad_tf_same``); ma
 pools pad with the dtype's lowest value. Unit3D's BatchNorm has eps 1e-3.
 ``extract_features``: trunk -> average pool (2, 7, 7) VALID -> mean, in float32, so a
 clip needs at least 9 x 193 x 193 pixels. Layout NCDHW. Names follow the flax module.
+
+Train mode (``forward(x, train=True, generator=...)``) is flax's: each Unit3D's BN
+normalizes with the batch statistics and moves the running ones with momentum 0.99
+(the reference's torch momentum 0.01), and the logits' dropout draws from an explicit
+generator (``layers.dropout``).
 """
 
 from __future__ import annotations
@@ -17,10 +22,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ted_spad_tpu_torch.models.layers import kaiming_normal_fan_out_, max_pool_same, pad_tf_same
+from ted_spad_tpu_torch.models.layers import (
+    batch_norm, checkpoint, dropout, kaiming_normal_fan_out_, max_pool_same, pad_tf_same,
+)
 
 FEATURE_DIM = 1024
-UNIT3D_BN_EPS = 1e-3  # torch BN(eps=0.001) of the reference (i3d.py:81)
+# torch BN(eps=0.001, momentum=0.01) of the reference (i3d.py:81): flax momentum 0.99.
+UNIT3D_BN_EPS = 1e-3
+UNIT3D_BN_MOMENTUM = 0.99
 
 # Inception endpoints in order: (b0, b1a, b1b, b2a, b2b, b3b) channels (i3d.py:168-306).
 _MIXED_SPECS = (
@@ -37,7 +46,7 @@ _MIXED_SPECS = (
 
 
 class Unit3D(nn.Module):
-    """TF-SAME conv3d (no bias) -> BatchNorm (eps 1e-3, eval) -> ReLU (i3d.py:48-121)."""
+    """TF-SAME conv3d (no bias) -> BatchNorm (eps 1e-3) -> ReLU (i3d.py:48-121)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: Sequence[int] = (1, 1, 1),
                  stride: Sequence[int] = (1, 1, 1), *, generator: torch.Generator):
@@ -47,9 +56,9 @@ class Unit3D(nn.Module):
         self.bn = nn.BatchNorm3d(out_ch, eps=UNIT3D_BN_EPS)
         kaiming_normal_fan_out_(self.conv3d.weight, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x = self.conv3d(pad_tf_same(x, self.kernel, self.stride))
-        return F.relu(self.bn(x), inplace=True)
+        return F.relu(batch_norm(self.bn, x, train, momentum=UNIT3D_BN_MOMENTUM), inplace=not train)
 
 
 class InceptionModule(nn.Module):
@@ -66,9 +75,10 @@ class InceptionModule(nn.Module):
         self.b3b = Unit3D(in_ch, oc[5], generator=g)
         self.out_ch = oc[0] + oc[2] + oc[4] + oc[5]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b3 = self.b3b(max_pool_same(x, (3, 3, 3), (1, 1, 1)))
-        return torch.cat([self.b0(x), self.b1b(self.b1a(x)), self.b2b(self.b2a(x)), b3], dim=1)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        b3 = self.b3b(max_pool_same(x, (3, 3, 3), (1, 1, 1)), train)
+        return torch.cat([self.b0(x, train), self.b1b(self.b1a(x, train), train),
+                          self.b2b(self.b2a(x, train), train), b3], dim=1)
 
 
 class InceptionI3d(nn.Module):
@@ -89,23 +99,23 @@ class InceptionI3d(nn.Module):
             self.add_module(f"mixed_{name}", module)
             in_ch = module.out_ch
         # The reference passes dropout_keep_prob=0.5 as nn.Dropout(p): it drops half.
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout_rate = dropout_rate
         self.logits_conv = nn.Conv3d(FEATURE_DIM, num_classes, 1)
         kaiming_normal_fan_out_(self.logits_conv.weight, g)
         nn.init.zeros_(self.logits_conv.bias)
 
-    def trunk(self, x: torch.Tensor) -> torch.Tensor:
+    def trunk(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """(B, 3, T, H, W) -> the Mixed_5c map (B, 1024, ~T/8, ~H/32, ~W/32)."""
-        x = self.conv_1a(x.to(self.conv_1a.conv3d.weight.dtype))
+        x = self.conv_1a(x.to(self.conv_1a.conv3d.weight.dtype), train)
         x = max_pool_same(x, (1, 3, 3), (1, 2, 2))  # MaxPool3d_2a_3x3
-        x = self.conv_2c(self.conv_2b(x))
+        x = self.conv_2c(self.conv_2b(x, train), train)
         x = max_pool_same(x, (1, 3, 3), (1, 2, 2))  # MaxPool3d_3a_3x3
         for name, _ in _MIXED_SPECS:
             if name == "Mixed_4b":
                 x = max_pool_same(x, (3, 3, 3), (2, 2, 2))  # MaxPool3d_4a_3x3
             elif name == "Mixed_5b":
                 x = max_pool_same(x, (2, 2, 2), (2, 2, 2))  # MaxPool3d_5a_2x2
-            x = getattr(self, f"mixed_{name}")(x)
+            x = getattr(self, f"mixed_{name}")(x, train)
         return x
 
     @staticmethod
@@ -121,9 +131,23 @@ class InceptionI3d(nn.Module):
     def extract_features(self, x: torch.Tensor) -> torch.Tensor:
         return self.extract_pooled(self.trunk(x))
 
-    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        x = self.trunk(x)
+    def _forward(self, x: torch.Tensor, train: bool, generator: torch.Generator | None):
+        x = self.trunk(x, train)
         feat = self.extract_pooled(x)
-        pooled = x.float().mean(dim=(2, 3, 4), keepdim=True)  # adaptive average pool (1, 1, 1)
-        logits = self.logits_conv(self.dropout(pooled.to(x.dtype)))
+        pooled = x.float().mean(dim=(2, 3, 4), keepdim=True).to(x.dtype)  # adaptive avg pool (1, 1, 1)
+        if train:
+            pooled = dropout(pooled, self.dropout_rate, generator)
+        logits = self.logits_conv(pooled)
         return logits.reshape(x.shape[0], -1).float(), feat
+
+    def forward(self, x: torch.Tensor, train: bool = False, generator: torch.Generator | None = None,
+                remat_blocks: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+        """-> (logits, 1024-d feature). ``train``: BN's batch statistics and the logits'
+        dropout from ``generator``. The module has no block boundaries to keep, so
+        ``remat_blocks`` checkpoints the whole forward (``layers.checkpoint``, the
+        dropout masks replayed), as the JAX stage's block policy, which names none of
+        its values, does."""
+        if remat_blocks:
+            gens = (generator,) if train and generator is not None else ()
+            return checkpoint(lambda t: self._forward(t, train, generator), x, generators=gens)
+        return self._forward(x, train, generator)

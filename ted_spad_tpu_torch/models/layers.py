@@ -104,13 +104,13 @@ def flax_batch_norm(bn: nn.modules.batchnorm._NormBase, x: torch.Tensor,
 
 
 def batch_norm(bn: nn.modules.batchnorm._NormBase, x: torch.Tensor, train: bool = False,
-               frozen: bool = False) -> torch.Tensor:
-    """``bn`` in flax's semantics: batch statistics (updating the running ones) with
-    ``train``, else the running statistics, never updated; ``frozen`` (the reference's
-    FrozenBN, large_i3d.py:8-39) keeps the running statistics in train mode too while
-    the affine parameters still train."""
+               frozen: bool = False, momentum: float = BN_MOMENTUM) -> torch.Tensor:
+    """``bn`` in flax's semantics: batch statistics (updating the running ones with
+    flax's ``momentum``) with ``train``, else the running statistics, never updated;
+    ``frozen`` (the reference's FrozenBN, large_i3d.py:8-39) keeps the running
+    statistics in train mode too while the affine parameters still train."""
     if train and not frozen:
-        return flax_batch_norm(bn, x)
+        return flax_batch_norm(bn, x, momentum)
     return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias, False, 0.0,
                         bn.eps)
 

@@ -15,7 +15,8 @@ The feature is the normed class token (768-d). Attention is plain ``matmul`` and
 
 The rel-pos tables' sizes follow the token grids, so the module is built for one clip
 shape (``clip_shape``, (T, H, W)) and refuses another. Layout NCDHW in, tokens (B, N, C)
-inside. Names follow the flax module.
+inside. Names follow the flax module. The module has no BatchNorm, dropout or
+drop-path, so its train mode is the same computation (with gradients).
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ted_spad_tpu_torch.models.layers import lecun_normal_
+from ted_spad_tpu_torch.models.layers import checkpoint, lecun_normal_
 
 FEATURE_DIM = 768
 LN_EPS = 1e-5
@@ -189,9 +190,19 @@ class MViTv2S(nn.Module):
             tokens, thw = getattr(self, name)(tokens, thw)
         return self.norm(tokens)[:, 0].float()
 
-    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def _forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         feat = self.extract_features(x)
         return self.head(feat.to(self.head.weight.dtype)).float(), feat
+
+    def forward(self, x: torch.Tensor, train: bool = False, generator: torch.Generator | None = None,
+                remat_blocks: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+        """-> (logits, 768-d feature). ``train`` and ``generator`` are taken for the ft
+        interface and change nothing (JAX's ``MViTv2S.__call__(x, train)`` neither);
+        with no block boundaries kept, ``remat_blocks`` checkpoints the whole forward."""
+        del train, generator
+        if remat_blocks:
+            return checkpoint(self._forward, x)
+        return self._forward(x)
 
 
 def _pooled_embed(clip_shape: tuple[int, int, int]) -> tuple[int, int, int]:

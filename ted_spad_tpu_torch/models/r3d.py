@@ -4,7 +4,8 @@ ted_spad_tpu/models/r3d.py; reference use ``wrapper_r3d_18``, model_loaders.py:2
 Stem conv (3, 7, 7) stride (1, 2, 2) padding (1, 3, 3) + BN + ReLU; four layers of two
 full-3D BasicBlocks (3^3 convs), 64/128/256/512 channels, stride 2 from the second
 layer on; global average pool -> 512-d feature; fc. Layout NCDHW. Names follow the
-flax module (``stem``, ``blocks_<i>``, ``fc``).
+flax module (``stem``, ``blocks_<i>``, ``fc``). Train mode (``train=True``) normalizes
+with BN's batch statistics and moves the running ones, as flax does (``ConvBN``).
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ted_spad_tpu_torch.models.layers import ConvBN, global_avg_pool, lecun_normal_
+from ted_spad_tpu_torch.models.layers import ConvBN, checkpoint, global_avg_pool, lecun_normal_
 
 FEATURE_DIM = 512
 
@@ -28,9 +29,9 @@ class BasicBlock3D(nn.Module):
         self.downsample = (ConvBN(inplanes, planes, (1, 1, 1), stride, act=False, generator=g)
                            if downsample else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        residual = x if self.downsample is None else self.downsample(x)
-        return F.relu(self.conv2(self.conv1(x)) + residual, inplace=True)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        residual = x if self.downsample is None else self.downsample(x, train)
+        return F.relu(self.conv2(self.conv1(x, train), train) + residual, inplace=True)
 
 
 class R3D18(nn.Module):
@@ -54,13 +55,27 @@ class R3D18(nn.Module):
         lecun_normal_(self.fc.weight, g)
         nn.init.zeros_(self.fc.bias)
 
-    def extract_features(self, x: torch.Tensor) -> torch.Tensor:
+    def features(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """(B, 3, T, H, W) -> (B, 512) float32."""
-        x = self.stem(x.to(self.stem.conv.weight.dtype))
+        x = self.stem(x.to(self.stem.conv.weight.dtype), train)
         for i in range(self.n_blocks):
-            x = getattr(self, f"blocks_{i}")(x)
+            x = getattr(self, f"blocks_{i}")(x, train)
         return global_avg_pool(x)
 
-    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        feat = self.extract_features(x)
+    def extract_features(self, x: torch.Tensor) -> torch.Tensor:
+        return self.features(x)
+
+    def _forward(self, x: torch.Tensor, train: bool) -> tuple[torch.Tensor, torch.Tensor]:
+        feat = self.features(x, train)
         return self.fc(feat.to(self.fc.weight.dtype)).float(), feat
+
+    def forward(self, x: torch.Tensor, train: bool = False, generator: torch.Generator | None = None,
+                remat_blocks: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+        """-> (logits, 512-d feature); ``train``: BN's batch statistics. The module
+        draws no dropout (``generator`` is taken for the ft interface) and keeps no
+        block boundaries, so ``remat_blocks`` checkpoints the whole forward, as the JAX
+        stage's block policy, which names none of its values, does."""
+        del generator
+        if remat_blocks:
+            return checkpoint(lambda t: self._forward(t, train), x)
+        return self._forward(x, train)

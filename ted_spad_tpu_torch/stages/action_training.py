@@ -10,9 +10,12 @@ train_classifier :189 -- and train_anonymized_action.py).
   in JAX; cross entropy on the first view's logits (or SupCon with ``loss='con'``)
   plus the weighted temporal loss on the 128-d embeddings ('trip': triplet of
   anchor / same-frames positive / shifted negative; 'con': NT-Xent of two views);
-  backward and the optimizer. FrozenBN (``frozen_bn``) for the largei3d ft
-  (train_action.py:39-41); dropout from an explicit generator. Convolutions and
-  matmuls run in ``compute_dtype`` under autocast over float32 parameters.
+  backward and the optimizer. Every ft family trains: I3Res50 (``largei3d``; its
+  128-d MLP embeddings feed the temporal loss, FrozenBN backbone, train_action.py:
+  39-41), InceptionI3d (``i3d``, its 1024-d feature, BN momentum 0.99, the logits'
+  dropout), R3D-18 (``r3d_18``, 512-d) and MViTv2-S (``mvitv2``, 768-d, no BN or
+  dropout); dropout draws from an explicit generator. Convolutions and matmuls run
+  in ``compute_dtype`` under autocast over float32 parameters.
 - Validation: modes x cropping factors x mirror, softmax averaged per video, each
   video decoded once per mode (train_action.py:330-381); ``three_crop`` adds two
   corner views; ``cropping_factor == 1`` evaluates at reso / 0.8 uncropped.
@@ -20,8 +23,6 @@ train_classifier :189 -- and train_anonymized_action.py).
   (``model_<epoch>_best_<acc>.ckpt``) and a rolling ``model_temp.ckpt`` with
   ``epoch``; ``restart`` resumes from it; ``eval_only`` evaluates and returns.
 
-Only the largei3d ft trains here; the other families' train modes are listed in
-ROADMAP.md (Queue 1).
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ import torch
 from ted_spad_tpu_torch.config.params import ActionParams
 from ted_spad_tpu_torch.data.prefetch import prefetch
 from ted_spad_tpu_torch.data.videos import ClipDataset, ValClipDataset
-from ted_spad_tpu_torch.models import WrapperI3D, load_fa_model, load_ft_model
+from ted_spad_tpu_torch.models import load_fa_model, load_ft_model
 from ted_spad_tpu_torch.ops.augment import (
     AugmentParams, augment_batch, center_crop_resize, five_crop_corners, resize_frames,
 )
@@ -89,11 +90,10 @@ def make_train_step(ft: torch.nn.Module, optimizer: torch.optim.Optimizer, p: Ac
     """``train_step(clips_u8 (B, V, T, H, W, 3), labels (B,), aug: AugmentParams) ->
     loss`` (a device scalar); ``generator`` (on ``device``) draws the dropout masks.
     After the step each parameter's ``.grad`` holds its gradient."""
-    if not isinstance(ft, WrapperI3D):
-        raise NotImplementedError(
-            f"train mode of the {type(ft).__name__} ft is not ported; see ROADMAP.md Queue 1")
     device = module_device(ft, device)
-    frozen_bn = p.arch == "largei3d"  # train_action.py:39-41
+    # FrozenBN for the largei3d ft alone (train_action.py:39-41); the other families
+    # take no such argument.
+    frozen = {"frozen_bn": True} if p.arch == "largei3d" else {}
     aug_dtype = augment_dtype(ft)
 
     def train_step(clips_u8, labels, aug: AugmentParams) -> torch.Tensor:
@@ -111,8 +111,7 @@ def make_train_step(ft: torch.nn.Module, optimizer: torch.optim.Optimizer, p: Ac
                 x = _apply_fa_frames(fa, x)
         optimizer.zero_grad(set_to_none=True)
         with autocast(device, p.compute_dtype):
-            logits, emb = ft(x.permute(0, 4, 1, 2, 3), train=True, frozen_bn=frozen_bn,
-                             generator=generator)
+            logits, emb = ft(x.permute(0, 4, 1, 2, 3), train=True, generator=generator, **frozen)
         logits, emb = logits.reshape(b, v, -1)[:, 0], emb.reshape(b, v, -1)
         if v > 1 and p.loss == "con":
             loss = supcon_loss(l2_normalize(emb[:, :2], dim=-1), labels)
@@ -219,10 +218,6 @@ def train_action(
     the augmentation draws and the dropout masks from ``seed``. ``ft_dropout == 0``
     keeps the module's default rate, 0.5, as the JAX package does. Returns
     ``{"history", "best_acc", "best_path", "model"}``."""
-    if p.arch != "largei3d":
-        raise NotImplementedError(
-            f"action training of the {p.arch!r} ft is not ported; only 'largei3d' trains "
-            f"(see ROADMAP.md Queue 1)")
     device = resolve_device(device)
     ft = load_ft_model(p.arch, saved_model_file=p.saved_model, num_classes=p.num_classes,
                        clip_shape=(p.num_frames, p.reso_h, p.reso_w), seed=p.seed,

@@ -19,16 +19,19 @@ positive, negative) alternate between two steps:
 
 Every forward runs in ``compute_dtype`` under autocast over float32 parameters.
 ``remat`` checkpoints activations (``models.layers.checkpoint``, exact for BN and
-dropout): "on" each model forward as a whole, "blocks" each fa and ft stage on its
-own (fb in whole), "off" none, "auto" off up to 12,000,000 frame-pixels per step
+dropout): "on" each model forward as a whole, "blocks" each fa and I3Res50 stage on
+its own (fb, and the ft families with no block boundaries -- InceptionI3d, R3D-18,
+MViTv2-S -- in whole, as under JAX's block policy, which names none of their
+values), "off" none, "auto" off up to 12,000,000 frame-pixels per step
 and whole above. With ``accum_steps > 1`` the fa step runs its microbatches in turn:
 gradients and losses are averaged, BN statistics chain through them, and NT-Xent /
 SupCon contrast within each microbatch, not over the whole batch (the JAX package's
 documented divergence). ``quirk_compat`` feeds the fa the reference's scrambled view
 of the clips (VISPR images go through it clean, as in the reference).
 
-Only the largei3d ft trains here; the other families' train modes are listed in
-ROADMAP.md (Queue 1). Checkpoints hold the three models in flax layout (the JAX
+The ft is any family (``arch_ft``: largei3d, i3d, r3d_18, mvitv2); its feature
+(I3Res50's 128-d embedding, or the family's pooled feature) feeds the triplet loss
+and SupCon. Checkpoints hold the three models in flax layout (the JAX
 package's loaders read them); the optimizer states of ``model_{E}_full.ckpt`` are
 torch ``state_dict``s.
 """
@@ -297,10 +300,6 @@ def train_anonymizer(
     come from ``p.saved_model_{fa,fb,ft}`` or ``p.seed``; the data order, the
     augmentation draws and the dropout masks from ``seed``. Returns ``{"history",
     "best_acc", "best_path", "fa", "fb", "ft"}``."""
-    if p.arch_ft != "largei3d":
-        raise NotImplementedError(
-            f"adversarial training of the {p.arch_ft!r} ft is not ported; only 'largei3d' "
-            f"trains (see ROADMAP.md Queue 1)")
     device = resolve_device(device)
     fa = load_fa_model(p.arch_fa, saved_model_file=p.saved_model_fa, seed=p.seed, dtype="float32",
                        device=device).requires_grad_(True)

@@ -10,8 +10,12 @@ class mapping json. ``--anonymized --saved_model_fa CKPT`` trains through a froz
 JAX package's layout; ``ft_model_state_dict`` loads in either package's
 ``load_ft_model`` and serves through the extraction stage.
 
-Synthetic smoke on the CPU (4 classes, 8x32x32 clips of procedural videos, float32):
-``python -m ted_spad_tpu_torch.train_action --synthetic --device cpu --epochs 1``.
+Every ft family trains (``--arch`` or ``arch`` in ``--params``: largei3d, i3d, r3d_18,
+mvitv2).
+
+Synthetic smoke on the CPU (4 classes, 8x32x32 clips of procedural videos, float32; an
+i3d ft takes its smallest clip, 9x193x193):
+``python -m ted_spad_tpu_torch.train_action --synthetic --device cpu --epochs 1 [--arch r3d_18]``.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ def parser() -> argparse.ArgumentParser:
 
 def run(args) -> dict:
     """Train; returns train_action's summary."""
+    from ted_spad_tpu_torch.cli import synthetic_clip
     from ted_spad_tpu_torch.config.params import ActionParams, apply_params_file
     from ted_spad_tpu_torch.data.videos import load_ucf101_list, synthetic_video_items
     from ted_spad_tpu_torch.stages.action_training import train_action
@@ -57,7 +62,8 @@ def run(args) -> dict:
     if args.anonymized:
         p = p.replace(anonymized=True, saved_model_fa=args.saved_model_fa)
     if args.synthetic:
-        p = p.replace(num_classes=4, num_frames=8, reso_h=32, reso_w=32, batch_size=4,
+        t, h, w = synthetic_clip(p.arch)
+        p = p.replace(num_classes=4, num_frames=t, reso_h=h, reso_w=w, batch_size=4,
                       v_batch_size=4, num_modes=2, compute_dtype="float32")
         train_items = synthetic_video_items(16, 4, num_frames=48, h=48, w=64, seed=args.seed)
         val_items = synthetic_video_items(8, 4, num_frames=48, h=48, w=64, seed=args.seed + 1)

@@ -12,8 +12,11 @@ The starting fa, ft and fb come from ``saved_model_{fa,ft,fb}`` in the params fi
 the JAX package's layout: the fa and ft serve through ``score_video`` /
 ``extract_features --saved_model_fa/--saved_model_ft``.
 
+Every ft family trains (``arch_ft`` in ``--params``: largei3d, i3d, r3d_18, mvitv2).
+
 Synthetic smoke on the CPU (4 classes, 8x32x32 clips of procedural videos, 16
-procedural images, float32):
+procedural images, float32; an i3d ft takes its smallest clip, 9x193x193, and the VISPR
+images that size too):
 ``python -m ted_spad_tpu_torch.train_anonymizer --synthetic --device cpu --epochs 1``.
 """
 
@@ -44,6 +47,7 @@ def parser() -> argparse.ArgumentParser:
 
 def run(args) -> dict:
     """Train; returns train_anonymizer's summary."""
+    from ted_spad_tpu_torch.cli import synthetic_clip
     from ted_spad_tpu_torch.config.params import AnonymizationParams, apply_params_file
     from ted_spad_tpu_torch.data.images import SyntheticImageSource, VisprImageSource
     from ted_spad_tpu_torch.data.videos import load_ucf101_list, synthetic_video_items
@@ -55,7 +59,8 @@ def run(args) -> dict:
     if args.run_id:
         p = p.replace(run_id=args.run_id)
     if args.synthetic:
-        p = p.replace(num_classes=4, num_frames=8, reso_h=32, reso_w=32, batch_size=2,
+        t, h, w = synthetic_clip(p.arch_ft)
+        p = p.replace(num_classes=4, num_frames=t, reso_h=h, reso_w=w, batch_size=2,
                       batch_size_vispr=4, v_batch_size=2, num_modes=2, compute_dtype="float32",
                       save_acc_threshold=-1.0)
         train_items = synthetic_video_items(8, 4, num_frames=48, h=48, w=64, seed=args.seed)

@@ -282,7 +282,8 @@ def test_driver_matches_jax_and_cross_loads(tmp_path, monkeypatch):
     the same history lengths, finite losses, the best checkpoint (threshold -1)
     holding the three models, each loading bit-exactly in the other package's
     load_fa_model / load_fb_model / load_ft_model, the rolling temp and the preview
-    PNG; the refusal of other ft families."""
+    PNG; and one epoch with another ft family (full-width R3D-18, which the driver once
+    refused) on six of the videos, its losses finite and its checkpoint's ft an R3D-18."""
     _tiny_loaders(monkeypatch)
     kw = dict(num_classes=4, num_frames=8, reso_h=SIDE, reso_w=SIDE, batch_size=3,
               batch_size_vispr=4, v_batch_size=2, num_modes=1, compute_dtype="float32",
@@ -314,6 +315,10 @@ def test_driver_matches_jax_and_cross_loads(tmp_path, monkeypatch):
             a, b = flat(state_dict_to_flax(port_model)), flat(jax.tree_util.tree_map(np.asarray, jvars))
             assert a.keys() == b.keys() == flat(written[f"{name}_model_state_dict"]).keys(), name
             assert all(np.array_equal(a[k], b[k]) for k in a), name
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        anon.train_anonymizer(AnonymizationParams(**dict(kw, arch_ft="i3d")), train_items=train,
-                              val_items=val, save_dir=str(tmp_path / "x"), device="cpu", **quiet)
+    monkeypatch.setattr(anon, "load_ft_model", load_ft_model)  # r3d_18 has no tiny form
+    other = anon.train_anonymizer(AnonymizationParams(**dict(kw, arch_ft="r3d_18")), train_items=train[:6],
+                                  val_items=val, save_dir=str(tmp_path / "x"), device="cpu", **quiet)
+    assert np.isfinite([v[0] for v in other["history"].values()]).all()
+    assert type(other["ft"]).__name__ == "R3D18"
+    load_ft_model("r3d_18", saved_model_file=other["best_path"], num_classes=4, clip_shape=(T, SIDE, SIDE),
+                  dtype="float32", device="cpu")

@@ -11,7 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from ted_spad_tpu_torch.chip_probes import K4_FORMS, k4_epilogue
+from ted_spad_tpu_torch.chip_probes import (
+    K4_FORMS, UNET_DOUBLECONVS, VIS_CHUNK, double_conv_operands, k4_epilogue, unet_doubleconv_shapes,
+)
 from ted_spad_tpu_torch.ops import doubleconv as dc
 from ted_spad_tpu_torch.ops import int8conv
 from ted_spad_tpu_torch.ops import preprocess as pp
@@ -125,6 +127,23 @@ def test_double_conv_kernel_matches_plain_version(cuda_device, shape, b1):
         scale = float(ref.float().abs().max())
         assert scale > 0 and float((got.float() - ref.float()).abs().max()) <= tol * scale
     assert dc.fused_double_conv.launches == launches + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [b[0] for b in UNET_DOUBLECONVS])
+def test_double_conv_float32_at_the_visualization_chunk(cuda_device, block):
+    """K2's float32 form (the default visualization's, CUDA-core FMAs) against its plain
+    version (float32 convs, TF32 off) at each DoubleConv of the plain UNet on 240x320
+    frames (stages/visualization.py), two frames: within 1e-4 of max |plain|, one launch."""
+    (shape,) = [s for s in unet_doubleconv_shapes(*VIS_CHUNK[1:]) if s[0] == block]
+    args = double_conv_operands(cuda_device, (2,) + shape[1:], torch.float32, seed=7)
+    launches = dc.fused_double_conv.launches
+    got = dc.fused_double_conv(*args)
+    with tf32_off():
+        ref = dc.double_conv_reference(*args)
+    assert dc.fused_double_conv.launches == launches + 1
+    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    assert scale > 0 and err <= 1e-4 * scale, (block, err, scale)
 
 
 @pytest.mark.cuda

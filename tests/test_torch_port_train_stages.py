@@ -277,7 +277,8 @@ def test_stage_drivers_match_jax_and_cross_load(tmp_path, monkeypatch):
     ('trip') in each package: the same history lengths; every checkpoint either
     package wrote loads bit-exactly in the other's load_fa_model / load_ft_model; the
     port's trained fa and ft serve through the port's extraction stage as they do
-    through JAX's; restart, eval_only and the refusal of other ft families."""
+    through JAX's; restart, eval_only, and eval_only with another ft family (full-width
+    R3D-18, which the driver once refused) through the same fa."""
     _tiny_loaders(monkeypatch)
     quiet = dict(log_fn=lambda s: None)
     rp = dict(run_id="fa", batch_size=4, reso_h=32, reso_w=32, compute_dtype="float32", warmup=2)
@@ -346,9 +347,10 @@ def test_stage_drivers_match_jax_and_cross_load(tmp_path, monkeypatch):
     only = action_training.train_action(ActionParams(**ap, eval_only=True, saved_model=ft_ckpts["p"]),
                                         save_dir=str(tmp_path / "e"), device="cpu", **items, **quiet)
     assert only["history"]["val_acc"] == [only["best_acc"]] == [ours["best_acc"]]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        action_training.train_action(ActionParams(**ap, arch="i3d"), save_dir=str(tmp_path / "x"),
-                                     device="cpu", **items, **quiet)
+    monkeypatch.setattr(action_training, "load_ft_model", load_ft_model)  # r3d_18 has no tiny form
+    other = action_training.train_action(ActionParams(**ap, arch="r3d_18", eval_only=True),
+                                         save_dir=str(tmp_path / "x"), device="cpu", **items, **quiet)
+    assert type(other["model"]).__name__ == "R3D18" and 0 <= other["best_acc"] <= 1
 
 
 def test_reconstruction_survives_a_bad_epoch(tmp_path, monkeypatch):
