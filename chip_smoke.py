@@ -76,7 +76,7 @@ Phases, each fatal on failure:
      views of 16 x 112^2) on the card held against the CPU's float64 step from the same
      weights, batch and draw (TF32 off, dropout 0): the card's float64 step on the loss,
      every gradient and every BN statistic, its float32 step on the loss and statistics
-     (its gradients printed), the CPU's step on another batch the control; the
+     (its gradients printed), the card's float32 step on another batch the control; the
      full-width bf16 steps timed (UNet++ 32 x 224^2; I3Res50 16 videos x 3 views of
      16 x 224^2, 8 where 16 do not fit) with peak memory and a device profile; then
      train_reconstruction and anonymized train_action (through the fa just saved) for
@@ -87,7 +87,7 @@ Phases, each fatal on failure:
      with its head; 2 videos x 3 views x 16 x 112^2 + 4 VISPR pairs) on the card under
      remat "on" held against the CPU's float64 step under "off" from the same weights,
      batch and draw (TF32 off, dropout 0; loss, every gradient, every BN statistic;
-     the card's float32 step beside it; the CPU's step on another batch the control;
+     the card's float32 step beside it; the card's float32 step on another batch the control;
      no gradient on the fa step's frozen fb and ft); the full-width bf16 steps timed
      with peak memory and a device profile (privacy: 32 x 224^2; fa and fb/ft: 8
      videos x 3 views x 16 x 224^2 + 12 pairs under remat "auto" and "blocks", and 4
@@ -111,13 +111,25 @@ Phases, each fatal on failure:
      float32 pairs (TF32 off) and its bound;
  15. the InceptionI3d, R3D-18 and MViTv2-S fts in training: per family, one action step
      ('trip', 'ce') and one adversarial fa step and fb/ft step (card remat "on") on the
-     card in float64 held against the CPU's float64 step (remat "off") from the same
+     card in float64 held against a float64 reference step (remat "off") from the same
      weights, batch and draw (TF32 off, dropout 0; phase 12's limits; the card's float32
-     loss beside it; the CPU's float32 step on another batch the control); the full-width
+     loss beside it; the card's float32 step on another batch the control); the full-width
      bf16 steps at ActionParams' and AnonymizationParams' defaults timed, each batch
      halved while it does not fit; train_action with r3d_18 and train_anonymizer with the
      i3d ft (UNet++ fa: no kernel) for one epoch of 2 steps, checkpoints reloading
-     bit-equal.
+     bit-equal. Each family's action step is held against the CPU's float64 step; its
+     fa and fb/ft steps (remat "on") against the card's own float64 step under remat
+     "off", the controls on the card;
+ 16. data parallel (ted_spad_tpu_torch/parallel): DP_WORLD gloo ranks on cuda:0, each its
+     own process (this file with --dp-rank), run the MGFN step at the UCF preset, the
+     I3Res50 action step and the adversarial fa step (accum_steps 2) and fb/ft step at
+     full model width, sharded; each rank's float64 step is held against the one-process
+     card step (losses, every gradient, the state after Adam, within DP_RTOL of each
+     tensor's largest value), the float32 readings printed beside the one-process float32
+     step's; step times and the collectives' share; each rank's K1 and K2 launches on
+     extract_features(mesh=) with the UNet++ and the plain-UNet fa and on
+     train_anonymizer(mesh=) with the plain UNet (one epoch of 2 steps); then a group of
+     one over NCCL runs train_anonymizer(mesh=) for one step.
 
 Prints the kernel table as one JSON line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero, printing no result,
@@ -203,7 +215,7 @@ TRAIN_TIMED_STEPS = 5
 # step to the loss and the statistics; its float32 gradients are printed: train-mode
 # BN's fast variance and L1's sign put 2e-3 (ft) to 4e-3 (fa) between the card's
 # float32 gradients and float64 ones on an H100 (PERF.md §6, the training stages; the
-# CPU's own float32 step reads 6.8e-4 and 6.0e-3). The CPU's float32 step on another
+# CPU's own float32 step reads 6.8e-4 and 6.0e-3). The card's float32 step on another
 # batch (the control) must exceed each limit.
 TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_STATS_RTOL = 1e-4, 1e-3, 1e-4
 TRAIN_GATE_FA = (2, 224)  # images, side
@@ -253,8 +265,28 @@ F32_FLOPS = 67e12  # H100 SXM float32 rate outside the tensor cores (CUDA-core F
 FT_FAMILIES = ("i3d", "r3d_18", "mvitv2")
 FT_GATE = {"i3d": (1, (9, 193, 193)), "r3d_18": (2, (8, 112, 112)), "mvitv2": (2, (2, 16, 16))}
 FT_GATE_PAIRS = 4
-FT_TIMED_STEPS = 3
+FT_TIMED_STEPS = 2
 FT_DRIVER_STEPS = 2  # batches in each driver's one epoch
+
+# Phase 16: data parallel. DP_WORLD gloo ranks on cuda:0 (NCCL refuses two ranks on one
+# card; a group of one shows NCCL) run four steps sharded at full model width, batches
+# cut to what the ranks share: MGFN at the UCF preset with DP_MGFN_BATCH videos per
+# half; the I3Res50 action step ('trip', 'ce'); the adversarial fa step under
+# accum_steps DP_ACCUM and the fb/ft step. Each rank's float64 step is held against the
+# one-process card step to DP_RTOL of each tensor's largest value (summation order
+# only). Ranks sharing one card show no scaling: their times are a reading.
+DP_WORLD = 2
+DP_DEVICE = "cuda:0"  # every rank on the one card
+DP_MGFN_BATCH = 16
+DP_ACTION = (4, 16, 112)  # videos (x 3 views), frames, side
+DP_ADV = (4, 4, 16, 112)  # videos (x 3 views), VISPR pairs, frames, side
+DP_ACCUM = 2
+DP_RTOL = 1e-9
+DP_NULL_GRAD = 1e-6  # of the step's largest gradient: rounding noise (_dp_worst)
+DP_TIMED_STEPS = 2
+DP_EXTRACT_VIDEOS, DP_EXTRACT_BATCH = 4, 16  # synthetic serving videos (10 clips each), clips per step
+DP_DRIVER = (2, 4)  # videos, VISPR pairs per batch of the data-parallel drivers
+DP_RANK_TIMEOUT_S = 600
 
 
 T0 = time.perf_counter()
@@ -1450,7 +1482,7 @@ def training_gate(device, card: str) -> None:
     weights, batch and augmentation draw, TF32 off, dropout 0 (fa: 2 images of 224^2;
     ft: 2 videos x 3 'trip' views of 16 x 112^2), through make_train_step, held against
     the CPU's float64 step (TRAIN_* limits; the card's float32 gradients printed, the fa's
-    with its L1 sign flips), the CPU's float32 step on another batch the control."""
+    with its L1 sign flips), the card's float32 step on another batch the control."""
     import numpy as np
     import torch
 
@@ -1478,13 +1510,13 @@ def training_gate(device, card: str) -> None:
         card64 = _step_against(ref, run(device, f64, *batches[0]))
         got32 = run(device, torch.float32, *batches[0])
         card32 = _step_against(ref, got32)
-        control = _step_against(ref, run("cpu", torch.float32, *batches[1]))
+        control = _step_against(ref, run(device, torch.float32, *batches[1]))
         flips = f", L1 residual signs flipped {int((got32[3] != ref[3]).sum())} of {ref[3].numel()}" \
             if name == "fa" else ""
         log(f"[train] {name} step against the CPU's float64 step (same weights, batch and draw; TF32 "
             f"off): card float64 {show_step(card64)}; card float32 {show_step(card32)}{flips} (limits: loss "
             f"{TRAIN_LOSS_RTOL}, gradients {TRAIN_GRAD_RTOL}, statistics {TRAIN_STATS_RTOL}, zero "
-            f"gradients {TRAIN_NULL_GRAD}); control, the CPU's float32 step on another batch: "
+            f"gradients {TRAIN_NULL_GRAD}); control, the card's float32 step on another batch: "
             f"{show_step(control)}; {time.perf_counter() - t0:.1f}s | {card}")
         for label, r, grads in (("float64", card64, True), ("float32", card32, False)):
             if not (r["loss"] <= TRAIN_LOSS_RTOL and r["stats"][0] <= TRAIN_STATS_RTOL
@@ -1811,7 +1843,7 @@ def privacy_gate(device, card: str) -> None:
     (TRAIN_*: loss, every gradient, every BN statistic), the card's float32 step to the
     loss limit with its gradients and statistics printed (the fb/ft step's MLP head
     normalizes 6 embeddings in train mode, and float32 rounding moves its statistics by
-    2.3e-4 on an H100), the CPU's float32 step on another batch the control, which must
+    2.3e-4 on an H100), the card's float32 step on another batch the control, which must
     exceed each limit."""
     import torch
 
@@ -1836,11 +1868,11 @@ def privacy_gate(device, card: str) -> None:
         ref = run("cpu", f64, batches[0])
         card64 = _step_against(ref, run(device, f64, batches[0]))
         card32 = _step_against(ref, run(device, torch.float32, batches[0]))
-        control = _step_against(ref, run("cpu", torch.float32, batches[1]))
+        control = _step_against(ref, run(device, torch.float32, batches[1]))
         log(f"[privacy] {name} step ({what}) against the CPU's float64 step (same weights, batch "
             f"and draw; TF32 off; card remat on, CPU off): card float64 {show_step(card64)}; card float32 "
             f"{show_step(card32)} (limits: loss {TRAIN_LOSS_RTOL}, gradients {TRAIN_GRAD_RTOL}, statistics "
-            f"{TRAIN_STATS_RTOL}, zero gradients {TRAIN_NULL_GRAD}); control, the CPU's float32 step "
+            f"{TRAIN_STATS_RTOL}, zero gradients {TRAIN_NULL_GRAD}); control, the card's float32 step "
             f"on another batch: {show_step(control)}; {time.perf_counter() - t0:.1f}s | {card}")
         if not (card64["loss"] <= TRAIN_LOSS_RTOL and card64["stats"][0] <= TRAIN_STATS_RTOL
                 and card64["null"][1] <= TRAIN_NULL_GRAD and card64["grad"][0] <= TRAIN_GRAD_RTOL):
@@ -2329,11 +2361,15 @@ class _PlainDoubleConvs:
 
 def _family_gate(device, family: str, card: str) -> None:
     """Phase 15's gate for one ft family: the action step, the adversarial fa step and
-    fb/ft step on the card in float64 (remat "on" for the adversarial steps) against the
-    CPU's float64 step (remat "off") from the same seeded weights, batch and draw, TF32
-    off, dropout 0, held to phase 12's limits; the card's float32 loss printed beside
-    them; the CPU's float32 step on another batch the control, which must exceed each
-    limit (the BN statistics' where the step moves any)."""
+    fb/ft step on the card in float64 (remat "on" for the adversarial steps) against a
+    float64 reference step from the same seeded weights, batch and draw, TF32 off,
+    dropout 0, held to phase 12's limits; the card's float32 loss printed beside them;
+    the card's float32 step on another batch the control, which must exceed each limit
+    (the BN statistics' where the step moves any). The action step's reference is the
+    CPU's, which holds each family against the CPU once; the adversarial steps' is the
+    card's own under remat "off" (their CPU float64 steps through the full-width UNet++
+    were most of the phase's time; phase 13 holds those steps against the CPU with the
+    I3Res50 ft)."""
     import torch
 
     from ted_spad_tpu_torch.config.params import ActionParams, AnonymizationParams
@@ -2352,26 +2388,29 @@ def _family_gate(device, family: str, card: str) -> None:
     base = dict(arch_ft=family, num_frames=t, reso_h=h, reso_w=w, compute_dtype="float32")
     p_on, p_off = AnonymizationParams(**base, remat="on"), AnonymizationParams(**base, remat="off")
     adv = _adv_inputs(p_on, n, FT_GATE_PAIRS)
-    cases = (("action", lambda d, dt, b: _ft_gate_step(d, dt, p, *b), action),
-             ("fa", lambda d, dt, b: _adv_gate_step(d, dt, "fa", p_on if d != "cpu" else p_off, b), adv),
-             ("fb/ft", lambda d, dt, b: _adv_gate_step(d, dt, "fbft", p_on if d != "cpu" else p_off, b), adv))
+    # (name, step(device, dtype, batch, remat on), batches, the reference step's device)
+    cases = (("action", lambda d, dt, b, on: _ft_gate_step(d, dt, p, *b), action, "cpu"),
+             ("fa", lambda d, dt, b, on: _adv_gate_step(d, dt, "fa", p_on if on else p_off, b), adv, device),
+             ("fb/ft", lambda d, dt, b, on: _adv_gate_step(d, dt, "fbft", p_on if on else p_off, b), adv,
+              device))
 
     f64 = torch.float64
-    for name, run, batches in cases:
+    for name, run, batches, ref_device in cases:
         t0 = time.perf_counter()
-        ref = run("cpu", f64, batches[0])
-        card64 = _step_against(ref, run(device, f64, batches[0]))
-        card32 = _step_against(ref, run(device, torch.float32, batches[0]))
-        control = _step_against(ref, run("cpu", torch.float32, batches[1]))
+        ref = run(ref_device, f64, batches[0], False)
+        card64 = _step_against(ref, run(device, f64, batches[0], True))
+        card32 = _step_against(ref, run(device, torch.float32, batches[0], True))
+        control = _step_against(ref, run(device, torch.float32, batches[1], True))
+        where = "the CPU's" if ref_device == "cpu" else "the card's remat-off"
         log(f"[ft] {family} {name} step ({n} video{'s' * (n > 1)} x 3 views x {t} x {h}x{w}"
-            f"{f' + {FT_GATE_PAIRS} VISPR pairs' if name != 'action' else ''}) against the CPU's float64 step "
-            f"(TF32 off, dropout 0{', card remat on, CPU off' if name != 'action' else ''}): card float64 "
+            f"{f' + {FT_GATE_PAIRS} VISPR pairs' if name != 'action' else ''}) against {where} float64 step "
+            f"(TF32 off, dropout 0{', card remat on' if name != 'action' else ''}): card float64 "
             f"{show_step(card64)}; card float32 loss rel {card32['loss']:.3e} (limits: loss "
-            f"{TRAIN_LOSS_RTOL}, gradients {TRAIN_GRAD_RTOL}, statistics {TRAIN_STATS_RTOL}); control, the CPU's "
+            f"{TRAIN_LOSS_RTOL}, gradients {TRAIN_GRAD_RTOL}, statistics {TRAIN_STATS_RTOL}); control, the card's "
             f"float32 step on another batch: {show_step(control)}; {time.perf_counter() - t0:.1f}s | {card}")
         if not (card64["loss"] <= TRAIN_LOSS_RTOL and card64["stats"][0] <= TRAIN_STATS_RTOL
                 and card64["null"][1] <= TRAIN_NULL_GRAD and card64["grad"][0] <= TRAIN_GRAD_RTOL):
-            raise AssertionError(f"the card's float64 {family} {name} step disagrees with the CPU's")
+            raise AssertionError(f"the card's float64 {family} {name} step disagrees with {where}")
         has_stats = bool(ref[2])
         if not (control["loss"] > TRAIN_LOSS_RTOL and control["grad"][0] > TRAIN_GRAD_RTOL
                 and (not has_stats or control["stats"][0] > TRAIN_STATS_RTOL)):
@@ -2553,6 +2592,393 @@ def ft_families_phase(device, workdir: str, card: str) -> dict:
     return launches
 
 
+def _dp_record(losses, models: dict) -> dict:
+    """A step's readings, float64 on the CPU: its losses, every gradient and the
+    trained models' state after the optimizer (parameters and buffers), by name."""
+    import torch
+
+    grads, state = {}, {}
+    for name, m in models.items():
+        grads.update({f"{name}.{k}": q.grad.double().cpu() for k, q in m.named_parameters()})
+        state.update({f"{name}.{k}": t.detach().double().cpu() for k, t in m.state_dict().items()
+                      if t.is_floating_point()})
+    return {"losses": torch.as_tensor(losses).detach().double().cpu().reshape(-1),
+            "grads": grads, "state": state}
+
+
+def _dp_params() -> dict:
+    """The configurations of phase 16's steps."""
+    from ted_spad_tpu_torch.config.params import ActionParams, AnonymizationParams, MGFNParams
+
+    n, t, side = DP_ACTION
+    nv, npairs, ta, sa = DP_ADV
+    return {
+        "mgfn": MGFNParams.for_dataset("UCF", dropout_rate=0.0, batch_size=DP_MGFN_BATCH),
+        "action": ActionParams(num_frames=t, reso_h=side, reso_w=side, temporal_loss="trip", loss="ce",
+                               batch_size=n, compute_dtype="float32"),
+        "adversarial": AnonymizationParams(num_frames=ta, reso_h=sa, reso_w=sa, batch_size=nv,
+                                           batch_size_vispr=npairs, accum_steps=DP_ACCUM,
+                                           remat="off", compute_dtype="float32"),
+    }
+
+
+def dp_step(device, which: str, inputs: dict, mesh, dtype):
+    """Phase 16's ``which`` step ('mgfn', 'action', 'fa', 'fbft') from the seeded
+    full-width models in ``dtype`` on ``inputs`` (the global batch; with ``mesh`` this
+    rank's rows of it, in the adversarial stage's microbatch layout): a callable that
+    runs one step (TF32 off, dropout 0) and returns the losses, and the trained models."""
+    import torch
+
+    from ted_spad_tpu_torch.chip_probes import perturbed_mgfn
+    from ted_spad_tpu_torch.models import load_ft_model
+    from ted_spad_tpu_torch.stages import action_training
+    from ted_spad_tpu_torch.stages import anonymization_training as anon
+    from ted_spad_tpu_torch.stages.anomaly_detection import make_optimizer as mgfn_optimizer
+    from ted_spad_tpu_torch.stages.anomaly_detection import make_train_step as mgfn_train_step
+    from ted_spad_tpu_torch.stages.common import make_optimizer
+    from ted_spad_tpu_torch.utils.device import tf32_off
+
+    params = _dp_params()
+    if which == "mgfn":
+        p = params["mgfn"]
+        model = perturbed_mgfn(p, device, dtype=dtype)
+        step = mgfn_train_step(model, mgfn_optimizer(model, p), p, device=device, mesh=mesh)
+        batch = inputs["mgfn"] if mesh is None else [mesh.take_rows(x) for x in inputs["mgfn"]]
+        return (lambda: step(*batch)), {"mgfn": model}
+    if which == "action":
+        p = params["action"]
+        model = load_ft_model(p.arch, seed=0, dtype="float32", device=device, num_classes=p.num_classes,
+                              dropout_rate=0.0, clip_shape=(p.num_frames, p.reso_h, p.reso_w))
+        model = model.to(dtype).requires_grad_(True)
+        opt = make_optimizer(model.parameters(), p.opt_type, p.learning_rate, p.weight_decay, p.momentum)
+        step = action_training.make_train_step(model, opt, p, device=device, mesh=mesh)
+        clips, labels, draw = inputs["action"]
+        if mesh is not None:
+            draw = mesh.take_rows(draw, len(clips))  # a clip's three views are consecutive rows
+            clips, labels = mesh.take_rows(clips), mesh.take_rows(labels)
+
+        def run():
+            with tf32_off():
+                return step(clips, labels, draw)
+        return run, {"ft": model}
+    p = params["adversarial"]
+    fa, fb, ft = _adv_models(device, dtype, p)
+    batch = inputs["adversarial"]
+    if mesh is not None:
+        batch = [mesh.take_rows(x, parts=p.accum_steps) for x in batch]
+    v1, v2, clips, labels = (t.to(device, dtype) if t.is_floating_point() else t.to(device) for t in batch)
+    if which == "fa":
+        step = anon.make_fa_step(fa, fb, ft, make_optimizer(fa.parameters(), "adam", 1e-3), p,
+                                 device=device, mesh=mesh)
+        trained = {"fa": fa}
+    else:
+        step = anon.make_fbft_step(fa, fb, ft, make_optimizer(fb.parameters(), "adam", 1e-3),
+                                   make_optimizer(ft.parameters(), "adam", 1e-3), p,
+                                   generator=torch.Generator(device=device).manual_seed(0),
+                                   device=device, mesh=mesh)
+        trained = {"fb": fb, "ft": ft}
+
+    def run_adv():
+        with tf32_off():
+            return step(v1, v2, clips, labels)
+    return run_adv, trained
+
+
+DP_STEPS = ("mgfn", "action", "fa", "fbft")
+
+
+def dp_run(device, inputs: dict, mesh) -> dict:
+    """Each of phase 16's steps from its seeded models: once in float64, then in float32
+    (the first float32 step is the reading and the warm-up; DP_TIMED_STEPS more timed,
+    host clock around a synchronized step; with a mesh one more whose collectives, each
+    synchronized and timed, give their share of it). {"float64": {step: record},
+    "float32": {step: record}, "times": {step: (mean ms, collectives' share or None)}}."""
+    import torch
+    import torch.distributed as dist
+
+    out = {"float64": {}, "float32": {}, "times": {}}
+    for which in DP_STEPS:
+        for dtype in (torch.float64, torch.float32):
+            run, models = dp_step(device, which, inputs, mesh, dtype)
+            out[str(dtype).split(".")[1]][which] = _dp_record(run(), models)
+            if dtype == torch.float64:
+                continue
+            ms = []
+            for _ in range(DP_TIMED_STEPS):
+                torch.cuda.synchronize(device)
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize(device)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            share = None
+            if mesh is not None:
+                spent = [0.0]
+                saved = {name: getattr(dist, name) for name in ("all_reduce", "all_gather", "broadcast")}
+
+                def timed(fn):
+                    def call(*a, **k):
+                        torch.cuda.synchronize(device)
+                        t0 = time.perf_counter()
+                        try:
+                            return fn(*a, **k)
+                        finally:
+                            torch.cuda.synchronize(device)
+                            spent[0] += time.perf_counter() - t0
+                    return call
+
+                for name, fn in saved.items():
+                    setattr(dist, name, timed(fn))
+                try:
+                    torch.cuda.synchronize(device)
+                    t0 = time.perf_counter()
+                    run()
+                    torch.cuda.synchronize(device)
+                    share = spent[0] / (time.perf_counter() - t0)
+                finally:
+                    for name, fn in saved.items():
+                        setattr(dist, name, fn)
+            out["times"][which] = (sum(ms) / len(ms), share)
+        del run, models
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_kernel_paths(device, workdir: str, mesh) -> dict:
+    """The kernels' launches on this rank's data-parallel paths: extract_features(mesh=)
+    over DP_EXTRACT_VIDEOS synthetic serving videos with the UNet++ fa (K1) and with the
+    plain UNet (K1, and K2 for its DoubleConvs), and train_anonymizer(mesh=) with the plain-UNet fa for one epoch of two
+    batches (a fa step and a fb/ft step). {path: launch counts}."""
+    import numpy as np
+
+    from ted_spad_tpu_torch.config.params import AnonymizationParams, FeatureExtractionParams
+    from ted_spad_tpu_torch.data.images import SyntheticImageSource
+    from ted_spad_tpu_torch.data.videos import synthetic_video_items
+    from ted_spad_tpu_torch.stages.anonymization_training import train_anonymizer
+    from ted_spad_tpu_torch.stages.feature_extraction import extract_features
+
+    uris = [f"synthetic://n={SERVING_FRAMES},h=240,w=320,seed={100 + i}" for i in range(DP_EXTRACT_VIDEOS)]
+    out = {}
+    for arch in ("unet++", "unet"):
+        zero_launch_counts()
+        res = extract_features(FeatureExtractionParams(arch_fa=arch, batch_size=DP_EXTRACT_BATCH), uris,
+                               os.path.join(workdir, f"features_{arch}"), mesh=mesh,
+                               log_fn=lambda m: None)
+        out[f"dp extract {arch}"] = launch_counts()
+        if sorted(res["saved"]) != sorted(uris) or len(res["shard"]["saved"]) != len(uris) // mesh.world_size:
+            raise AssertionError(f"rank {mesh.rank}: the extraction shards are not the videos split by rank")
+    nv, npairs = DP_DRIVER
+    ap = AnonymizationParams(arch_fa="unet", batch_size=nv, batch_size_vispr=npairs, v_batch_size=2,
+                             num_modes=1, save_acc_threshold=-1.0, run_id="dp_adv")
+    zero_launch_counts()
+    res = train_anonymizer(
+        ap, train_items=synthetic_video_items(2 * nv, ap.num_classes, num_frames=64, h=240, w=320, seed=0),
+        val_items=synthetic_video_items(2, ap.num_classes, num_frames=64, h=240, w=320, seed=1),
+        vispr_source=SyntheticImageSource(n=2 * npairs, seed=0), save_dir=os.path.join(workdir, "dp_adv"),
+        max_epochs=1, log_fn=lambda m: None, device=device, mesh=mesh)
+    out["dp adversarial"] = launch_counts()
+    h = res["history"]
+    if not (all(len(v) == 1 for v in h.values()) and np.isfinite([v[0] for v in h.values()]).all()):
+        raise AssertionError(f"rank {mesh.rank}: train_anonymizer(mesh=) history out of range: {h}")
+    out["dp adversarial history"] = h
+    return out
+
+
+def dp_rank_main(rank: int, world: int, workdir: str) -> int:
+    """A rank of phase 16 (``chip_smoke.py --dp-rank R --dp-world W --dp-dir DIR``): joins
+    the gloo group through DIR's FileStore on cuda:0, runs the steps in float64 and
+    float32, times them, drives the data-parallel kernel paths, and saves it all as
+    DIR/rank{R}.pt."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from ted_spad_tpu_torch.parallel import data_parallel_mesh, multihost
+
+    multihost.initialize_distributed(f"file://{os.path.join(workdir, 'store')}", world, rank,
+                                     backend="gloo", timeout_s=DP_RANK_TIMEOUT_S)
+    device = torch.device(DP_DEVICE)
+    mesh = data_parallel_mesh(device)
+    path, deadline = os.path.join(workdir, "inputs.pt"), time.perf_counter() + DP_RANK_TIMEOUT_S
+    while not os.path.exists(path):  # the parent writes it after its one-process steps
+        if time.perf_counter() > deadline:
+            raise TimeoutError(f"no {path} after {DP_RANK_TIMEOUT_S}s")
+        time.sleep(0.2)
+    inputs = torch.load(path, weights_only=False)
+    t0 = time.perf_counter()
+    out = dp_run(device, inputs, mesh)
+    out["launches"] = dp_kernel_paths(device, os.path.join(workdir, f"rank{rank}"), mesh)
+    out["seconds"] = time.perf_counter() - t0
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def _dp_worst(got: dict, ref: dict, lr: float) -> tuple[float, str, float]:
+    """A step against a reference step: the worst max |got - ref| / max |ref| over its
+    losses, gradients and state after the optimizer, and the worst state difference,
+    in units of ``lr``, at the entries the rule below sets apart. A gradient at most
+    DP_NULL_GRAD of the step's largest (zero in exact arithmetic: a bias ahead of a
+    train-mode BatchNorm) is rounding noise on both sides: the tensor is held as a share
+    of that largest gradient, and Adam, which moves such an entry by up to about lr
+    whatever the noise's size, is held there to 2 lr."""
+    import torch
+
+    worst = [(float((got["losses"] - ref["losses"]).abs().max() / ref["losses"].abs().max()), "losses")]
+    top = max(float(g.abs().max()) for g in ref["grads"].values())
+    for k, g in ref["grads"].items():
+        d = float((got["grads"][k] - g).abs().max())
+        worst.append((d / max(float(g.abs().max()), DP_NULL_GRAD * top), f"grads {k}"))
+    noise_worst = 0.0
+    for k, v in ref["state"].items():
+        d = (got["state"][k] - v).abs()
+        g = ref["grads"].get(k)
+        noise = g.abs() <= DP_NULL_GRAD * top if g is not None else torch.zeros_like(d, dtype=torch.bool)
+        scale = float(v.abs().max())
+        live = float(d[~noise].max()) if bool((~noise).any()) else 0.0
+        worst.append((live / scale if scale else (0.0 if live == 0 else float("inf")), f"state {k}"))
+        if bool(noise.any()):
+            noise_worst = max(noise_worst, float(d[noise].max()) / lr)
+    rel, where = max(worst)
+    return rel, where, noise_worst
+
+
+def _dp_f32(got: dict, ref: dict) -> tuple[float, float]:
+    """A float32 step's reading against the float64 one: the losses' worst relative
+    error and the worst gradient ||d|| / ||g|| (gradients zero in exact arithmetic, at
+    most DP_NULL_GRAD of the largest, left out)."""
+    loss = float(((got["losses"] - ref["losses"]).abs() / ref["losses"].abs()).max())
+    top = max(float(g.norm()) for g in ref["grads"].values())
+    grad = max(float((got["grads"][k] - g).norm() / g.norm()) for k, g in ref["grads"].items()
+               if float(g.norm()) > DP_NULL_GRAD * top)
+    return loss, grad
+
+
+def dp_phase(device, workdir: str, card: str) -> dict:
+    """Phase 16: data parallel on the card. The inputs of four steps (MGFN at the UCF
+    preset, the I3Res50 action step, the adversarial fa step under accum_steps 2 and
+    the fb/ft step, full model widths, batches cut to DP_*), the one-process card steps
+    in float64 and float32, then DP_WORLD gloo ranks on cuda:0 (each its own process,
+    killed if the phase fails): every rank's float64 step within DP_RTOL of the
+    one-process float64 step, its float32 reading printed beside the one-process
+    float32 one; step times and the collectives' share; the kernels' launches on the
+    ranks' extraction and adversarial-driver paths. Then a group of one over NCCL runs
+    train_anonymizer(mesh=) for one step. Returns {path: launch counts}."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from ted_spad_tpu_torch.chip_probes import mgfn_batch
+    from ted_spad_tpu_torch.config.params import AnonymizationParams
+    from ted_spad_tpu_torch.data.images import SyntheticImageSource
+    from ted_spad_tpu_torch.data.videos import ClipDataset, synthetic_video_items
+    from ted_spad_tpu_torch.parallel import data_parallel_mesh, multihost
+    from ted_spad_tpu_torch.stages.anonymization_training import train_anonymizer
+
+    t_phase = time.perf_counter()
+    root = os.path.join(workdir, "dp")
+    os.makedirs(root)
+    # The ranks start first: they import, reach the card and join the group while this
+    # process builds the inputs and runs the one-process steps; then they read the inputs.
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+                               "--dp-world", str(DP_WORLD), "--dp-dir", root],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(DP_WORLD)]
+    outs = []
+    try:
+        params = _dp_params()
+        pa, padv = params["action"], params["adversarial"]
+        ds = ClipDataset(synthetic_video_items(2 * pa.batch_size, pa.num_classes, num_frames=64, h=240,
+                                               w=320, seed=0), pa, views=3, num_workers=8, seed=0)
+        try:
+            action = next(ds.batches(pa.batch_size, seed=1))
+        finally:
+            ds.close()
+        inputs = {"mgfn": mgfn_batch(params["mgfn"]), "action": (action.clips, action.labels, action.params),
+                  "adversarial": _adv_inputs(padv, padv.batch_size, padv.batch_size_vispr, count=1)[0]}
+        one = dp_run(device, inputs, None)
+        torch.cuda.empty_cache()
+        torch.save(inputs, os.path.join(root, "inputs.tmp"))
+        os.replace(os.path.join(root, "inputs.tmp"), os.path.join(root, "inputs.pt"))
+        for proc in procs:
+            outs.append(proc.communicate(timeout=DP_RANK_TIMEOUT_S)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    for r, proc in enumerate(procs):
+        if proc.returncode != 0:
+            raise AssertionError(f"data-parallel rank {r} failed (exit {proc.returncode}):\n"
+                                 + "\n---\n".join(o[-6000:] for o in outs))
+    ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False) for r in range(DP_WORLD)]
+    log(f"[dp] {DP_WORLD} gloo ranks on cuda:0, started with this phase, done after "
+        f"{time.perf_counter() - t0:.1f}s of wall time (each {', '.join(f'{r['seconds']:.1f}s' for r in ranks)} "
+        f"after reading the inputs) | {card}")
+
+    shapes = {"mgfn": f"MGFN UCF preset, {DP_MGFN_BATCH} videos per half",
+              "action": f"I3Res50 action 'trip', {DP_ACTION[0]} videos x 3 views x {DP_ACTION[1]} x {DP_ACTION[2]}^2",
+              "fa": f"fa step, accum_steps {DP_ACCUM}, {DP_ADV[0]} videos x 3 views x {DP_ADV[2]} x {DP_ADV[3]}^2 + "
+                    f"{DP_ADV[1]} VISPR pairs",
+              "fbft": f"fb/ft step, {DP_ADV[0]} videos + {DP_ADV[1]} VISPR pairs (rows in the fa step's layout)"}
+    lrs = {"mgfn": params["mgfn"].lr, "action": pa.learning_rate, "fa": 1e-3, "fbft": 1e-3}
+    for which in DP_STEPS:
+        ref, lr = one["float64"][which], lrs[which]
+        worst = [_dp_worst(r["float64"][which], ref, lr) for r in ranks]
+        f32 = [_dp_f32(r["float32"][which], ref) for r in ranks]
+        f32_one = _dp_f32(one["float32"][which], ref)
+        (ms1, _), times = one["times"][which], [r["times"][which] for r in ranks]
+        log(f"[dp] {which} ({shapes[which]}): sharded float64 step against the one-process float64 step, "
+            f"worst max|d|/max|ref| per rank {', '.join(f'{w[0]:.3e} at {w[1]}' for w in worst)} (limit "
+            f"{DP_RTOL}; Adam's moves on noise gradients at most {max(w[2] for w in worst):.2e} lr, limit 2); "
+            f"float32 readings against it (loss rel, worst gradient ||d||/||g||): sharded "
+            f"{', '.join(f'{w[0]:.3e}, {w[1]:.3e}' for w in f32)}; one-process {f32_one[0]:.3e}, "
+            f"{f32_one[1]:.3e}; float32 step ms: one process {ms1:.2f}, sharded per rank "
+            f"{', '.join(f'{t[0]:.2f} (collectives {100 * t[1]:.1f}%)' for t in times)} | {card}")
+        if not all(w[0] <= DP_RTOL and w[2] <= 2.0 for w in worst):
+            raise AssertionError(f"the sharded {which} step is not the one-process step: {worst}")
+
+    launches = {}
+    for r, res in enumerate(ranks):
+        for path, counts in res["launches"].items():
+            if path.endswith("history"):
+                continue
+            launches[f"{path} rank{r}"] = counts
+        log(f"[dp] rank {r} kernel launches: {json.dumps({k: v for k, v in res['launches'].items() if not k.endswith('history')})}"
+            f"; train_anonymizer(mesh=) history {json.dumps(res['launches']['dp adversarial history'])} | {card}")
+    for r in range(DP_WORLD):
+        if not (launches[f"dp extract unet++ rank{r}"]["K1 preprocess"] > 0
+                and launches[f"dp extract unet rank{r}"]["K2 double_conv"] > 0
+                and launches[f"dp adversarial rank{r}"]["K2 double_conv"] > 0):
+            raise AssertionError(f"rank {r} did not launch K1 and K2 on its data-parallel paths")
+    if ranks[0]["launches"]["dp adversarial history"] != ranks[1]["launches"]["dp adversarial history"]:
+        raise AssertionError("the ranks' train_anonymizer histories differ")
+
+    # A group of one over NCCL, the default backend: train_anonymizer(mesh=) for one step.
+    t0 = time.perf_counter()
+    multihost.initialize_single(backend="nccl", timeout_s=DP_RANK_TIMEOUT_S)
+    try:
+        mesh = data_parallel_mesh(device)
+        nv, npairs = DP_DRIVER
+        ap = AnonymizationParams(batch_size=nv, batch_size_vispr=npairs, v_batch_size=2, num_modes=1,
+                                 save_acc_threshold=-1.0, run_id="dp_nccl")
+        res = train_anonymizer(
+            ap, train_items=synthetic_video_items(nv, ap.num_classes, num_frames=64, h=240, w=320, seed=0),
+            val_items=synthetic_video_items(2, ap.num_classes, num_frames=64, h=240, w=320, seed=1),
+            vispr_source=SyntheticImageSource(n=npairs, seed=0), save_dir=os.path.join(root, "nccl"),
+            max_epochs=1, log_fn=lambda m: None, device=device, mesh=mesh)
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+        multihost.set_host_group(None)
+    if not (backend == "nccl" and np.isfinite(res["history"]["loss_fa"]).all()):
+        raise AssertionError(f"the NCCL group of one: backend {backend}, history {res['history']}")
+    log(f"[dp] NCCL group of one: train_anonymizer(mesh=) one fa step ({nv} videos + {npairs} VISPR pairs at "
+        f"{ap.reso_h}^2, bf16), history {json.dumps(res['history'])}, {time.perf_counter() - t0:.1f}s | {card}")
+    log(f"[dp] phase time {time.perf_counter() - t_phase:.1f}s")
+    return launches
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2564,6 +2990,9 @@ def card_line() -> str:
 def main() -> int:
     import torch
 
+    if "--dp-rank" in sys.argv:  # a rank of phase 16, started by dp_phase
+        args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+        return dp_rank_main(int(args["--dp-rank"]), int(args["--dp-world"]), args["--dp-dir"])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible; nothing to check", file=sys.stderr)
         return 1
@@ -2607,6 +3036,7 @@ def main() -> int:
         k2_f32, vis_launches = visualization_phase(device, workdir, card)
         launches.update(vis_launches)
         launches["ft families"] = ft_families_phase(device, workdir, card)
+        launches.update(dp_phase(device, workdir, card))
     # Each kernel's launches on its own main path (K1: the default UNet++ path, K2: the
     # plain-UNet path, K3: the YUV path, K4: the int8 path), and on every path driven.
     for k, name, path in ((k1, "K1 preprocess", "unet++"), (k2, "K2 double_conv", "unet"),

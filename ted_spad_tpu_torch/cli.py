@@ -1,6 +1,7 @@
-"""Flags and inputs shared by the extraction-driven CLIs (``extract_features`` and
-``score_video``), one definition so the two cannot drift (counterpart of
-scripts/_common.py's ``add_extraction_args`` and ``resolve_extraction_inputs``)."""
+"""Flags and inputs shared by the CLIs, one definition so they cannot drift: those of
+the extraction-driven CLIs (``extract_features`` and ``score_video``) and ``--mesh``
+(counterpart of scripts/_common.py's ``add_extraction_args``,
+``resolve_extraction_inputs`` and ``maybe_mesh``)."""
 
 from __future__ import annotations
 
@@ -16,6 +17,31 @@ def synthetic_clip(arch_ft: str) -> tuple[int, int, int]:
     """(T, H, W) of the ``--synthetic`` runs' clips for an ft family: 8x32x32, or the
     i3d ft's smallest clip (below it the port raises where JAX returns NaN)."""
     return I3D_SMALLEST_CLIP if arch_ft == "i3d" else SYNTHETIC_CLIP
+
+
+def add_mesh_args(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--mesh", action="store_true",
+                    help="data parallel, one process per card: under torchrun each process "
+                         "joins the launcher's group; without one, a group of one on the card")
+    ap.add_argument("--backend", type=str, default="nccl", choices=["nccl", "gloo"],
+                    help="process-group backend of --mesh (gloo: the CPU, with --device cpu)")
+
+
+def maybe_mesh(args):
+    """The data-parallel mesh when ``--mesh`` is set, else None. Under a launcher
+    (a cluster marker set: torchrun's RANK / WORLD_SIZE, ...) the process joins its
+    group and a failure raises; without one it is a group of one on ``--device``
+    (the card, ``cuda:LOCAL_RANK``, by default)."""
+    if not getattr(args, "mesh", False):
+        return None
+    from ted_spad_tpu_torch.parallel import data_parallel_mesh, multihost
+
+    if multihost.in_cluster():
+        multihost.initialize_distributed(backend=args.backend)
+    else:
+        multihost.initialize_single(backend=args.backend)
+    device = None if args.device == "cuda" else args.device
+    return data_parallel_mesh(device)
 
 
 def add_extraction_args(ap: argparse.ArgumentParser) -> None:
@@ -51,6 +77,7 @@ def add_extraction_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--seed", type=int, default=0, help="seed of random weights")
     ap.add_argument("--device", type=str, default="cuda",
                     help="torch device (default cuda; 'cpu' runs the plain versions)")
+    add_mesh_args(ap)
 
 
 def extraction_inputs(args, *, n_synthetic: int):

@@ -98,12 +98,14 @@ def paired_train_batches(
     shuffle: bool = False,
     seed: int = 0,
     drop_last: bool = True,
+    mesh=None,
 ) -> Iterator[tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]]:
     """Yield (normal_feats, normal_labels, abnormal_feats, abnormal_labels) half-batches,
     as ``zip(nloader, aloader)`` with drop_last (main.py:49-57, train.py:82): an epoch
     is ``min(len(n), len(a)) // batch_size`` steps, in list order unless ``shuffle``.
     The halves always have the same size: the step splits their concatenation at its
-    midpoint."""
+    midpoint. With ``mesh`` (parallel.DataParallelMesh) every rank draws the same
+    order and loads only its block of each half."""
     rng = np.random.default_rng(seed)
     n_idx = np.arange(len(normal))
     a_idx = np.arange(len(abnormal))
@@ -119,8 +121,11 @@ def paired_train_batches(
         m = min(len(ns), len(asl))
         if m == 0:
             break
-        nf, nl = zip(*(normal[int(i)] for i in ns[:m]))
-        af, al = zip(*(abnormal[int(i)] for i in asl[:m]))
+        ns, asl = ns[:m], asl[:m]
+        if mesh is not None:
+            ns, asl = mesh.take_rows(ns), mesh.take_rows(asl)
+        nf, nl = zip(*(normal[int(i)] for i in ns))
+        af, al = zip(*(abnormal[int(i)] for i in asl))
         yield np.stack(nf), np.asarray(nl, np.float32), np.stack(af), np.asarray(al, np.float32)
 
 

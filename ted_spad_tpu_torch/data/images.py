@@ -189,10 +189,15 @@ def vispr_batches(
     out_w: int = 224,
     seed: int = 0,
     drop_last: bool = True,
+    mesh=None,
+    parts: int = 1,
 ) -> Iterator[ImageBatch]:
     """One epoch of batches, shuffled with ``seed`` when ``train``. ``ssl`` adds a
     second draw whose crop shares the first one's origin (the NT-Xent positive pair,
-    vispr_ssl_dataset). Eval batches carry no draw: the stage centre-crops them."""
+    vispr_ssl_dataset). Eval batches carry no draw: the stage centre-crops them.
+    With ``mesh`` (parallel.DataParallelMesh, train batches) every rank draws the
+    same order and augmentation and loads only its rows (``mesh.row_index(B,
+    parts)``); the batch size must shard over it."""
     rng = np.random.default_rng(seed)
     order = np.arange(len(source))
     if train:
@@ -202,17 +207,19 @@ def vispr_batches(
         idx = order[s * batch_size: (s + 1) * batch_size]
         if len(idx) == 0:
             return
-        images, labels = source.get_batch(idx)
+        shard = mesh is not None and train
+        images, labels = source.get_batch(idx[mesh.row_index(len(idx), parts)] if shard else idx)
         if not train:
             yield ImageBatch(images, labels)
             continue
         src = images.shape[1]
         p1 = sample_image_augment_params(rng, len(idx), src, out_h, out_w)
-        if not ssl:
-            yield ImageBatch(images, labels, p1)
-            continue
-        p2 = sample_image_augment_params(rng, len(idx), src, out_h, out_w,
-                                         shared_crop_origin=(p1.y0.copy(), p1.x0.copy()))
+        p2 = None
+        if ssl:
+            p2 = sample_image_augment_params(rng, len(idx), src, out_h, out_w,
+                                             shared_crop_origin=(p1.y0.copy(), p1.x0.copy()))
+        if shard:
+            p1, p2 = mesh.take_rows(p1, parts=parts), mesh.take_rows(p2, parts=parts)
         yield ImageBatch(images, labels, p1, p2)
 
 

@@ -206,6 +206,7 @@ class ClipBatch:
     labels: np.ndarray  # (B,) int32
     params: AugmentParams | None  # per-(B*V) flattened draw; None for val
     indices: np.ndarray | None = None  # video indices within the dataset (val bookkeeping)
+    sharded: bool = False  # the rows are this rank's of a global batch (data parallel)
 
 
 class ClipDataset:
@@ -277,7 +278,14 @@ class ClipDataset:
         except Exception:  # noqa: BLE001 — corrupt-video tolerance
             return None
 
-    def batches(self, batch_size: int, *, seed: int = 0, drop_last: bool = True) -> Iterator[ClipBatch]:
+    def batches(self, batch_size: int, *, seed: int = 0, drop_last: bool = True,
+                mesh=None, parts: int = 1) -> Iterator[ClipBatch]:
+        """One epoch of batches in the seed's order. With ``mesh``
+        (parallel.DataParallelMesh) every rank draws the same order, seeds and
+        augmentation, and decodes only its rows (``mesh.row_index(B, parts)``); the
+        batch is ``sharded``. A batch the mesh does not divide is decoded whole on
+        every rank, and so is one where any rank's decode failed (the ranks swap their
+        clips, and the survivors run replicated, as one process runs them)."""
         rng = np.random.default_rng(seed)
         order = rng.permutation(len(self.items))
         steps = len(order) // batch_size if drop_last else (len(order) + batch_size - 1) // batch_size
@@ -286,13 +294,26 @@ class ClipDataset:
             if len(idx) == 0:
                 return
             seeds = rng.integers(0, 2**31, size=len(idx))
-            loaded = list(self._pool.map(self._load_one, [self.items[i] for i in idx], seeds))
-            keep = [k for k, c in enumerate(loaded) if c is not None]
+            local = None
+            if mesh is not None and mesh.divides(len(idx), parts):
+                local = mesh.row_index(len(idx), parts)
+                loaded = list(self._pool.map(self._load_one, [self.items[i] for i in idx[local]],
+                                             seeds[local]))
+                if any(mesh.exchange(any(c is None for c in loaded))):  # a decode failed
+                    full: list = [None] * len(idx)
+                    for r, piece in enumerate(mesh.exchange(loaded)):
+                        for k, c in zip(mesh.row_index(len(idx), parts, rank=r), piece):
+                            full[k] = c
+                    loaded, local = full, None
+            else:
+                loaded = list(self._pool.map(self._load_one, [self.items[i] for i in idx], seeds))
+            keep = list(range(len(idx))) if local is not None else [
+                k for k, c in enumerate(loaded) if c is not None]
             if len(keep) < 2:  # collate min-2 filter (ucf101_dl.py:911-912)
                 continue
-            clips = np.stack([loaded[k] for k in keep])  # (B, V, T, H, W, C)
+            clips = np.stack(loaded if local is not None else [loaded[k] for k in keep])
             labels = np.asarray([self.items[idx[k]].label for k in keep], np.int32)
-            b, v = clips.shape[:2]
+            b, v = len(keep), clips.shape[1]  # (B, V, T, H, W, C), B global
             aug = sample_augment_params(
                 rng,
                 b * v,
@@ -315,7 +336,11 @@ class ClipDataset:
                 arr[:, 1:] = arr[:, :1]
             if getattr(self.p, "frame_wise_aug", False) and not getattr(self.p, "weak_aug", False):
                 aug = expand_framewise(aug, clips.shape[2], rng)
-            yield ClipBatch(clips, labels, aug)
+            if local is not None:
+                yield ClipBatch(clips, mesh.take_rows(labels, parts=parts),
+                                mesh.take_rows(aug, b, parts), sharded=True)
+            else:
+                yield ClipBatch(clips, labels, aug)
 
 
 class ValClipDataset:

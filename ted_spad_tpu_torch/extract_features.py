@@ -11,6 +11,8 @@ kernel K4, calibrated on the run's first ``--quant_calib_batches`` batches). ``-
 reference-style ``params_*.py`` on ``FeatureExtractionParams`` (``arch_ft``, ``arch_fa``,
 ``no_ar_distortion``, ``quirk_compat``, ...). ``--shard_id`` / ``--num_shards`` split the
 video list round-robin across processes; existing files are skipped (resume).
+``--mesh`` under ``torchrun --nproc_per_node=N`` does that split by rank, one process
+per card (``cuda:LOCAL_RANK``).
 
 Synthetic smoke on the CPU: ``python -m ted_spad_tpu_torch.extract_features --synthetic --device cpu``
 (add ``--decode_mode yuv`` or ``--quant int8`` for those modes).
@@ -22,12 +24,13 @@ import argparse
 
 
 def run(args) -> dict:
-    from ted_spad_tpu_torch.cli import extraction_inputs
+    from ted_spad_tpu_torch.cli import extraction_inputs, maybe_mesh
     from ted_spad_tpu_torch.models import load_fa_model, load_ft_model
     from ted_spad_tpu_torch.stages.feature_extraction import extract_features
     from ted_spad_tpu_torch.utils.device import resolve_device
 
-    device = resolve_device(args.device)
+    mesh = maybe_mesh(args)
+    device = resolve_device(args.device if mesh is None else mesh.device)
     p, uris, decode_hw = extraction_inputs(args, n_synthetic=4)
     fa = None
     if p.anonymized:
@@ -39,7 +42,7 @@ def run(args) -> dict:
     res = extract_features(p, uris, args.out_dir, fa=fa, ft=ft, batch_size=args.batch,
                            decode_hw=decode_hw, shard_id=args.shard_id,
                            num_shards=args.num_shards, num_workers=args.num_workers,
-                           decode_mode=args.decode_mode, device=device)
+                           decode_mode=args.decode_mode, device=device, mesh=mesh)
     print(f"done; {res['clips']} clips @ {res['clips_per_sec']:.2f} clips/s"
           + (f"; {len(res['skipped'])} videos skipped (undecodable)" if res["skipped"] else "")
           + (f"; int8 features' cosine to bf16 {res['quant_feature_cossim_vs_bf16']}"

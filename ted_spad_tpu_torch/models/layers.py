@@ -9,6 +9,11 @@ batch variance and moves the running statistics as ``ra = 0.9 ra + 0.1 stat``
 (torch's train-mode BatchNorm stores the unbiased variance, with momentum meaning the
 reverse, so it is never used), and ``dropout`` draws from an explicit generator.
 
+Under data parallel (inside ``parallel.active(mesh)``) both see the global batch:
+``flax_batch_norm`` all-reduces its sums, so the statistics are those of every rank's
+rows, and a dropout mask is drawn for the global batch and each rank keeps its rows,
+so a sharded step draws the one-process step's masks.
+
 ``checkpoint`` is activation checkpointing (JAX's ``jax.checkpoint``, the adversarial
 stage's ``remat``) that keeps both of these exact: the running statistics move once
 per forward the step asks for, not again while the backward recomputes, and a
@@ -26,6 +31,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from ted_spad_tpu_torch.parallel.mesh import active_mesh
 from ted_spad_tpu_torch.utils.device import at_least_f32
 
 # Torch BatchNorm defaults (the reference's): eps 1e-5, momentum 0.1 (flax's 0.9).
@@ -89,11 +95,21 @@ def flax_batch_norm(bn: nn.modules.batchnorm._NormBase, x: torch.Tensor,
     and move ``bn``'s running statistics as ``ra = momentum * ra + (1 - momentum) *
     stat`` with that biased variance (not while a ``checkpoint``ed forward is
     recomputed). Gradients flow through the batch statistics; the output is in
-    ``x``'s dtype."""
+    ``x``'s dtype. Inside ``parallel.active(mesh)`` the statistics are the global
+    batch's: (sum x, sum x^2) all-reduced over the ranks, differentiably, as GSPMD
+    reduces a sharded batch axis."""
     xf = at_least_f32(x)
     dims = [0] + list(range(2, x.dim()))
-    mean = xf.mean(dim=dims)
-    var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+    act = active_mesh()
+    if act is None:
+        mean = xf.mean(dim=dims)
+        var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+    else:
+        mesh = act[0]
+        count = (x.numel() // x.shape[1]) * mesh.world_size  # every rank holds as many rows
+        sums = mesh.all_reduce(torch.stack([xf.sum(dim=dims), (xf * xf).sum(dim=dims)]))
+        mean = sums[0] / count
+        var = torch.clamp(sums[1] / count - mean * mean, min=0.0)
     if not recomputing():
         with torch.no_grad():
             bn.running_mean.copy_(momentum * bn.running_mean + (1.0 - momentum) * mean)
@@ -120,13 +136,23 @@ def magnitude_dropout(shape, rate: float, generator: torch.Generator | None,
     """flax ``Dropout(rate)`` applied to ones (MGFN's magnitude dropout, mgfn.py:217-219):
     each entry is kept with probability 1 - rate and then reads 1 / (1 - rate), else 0.
     The mask comes from ``generator`` (on ``device``), never from torch's global RNG.
-    None at rate 0, where flax's Dropout is the identity."""
+    None at rate 0, where flax's Dropout is the identity. Inside
+    ``parallel.active(mesh)`` the leading axis is this rank's rows: the mask is drawn
+    for the global batch and the rank keeps its rows of it."""
     if rate == 0.0:
         return None
     if generator is None:
         raise ValueError("dropout in train mode needs an explicit torch.Generator")
     keep = 1.0 - rate
-    draw = torch.rand(shape, generator=generator, device=generator.device).to(device)
+    act = active_mesh()
+    if act is None:
+        draw = torch.rand(shape, generator=generator, device=generator.device)
+    else:
+        mesh, parts = act
+        shape = (shape[0] * mesh.world_size,) + tuple(shape[1:])
+        draw = mesh.take_rows(torch.rand(shape, generator=generator, device=generator.device),
+                              parts=parts)
+    draw = draw.to(device)
     return torch.where(draw < keep, torch.full_like(draw, 1.0 / keep), torch.zeros_like(draw))
 
 

@@ -25,6 +25,9 @@ the MGFN one too), ``--*_weights`` take ``.npz`` files of flax variables keyed b
 '/'-joined paths (utils/jax_weights.load_npz_variables); without either the models
 draw random weights from ``--seed`` (smoke runs only).
 
+``--mesh`` under ``torchrun --nproc_per_node=N`` spreads the videos over one process per
+card: each extracts and scores its share, and rank 0 writes ``summary.json``.
+
 Synthetic smoke on the CPU: ``python -m ted_spad_tpu_torch.score_video --synthetic --device cpu``.
 """
 
@@ -56,7 +59,7 @@ def spans_above(frame_scores, threshold: float) -> list[list[int]]:
 def run(args) -> list[dict]:
     """Score every video; returns the per-video summaries (also written to
     ``<out_dir>/summary.json``)."""
-    from ted_spad_tpu_torch.cli import extraction_inputs
+    from ted_spad_tpu_torch.cli import extraction_inputs, maybe_mesh
     from ted_spad_tpu_torch.config.params import MGFNParams
     from ted_spad_tpu_torch.data.features import padded_test_batch
     from ted_spad_tpu_torch.data.video_reader import open_video
@@ -70,7 +73,8 @@ def run(args) -> list[dict]:
         FT_HEADS, load_jax_variables, load_npz_variables,
     )
 
-    device = resolve_device(args.device)
+    mesh = maybe_mesh(args)
+    device = resolve_device(args.device if mesh is None else mesh.device)
     p, uris, decode_hw = extraction_inputs(args, n_synthetic=2)
     mp = MGFNParams.for_dataset(args.datasetname, seed=args.seed)
     if args.synthetic:  # MGFN's internal dims shrink too
@@ -83,8 +87,9 @@ def run(args) -> list[dict]:
     score_dir = os.path.join(args.out_dir, "scores")
     os.makedirs(feat_dir, exist_ok=True)
     os.makedirs(score_dir, exist_ok=True)
-    with open(os.path.join(feat_dir, "_extract_config.txt"), "w") as f:
-        f.write(cfg + "\n")
+    if mesh is None or mesh.rank == 0:
+        with open(os.path.join(feat_dir, "_extract_config.txt"), "w") as f:
+            f.write(cfg + "\n")
 
     fa = None
     if p.anonymized:
@@ -99,7 +104,7 @@ def run(args) -> list[dict]:
         load_jax_variables(ft, load_npz_variables(args.ft_weights), skip=FT_HEADS)
     res = extract_features(p, uris, feat_dir, fa=fa, ft=ft, batch_size=args.batch,
                            decode_hw=decode_hw, num_workers=args.num_workers,
-                           decode_mode=args.decode_mode, device=device)
+                           decode_mode=args.decode_mode, device=device, mesh=mesh)
     feat_paths = {**res["existing"], **res["saved"]}
 
     model = load_mgfn_model(mp, saved_model_file=args.mgfn_ckpt, device=device)
@@ -107,7 +112,8 @@ def run(args) -> list[dict]:
         load_jax_variables(model, load_npz_variables(args.mgfn_weights))
     score_fn = make_score_fn(model, device=device)
     summaries = []
-    for uri in uris:
+    # Under --mesh each rank scores its shard of the videos; rank 0 writes the summary.
+    for uri in (uris if mesh is None else uris[mesh.rank::mesh.world_size]):
         if uri not in feat_paths:
             summaries.append({"video": uri, "error": res["skipped"].get(uri, "no features")})
             print(json.dumps(summaries[-1]))
@@ -144,6 +150,11 @@ def run(args) -> list[dict]:
             "spans_above_threshold": spans_above(frames, args.threshold),
         })
         print(json.dumps(summaries[-1]))
+    if mesh is not None:
+        by_uri = {s["video"]: s for part in mesh.exchange(summaries) for s in part}
+        summaries = [by_uri[u] for u in uris]
+        if mesh.rank != 0:
+            return summaries
     with open(os.path.join(args.out_dir, "summary.json"), "w") as f:
         json.dump({"threshold": args.threshold, "videos": summaries}, f, indent=1)
     return summaries

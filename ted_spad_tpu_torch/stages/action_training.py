@@ -22,6 +22,12 @@ train_classifier :189 -- and train_anonymized_action.py).
 - Checkpoints (flax msgpack, the JAX package's layout): the best top-1
   (``model_<epoch>_best_<acc>.ckpt``) and a rolling ``model_temp.ckpt`` with
   ``epoch``; ``restart`` resumes from it; ``eval_only`` evaluates and returns.
+- Data parallel (``mesh``, a ``parallel.DataParallelMesh``): each rank decodes and
+  augments its block of a batch the world size divides; BN takes global statistics,
+  dropout the global masks, and the step gathers the logits and embeddings in
+  global order before the losses (SupCon and NT-Xent contrast the global rows); the
+  averaged gradient is the one-process step's. Other batches run replicated.
+  Validation runs whole on every rank; rank 0 writes the checkpoints.
 
 """
 
@@ -46,6 +52,7 @@ from ted_spad_tpu_torch.ops.losses import (
 )
 from ted_spad_tpu_torch.ops.metrics import top1_accuracy
 from ted_spad_tpu_torch.ops.temporal import scrambled_frame_view, unscrambled_frame_view
+from ted_spad_tpu_torch.parallel.mesh import active
 from ted_spad_tpu_torch.stages.common import (
     LRScheduler, augment_dtype, autocast, epoch_mean, make_optimizer, module_device, set_learning_rate,
     zero_missing_grads,
@@ -86,17 +93,20 @@ def views_for(p: ActionParams) -> int:
 def make_train_step(ft: torch.nn.Module, optimizer: torch.optim.Optimizer, p: ActionParams,
                     fa: torch.nn.Module | None = None, *,
                     generator: torch.Generator | None = None,
-                    device: str | torch.device = "cuda") -> Callable:
-    """``train_step(clips_u8 (B, V, T, H, W, 3), labels (B,), aug: AugmentParams) ->
-    loss`` (a device scalar); ``generator`` (on ``device``) draws the dropout masks.
-    After the step each parameter's ``.grad`` holds its gradient."""
+                    device: str | torch.device = "cuda", mesh=None) -> Callable:
+    """``train_step(clips_u8 (B, V, T, H, W, 3), labels (B,), aug: AugmentParams,
+    sharded=True) -> loss`` (a device scalar); ``generator`` (on ``device``) draws the
+    dropout masks. After the step each parameter's ``.grad`` holds its gradient. With
+    ``mesh`` a ``sharded`` step takes this rank's rows of the global batch and is the
+    one-process step over it; an unsharded one takes the whole batch on every rank."""
     device = module_device(ft, device)
     # FrozenBN for the largei3d ft alone (train_action.py:39-41); the other families
     # take no such argument.
     frozen = {"frozen_bn": True} if p.arch == "largei3d" else {}
     aug_dtype = augment_dtype(ft)
 
-    def train_step(clips_u8, labels, aug: AugmentParams) -> torch.Tensor:
+    def train_step(clips_u8, labels, aug: AugmentParams, sharded: bool = True) -> torch.Tensor:
+        dp = mesh if sharded else None
         clips = torch.as_tensor(clips_u8).to(device, non_blocking=True)
         labels = torch.as_tensor(labels).to(device, torch.long, non_blocking=True)
         b, v = clips.shape[:2]
@@ -110,9 +120,11 @@ def make_train_step(ft: torch.nn.Module, optimizer: torch.optim.Optimizer, p: Ac
             else:
                 x = _apply_fa_frames(fa, x)
         optimizer.zero_grad(set_to_none=True)
-        with autocast(device, p.compute_dtype):
+        with autocast(device, p.compute_dtype), active(dp):
             logits, emb = ft(x.permute(0, 4, 1, 2, 3), train=True, generator=generator, **frozen)
         logits, emb = logits.reshape(b, v, -1)[:, 0], emb.reshape(b, v, -1)
+        if dp is not None:
+            logits, emb, labels = dp.gather_rows(logits), dp.gather_rows(emb), dp.gather_rows(labels)
         if v > 1 and p.loss == "con":
             loss = supcon_loss(l2_normalize(emb[:, :2], dim=-1), labels)
         else:
@@ -124,6 +136,8 @@ def make_train_step(ft: torch.nn.Module, optimizer: torch.optim.Optimizer, p: Ac
             loss = loss + p.temporal_loss_weight * nt_xent_loss(emb[:, 0], emb[:, 1])
         loss.backward()
         zero_missing_grads(optimizer)
+        if mesh is not None:
+            mesh.all_reduce_grads(ft.parameters())
         optimizer.step()
         return loss.detach()
 
@@ -211,14 +225,17 @@ def train_action(
     log_fn: Callable[[str], None] = print,
     seed: int = 0,
     device: str | torch.device = "cuda",
+    mesh=None,
 ) -> dict[str, Any]:
     """Stage driver of train_action.py:189 and, with ``p.anonymized``,
     train_anonymized_action.py:204 (the fa from ``p.saved_model_fa``, or ``fa_model``).
     The ft's initial weights come from ``p.saved_model`` or ``p.seed``; the data order,
     the augmentation draws and the dropout masks from ``seed``. ``ft_dropout == 0``
     keeps the module's default rate, 0.5, as the JAX package does. Returns
-    ``{"history", "best_acc", "best_path", "model"}``."""
-    device = resolve_device(device)
+    ``{"history", "best_acc", "best_path", "model"}``. ``mesh``: data parallel on
+    ``mesh.device`` (module docstring); a batch shards when the world size divides it,
+    else it runs replicated, as in the JAX package."""
+    device = resolve_device(device if mesh is None else mesh.device)
     ft = load_ft_model(p.arch, saved_model_file=p.saved_model, num_classes=p.num_classes,
                        clip_shape=(p.num_frames, p.reso_h, p.reso_w), seed=p.seed,
                        dtype="float32", dropout_rate=p.ft_dropout if p.ft_dropout else None,
@@ -228,6 +245,8 @@ def train_action(
         fa = fa_model if fa_model is not None else load_fa_model(
             p.arch_fa, saved_model_file=p.saved_model_fa, seed=p.seed, dtype=p.compute_dtype,
             device=device)
+    if mesh is not None:
+        mesh.replicate(*(m for m in (ft, fa) if m is not None))
     optimizer = make_optimizer(ft.parameters(), p.opt_type, p.learning_rate, p.weight_decay,
                                p.momentum)
     run_dir = os.path.join(save_dir, p.run_id)
@@ -249,7 +268,8 @@ def train_action(
     train_ds = ClipDataset(train_items, p, views=views_for(p), data_percentage=p.data_percentage,
                            decode_w=decode_hw[1], decode_h=decode_hw[0], seed=seed)
     generator = torch.Generator(device=device).manual_seed(seed)
-    train_step = make_train_step(ft, optimizer, p, fa, generator=generator, device=device)
+    train_step = make_train_step(ft, optimizer, p, fa, generator=generator, device=device,
+                                 mesh=mesh)
     sched = LRScheduler(p)
     best = BestCheckpointer(run_dir, "model", mode="max")
     epochs = max_epochs or p.num_epochs
@@ -263,9 +283,10 @@ def train_action(
             lr = sched.epoch_lr(epoch, train_loss)
             set_learning_rate(optimizer, lr)
             losses = []
-            with prefetch(train_ds.batches(p.batch_size, seed=seed + epoch)) as batch_it:
+            with prefetch(train_ds.batches(p.batch_size, seed=seed + epoch, mesh=mesh)) as batch_it:
                 for batch in batch_it:
-                    losses.append(train_step(batch.clips, batch.labels, batch.params))
+                    losses.append(train_step(batch.clips, batch.labels, batch.params,
+                                             sharded=batch.sharded))
             train_loss = epoch_mean(losses)
             sched.update(train_loss)
             history["train_loss"].append(train_loss)
@@ -285,4 +306,6 @@ def train_action(
         train_ds.close()
     flush_checkpoints()
     writer.close()
+    if mesh is not None:
+        mesh.barrier()  # rank 0's checkpoints are on disk for every rank
     return {"history": history, "best_acc": best.best, "best_path": best.best_path, "model": ft}

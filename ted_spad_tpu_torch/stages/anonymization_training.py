@@ -29,6 +29,16 @@ SupCon contrast within each microbatch, not over the whole batch (the JAX packag
 documented divergence). ``quirk_compat`` feeds the fa the reference's scrambled view
 of the clips (VISPR images go through it clean, as in the reference).
 
+Data parallel (``mesh``, a ``parallel.DataParallelMesh``): each rank loads and
+augments its rows of both modalities, laid out in ``accum_steps`` microbatches
+(``mesh.row_index(B, accum_steps)``), so its share of microbatch i is its block of the
+global microbatch i, as the JAX package's ``x.reshape((n, B // n) + ...)`` defines
+it; BN takes global statistics over each forward, the ft's dropout draws the global
+masks, and the steps gather the fb projections and the ft logits and embeddings in
+global order, so NT-Xent, SupCon and the triplet loss run over the global rows (of
+each microbatch in the fa step); the averaged gradients are the one-process steps'.
+A batch with a failed clip runs replicated; rank 0 alone writes.
+
 The ft is any family (``arch_ft``: largei3d, i3d, r3d_18, mvitv2); its feature
 (I3Res50's 128-d embedding, or the family's pooled feature) feeds the triplet loss
 and SupCon. Checkpoints hold the three models in flax layout (the JAX
@@ -57,6 +67,8 @@ from ted_spad_tpu_torch.ops.losses import (
     cross_entropy_loss, l2_normalize, nt_xent_loss, supcon_loss, triplet_margin_loss,
 )
 from ted_spad_tpu_torch.ops.temporal import scrambled_frame_view, unscrambled_frame_view
+from ted_spad_tpu_torch.parallel import multihost
+from ted_spad_tpu_torch.parallel.mesh import active
 from ted_spad_tpu_torch.stages.action_training import evaluate_action, make_eval_step
 from ted_spad_tpu_torch.stages.common import (
     augment_dtype, autocast, epoch_mean, make_optimizer, module_device, set_learning_rate,
@@ -116,10 +128,13 @@ def _anon_frames(fa: torch.nn.Module, video: torch.Tensor, train: bool,
 
 def _ft_losses(ft: torch.nn.Module, anon_clips: torch.Tensor, labels: torch.Tensor,
                p: AnonymizationParams, train: bool, generator: torch.Generator | None = None,
-               remat: bool | str = False) -> tuple[torch.Tensor, torch.Tensor]:
+               remat: bool | str = False, mesh=None,
+               parts: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
     """(classification + weighted triplet loss, triplet loss) of the ft over the
     anonymized (B, 3, T, h, w, 3) views in one batched forward (train_anonymizer.py:
-    99-116). ``train``: BN's batch statistics and dropout from ``generator``."""
+    99-116). ``train``: BN's batch statistics and dropout from ``generator``. With
+    ``mesh`` the rows are this rank's (in ``parts`` microbatches) and the losses the
+    global batch's."""
     b, v = anon_clips.shape[:2]
     x = anon_clips.reshape((b * v,) + anon_clips.shape[2:]).permute(0, 4, 1, 2, 3)
     blocks = remat == "blocks"
@@ -132,6 +147,8 @@ def _ft_losses(ft: torch.nn.Module, anon_clips: torch.Tensor, labels: torch.Tens
     gens = (generator,) if train and generator is not None else ()
     logits, emb = checkpoint(run, x, generators=gens) if remat is True else run(x)
     logits, emb = logits.reshape(b, v, -1), emb.reshape(b, v, -1)
+    if mesh is not None:
+        logits, emb, labels = (mesh.gather_rows(t, parts=parts) for t in (logits, emb, labels))
     if p.loss == "con":
         loss_cls = supcon_loss(l2_normalize(emb[:, :2], dim=-1), labels)
     else:
@@ -141,14 +158,18 @@ def _ft_losses(ft: torch.nn.Module, anon_clips: torch.Tensor, labels: torch.Tens
 
 
 def _fb_loss(fb: torch.nn.Module, anon_pair: tuple[torch.Tensor, torch.Tensor],
-             p: AnonymizationParams, train: bool, remat: bool | str = False) -> torch.Tensor:
+             p: AnonymizationParams, train: bool, remat: bool | str = False, mesh=None,
+             parts: int = 1) -> torch.Tensor:
     """NT-Xent over the fb projections of the two anonymized VISPR views, (N, h, w, 3)
     each (train_anonymizer.py:78-84): two forwards, whose BN statistics chain in train
-    mode; under any remat each is checkpointed whole, as in the JAX package."""
+    mode; under any remat each is checkpointed whole, as in the JAX package. With
+    ``mesh`` the projections are gathered and the loss contrasts the global rows."""
     def run(x: torch.Tensor) -> torch.Tensor:
         return fb(x.permute(0, 3, 1, 2), train=train)
 
     z1, z2 = ((checkpoint(run, x) if remat else run(x)) for x in anon_pair)
+    if mesh is not None:
+        z1, z2 = mesh.gather_rows(z1, parts=parts), mesh.gather_rows(z2, parts=parts)
     return nt_xent_loss(z1, z2, p.nt_xent_temperature, p.nt_xent_cosine)
 
 
@@ -169,29 +190,35 @@ def _frozen(*models: torch.nn.Module):
 
 def make_fa_step(fa: torch.nn.Module, fb: torch.nn.Module, ft: torch.nn.Module,
                  opt_fa: torch.optim.Optimizer, p: AnonymizationParams, *,
-                 device: str | torch.device = "cuda") -> Callable:
-    """``fa_step(vispr1, vispr2, clips, labels) -> (loss_fa, loss_fb, loss_ft,
-    loss_temporal)`` (a device tensor) on augmented inputs: VISPR views (N, h, w, 3),
-    clips (B, 3, T, h, w, 3), labels (B,). Afterwards each fa parameter's ``.grad``
-    holds its gradient (the microbatches' mean under ``p.accum_steps``); fb and ft
-    are left without one."""
+                 device: str | torch.device = "cuda", mesh=None) -> Callable:
+    """``fa_step(vispr1, vispr2, clips, labels, sharded=True) -> (loss_fa, loss_fb,
+    loss_ft, loss_temporal)`` (a device tensor) on augmented inputs: VISPR views (N,
+    h, w, 3), clips (B, 3, T, h, w, 3), labels (B,). Afterwards each fa parameter's
+    ``.grad`` holds its gradient (the microbatches' mean under ``p.accum_steps``); fb
+    and ft are left without one. With ``mesh`` a ``sharded`` step takes this rank's
+    rows in ``p.accum_steps`` microbatches (module docstring) and is the one-process
+    step over the global batch; an unsharded one takes the whole batch on every
+    rank."""
     device = module_device(fa, device)
     params = list(fa.parameters())
     n = p.accum_steps
 
-    def one(v1, v2, clips, labels, remat):
-        with autocast(device, p.compute_dtype):
-            a1 = _anon_frames(fa, v1[:, None], True, remat)
-            a2 = _anon_frames(fa, v2[:, None], True, remat)
-            loss_fb = _fb_loss(fb, (a1[:, 0], a2[:, 0]), p, False, remat)
-            anon_clips = _anon_frames(fa, clips, True, remat, quirk=p.quirk_compat)
-            loss_ft, loss_temporal = _ft_losses(ft, anon_clips, labels, p, False, remat=remat)
-            loss_fa = -p.fb_loss_weight * loss_fb + p.ft_loss_weight * loss_ft
-        grads = torch.autograd.grad(loss_fa, params, allow_unused=True)
+    def one(v1, v2, clips, labels, remat, dp):
+        with active(dp):  # also over the backward: remat recomputes BN there
+            with autocast(device, p.compute_dtype):
+                a1 = _anon_frames(fa, v1[:, None], True, remat)
+                a2 = _anon_frames(fa, v2[:, None], True, remat)
+                loss_fb = _fb_loss(fb, (a1[:, 0], a2[:, 0]), p, False, remat, mesh=dp)
+                anon_clips = _anon_frames(fa, clips, True, remat, quirk=p.quirk_compat)
+                loss_ft, loss_temporal = _ft_losses(ft, anon_clips, labels, p, False,
+                                                    remat=remat, mesh=dp)
+                loss_fa = -p.fb_loss_weight * loss_fb + p.ft_loss_weight * loss_ft
+            grads = torch.autograd.grad(loss_fa, params, allow_unused=True)
         losses = torch.stack([loss_fa, loss_fb, loss_ft, loss_temporal]).detach()
         return [torch.zeros_like(q) if g is None else g for q, g in zip(params, grads)], losses
 
-    def fa_step(vispr1, vispr2, clips, labels) -> torch.Tensor:
+    def fa_step(vispr1, vispr2, clips, labels, sharded: bool = True) -> torch.Tensor:
+        dp = mesh if sharded else None
         labels = torch.as_tensor(labels).to(device, torch.long)
         opt_fa.zero_grad(set_to_none=True)
         mv, mb = vispr1.shape[0] // n, clips.shape[0] // n
@@ -200,11 +227,13 @@ def make_fa_step(fa: torch.nn.Module, fb: torch.nn.Module, ft: torch.nn.Module,
         with _frozen(fb, ft):
             for i in range(n):  # n == 1: the whole batch, grads and losses exact
                 v, c = slice(i * mv, (i + 1) * mv), slice(i * mb, (i + 1) * mb)
-                g, l = one(vispr1[v], vispr2[v], clips[c], labels[c], remat)
+                g, l = one(vispr1[v], vispr2[v], clips[c], labels[c], remat, dp)
                 grads = [a + gi / n for a, gi in zip(grads, g)]
                 losses = losses + l / n
         for q, g in zip(params, grads):
             q.grad = g
+        if mesh is not None:
+            mesh.all_reduce_grads(params)
         opt_fa.step()
         return losses
 
@@ -214,14 +243,16 @@ def make_fa_step(fa: torch.nn.Module, fb: torch.nn.Module, ft: torch.nn.Module,
 def make_fbft_step(fa: torch.nn.Module, fb: torch.nn.Module, ft: torch.nn.Module,
                    opt_fb: torch.optim.Optimizer, opt_ft: torch.optim.Optimizer,
                    p: AnonymizationParams, *, generator: torch.Generator | None = None,
-                   device: str | torch.device = "cuda") -> Callable:
-    """``fbft_step(vispr1, vispr2, clips, labels) -> (loss_fb, loss_ft, loss_temporal)``
-    (a device tensor) on augmented inputs (as ``make_fa_step``'s); ``generator`` (on
-    ``device``) draws the ft's dropout masks. Afterwards each fb and ft parameter's
-    ``.grad`` holds its gradient."""
+                   device: str | torch.device = "cuda", mesh=None) -> Callable:
+    """``fbft_step(vispr1, vispr2, clips, labels, sharded=True) -> (loss_fb, loss_ft,
+    loss_temporal)`` (a device tensor) on augmented inputs (as ``make_fa_step``'s,
+    ``mesh`` and ``sharded`` too); ``generator`` (on ``device``) draws the ft's dropout
+    masks. Afterwards each fb and ft parameter's ``.grad`` holds its gradient."""
     device = module_device(fa, device)
+    parts = p.accum_steps  # the rows' layout under a mesh (the fa step's microbatches)
 
-    def fbft_step(vispr1, vispr2, clips, labels) -> torch.Tensor:
+    def fbft_step(vispr1, vispr2, clips, labels, sharded: bool = True) -> torch.Tensor:
+        dp = mesh if sharded else None
         labels = torch.as_tensor(labels).to(device, torch.long)
         remat = _resolve_remat(p, clips.shape, vispr1.shape)
         with torch.no_grad(), autocast(device, p.compute_dtype):
@@ -230,12 +261,16 @@ def make_fbft_step(fa: torch.nn.Module, fb: torch.nn.Module, ft: torch.nn.Module
             anon_clips = _anon_frames(fa, clips, False, quirk=p.quirk_compat)
         opt_fb.zero_grad(set_to_none=True)
         opt_ft.zero_grad(set_to_none=True)
-        with autocast(device, p.compute_dtype):
-            loss_fb = _fb_loss(fb, (a1[:, 0], a2[:, 0]), p, True, remat)
-            loss_ft, loss_temporal = _ft_losses(ft, anon_clips, labels, p, True, generator, remat)
-        (loss_fb + loss_ft).backward()
-        for opt in (opt_fb, opt_ft):
+        with active(dp, parts):  # also over the backward: remat recomputes BN there
+            with autocast(device, p.compute_dtype):
+                loss_fb = _fb_loss(fb, (a1[:, 0], a2[:, 0]), p, True, remat, dp, parts)
+                loss_ft, loss_temporal = _ft_losses(ft, anon_clips, labels, p, True, generator,
+                                                    remat, dp, parts)
+            (loss_fb + loss_ft).backward()
+        for opt, model in ((opt_fb, fb), (opt_ft, ft)):
             zero_missing_grads(opt)
+            if mesh is not None:
+                mesh.all_reduce_grads(model.parameters())
             opt.step()
         return torch.stack([loss_fb, loss_ft, loss_temporal]).detach()
 
@@ -255,6 +290,17 @@ def augment_inputs(vispr_b: ImageBatch, video_b: ClipBatch, p: AnonymizationPara
                           p.reso_w, dtype)
     labels = torch.as_tensor(video_b.labels).to(device, torch.long)
     return v1, v2, clips.reshape((b, v) + clips.shape[1:]), labels
+
+
+def _paired(vispr_it, video_it, mesh, batch_size_vispr: int, parts: int):
+    """The VISPR and clip batches of a step, side by side. Under a mesh a clip batch
+    that runs replicated (a failed decode) gets the whole VISPR batch too: the ranks
+    swap their rows here, on the producer thread, which alone uses the host group
+    while the epoch runs."""
+    for vispr_b, video_b in zip(vispr_it, video_it):
+        if mesh is not None and not video_b.sharded:
+            vispr_b = mesh.unshard_rows(vispr_b, batch_size_vispr, parts)
+        yield vispr_b, video_b
 
 
 def _optimizer_tree(opt: torch.optim.Optimizer) -> dict:
@@ -295,12 +341,24 @@ def train_anonymizer(
     log_fn: Callable[[str], None] = print,
     seed: int = 0,
     device: str | torch.device = "cuda",
+    mesh=None,
 ) -> dict[str, Any]:
     """Stage driver (train_anonymizer.py:319-555). The three models' initial weights
     come from ``p.saved_model_{fa,fb,ft}`` or ``p.seed``; the data order, the
     augmentation draws and the dropout masks from ``seed``. Returns ``{"history",
-    "best_acc", "best_path", "fa", "fb", "ft"}``."""
-    device = resolve_device(device)
+    "best_acc", "best_path", "fa", "fb", "ft"}``. ``mesh``: data parallel on
+    ``mesh.device`` (module docstring) when the world size divides both batch sizes,
+    the JAX package's condition, taken per microbatch: with ``accum_steps`` n the world
+    size times n must divide them, since each rank holds an equal block of each
+    microbatch (JAX would split a microbatch unevenly); else the mesh is disabled and
+    every rank runs the one-process step."""
+    parts = p.accum_steps
+    if mesh is not None and not (mesh.divides(p.batch_size, parts)
+                                 and mesh.divides(p.batch_size_vispr, parts)):
+        log_fn(f"mesh disabled: batch sizes {p.batch_size} / {p.batch_size_vispr} not "
+               f"divisible by {mesh.world_size} devices x {parts} microbatches")
+        mesh = None
+    device = resolve_device(device if mesh is None else mesh.device)
     fa = load_fa_model(p.arch_fa, saved_model_file=p.saved_model_fa, seed=p.seed, dtype="float32",
                        device=device).requires_grad_(True)
     ft = load_ft_model(p.arch_ft, saved_model_file=p.saved_model_ft, num_classes=p.num_classes,
@@ -313,9 +371,12 @@ def train_anonymizer(
     opt_fa = make_optimizer(fa.parameters(), p.opt_type, p.learning_rate_fa, p.weight_decay)
     opt_fb = make_optimizer(fb.parameters(), p.opt_type, p.learning_rate_fb, p.weight_decay)
     opt_ft = make_optimizer(ft.parameters(), p.opt_type, p.learning_rate_ft, p.weight_decay)
+    if mesh is not None:
+        mesh.replicate(fa, fb, ft)
     generator = torch.Generator(device=device).manual_seed(seed)
-    fa_step = make_fa_step(fa, fb, ft, opt_fa, p, device=device)
-    fbft_step = make_fbft_step(fa, fb, ft, opt_fb, opt_ft, p, generator=generator, device=device)
+    fa_step = make_fa_step(fa, fb, ft, opt_fa, p, device=device, mesh=mesh)
+    fbft_step = make_fbft_step(fa, fb, ft, opt_fb, opt_ft, p, generator=generator, device=device,
+                               mesh=mesh)
     ft_eval = make_eval_step(ft, p, fa=fa, device=device)
 
     video_ds = ClipDataset(train_items, p, views=3, data_percentage=p.data_percentage,
@@ -342,12 +403,14 @@ def train_anonymizer(
             set_learning_rate(opt_ft, scale * p.learning_rate_ft)
 
             vispr_it = vispr_batches(vispr_source, p.batch_size_vispr, train=True, ssl=True,
-                                     out_h=p.reso_h, out_w=p.reso_w, seed=seed + epoch)
-            video_it = video_ds.batches(p.batch_size, seed=seed + epoch)
+                                     out_h=p.reso_h, out_w=p.reso_w, seed=seed + epoch,
+                                     mesh=mesh, parts=parts)
+            video_it = video_ds.batches(p.batch_size, seed=seed + epoch, mesh=mesh, parts=parts)
             fa_turn = True
             fa_losses, fbft_losses = [], []
-            with prefetch(zip(vispr_it, video_it)) as paired_it:
+            with prefetch(_paired(vispr_it, video_it, mesh, p.batch_size_vispr, parts)) as paired_it:
                 for vispr_b, video_b in paired_it:
+                    sharded = video_b.sharded
                     v1, v2, clips, labels = augment_inputs(vispr_b, video_b, p, device, aug_dtype)
                     if fa_turn:
                         if p.accum_steps > 1:
@@ -360,9 +423,9 @@ def train_anonymizer(
                             if bm == 0 or vm == 0:
                                 continue
                             v1, v2, clips, labels = v1[:vm], v2[:vm], clips[:bm], labels[:bm]
-                        fa_losses.append(fa_step(v1, v2, clips, labels))
+                        fa_losses.append(fa_step(v1, v2, clips, labels, sharded))
                     else:
-                        fbft_losses.append(fbft_step(v1, v2, clips, labels))
+                        fbft_losses.append(fbft_step(v1, v2, clips, labels, sharded))
                     fa_turn = not fa_turn
             history["loss_fa"].append(epoch_mean([x[0] for x in fa_losses]))
             for col, k in enumerate(("loss_fb", "loss_ft", "loss_temporal")):
@@ -373,9 +436,11 @@ def train_anonymizer(
                       "ft_model_state_dict": state_dict_to_flax(ft)}
             acc = float("nan")
             if epoch in p.val_array or epoch == epochs:
-                vis_imgs, _ = vispr_source.get_batch(list(range(min(4, len(vispr_source)))))
-                save_vispr_visualization(fa, vis_imgs, os.path.join(run_dir, "visuals", f"epoch_{epoch}.png"),
-                                         (p.reso_h, p.reso_w))
+                if multihost.is_writer():
+                    vis_imgs, _ = vispr_source.get_batch(list(range(min(4, len(vispr_source)))))
+                    save_vispr_visualization(fa, vis_imgs,
+                                             os.path.join(run_dir, "visuals", f"epoch_{epoch}.png"),
+                                             (p.reso_h, p.reso_w))
                 acc = evaluate_action(ft_eval, val_items, p, decode_hw=decode_hw)
                 history["val_acc"].append(acc)
                 best.maybe_save(acc, epoch, models)
@@ -394,5 +459,7 @@ def train_anonymizer(
         video_ds.close()
     flush_checkpoints()
     writer.close()
+    if mesh is not None:
+        mesh.barrier()  # rank 0's checkpoints are on disk for every rank
     return {"history": history, "best_acc": best.best, "best_path": best.best_path,
             "fa": fa, "fb": fb, "ft": ft}

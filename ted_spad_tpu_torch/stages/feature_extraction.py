@@ -391,6 +391,7 @@ def extract_features(
     num_workers: int = 8,
     device: str | torch.device = "cuda",
     log_fn: Callable[[str], None] = print,
+    mesh=None,
 ) -> dict[str, Any]:
     """Run the extraction stage: one (num_clips, F) ``.npy`` per video, (num_clips,
     ncrops, F) with ``p.ncrops > 1``. Returns {"saved": {uri: path}, "existing": {uri: path},
@@ -407,7 +408,27 @@ def extract_features(
     is decoded. Videos are sharded round-robin (``shard_id`` of ``num_shards``); an
     existing ``.npy`` is skipped (resume) and reported under ``existing``; an
     undecodable video is skipped and reported under ``skipped``. Each ``.npy`` is
-    written to a temporary name and moved into place atomically."""
+    written to a temporary name and moved into place atomically.
+
+    ``mesh`` (parallel.DataParallelMesh): one process per card, each extracting its
+    ``process_shard()`` of the videos (``shard_id`` = rank of ``num_shards`` = world
+    size) on ``mesh.device``; a batch never spans processes. Every rank returns the
+    whole run's ``saved`` / ``existing`` / ``skipped`` maps and clip count (its own
+    under ``"shard"``), after every rank's files are on disk."""
+    if mesh is not None:
+        device, shard_id, num_shards = mesh.device, mesh.rank, mesh.world_size
+        shard = extract_features(p, video_uris, save_dir, fa=fa, ft=ft, batch_size=batch_size,
+                                 decode_hw=decode_hw, shard_id=shard_id, num_shards=num_shards,
+                                 decode_mode=decode_mode, num_workers=num_workers,
+                                 device=device, log_fn=log_fn)
+        every = mesh.exchange({k: shard[k] for k in ("saved", "existing", "skipped", "clips",
+                                                     "elapsed_s")})
+        merged = {k: {u: path for r in every for u, path in r[k].items()}
+                  for k in ("saved", "existing", "skipped")}
+        clips = sum(r["clips"] for r in every)
+        elapsed = max(r["elapsed_s"] for r in every)
+        return {**merged, "clips": clips, "elapsed_s": elapsed,
+                "clips_per_sec": clips / max(elapsed, 1e-9), "shard": shard}
     yuv = decode_mode == "yuv"
     if decode_mode not in ("rgb", "yuv"):
         raise ValueError(f"decode_mode must be 'rgb' or 'yuv', got {decode_mode!r}")

@@ -16,6 +16,10 @@ mvitv2).
 Synthetic smoke on the CPU (4 classes, 8x32x32 clips of procedural videos, float32; an
 i3d ft takes its smallest clip, 9x193x193):
 ``python -m ted_spad_tpu_torch.train_action --synthetic --device cpu --epochs 1 [--arch r3d_18]``.
+
+``--mesh`` trains data parallel: ``torchrun --nproc_per_node=N -m ted_spad_tpu_torch.train_action --mesh ...``
+runs one process per card (``cuda:LOCAL_RANK``, NCCL), each step the one-process step
+over the global batch; on the CPU add ``--backend gloo --device cpu``.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ import os
 
 
 def parser() -> argparse.ArgumentParser:
+    from ted_spad_tpu_torch.cli import add_mesh_args
+
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--params", type=str, default=None,
@@ -42,6 +48,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0, help="data, augmentation and dropout seed")
     ap.add_argument("--device", type=str, default="cuda",
                     help="torch device (default cuda; 'cpu' runs on the CPU)")
+    add_mesh_args(ap)
     return ap
 
 
@@ -53,7 +60,10 @@ def run(args) -> dict:
     from ted_spad_tpu_torch.stages.action_training import train_action
     from ted_spad_tpu_torch.utils.device import resolve_device
 
-    device = resolve_device(args.device)
+    from ted_spad_tpu_torch.cli import maybe_mesh
+
+    mesh = maybe_mesh(args)
+    device = resolve_device(args.device if mesh is None else mesh.device)
     p = apply_params_file(ActionParams(), args.params)
     if args.run_id:
         p = p.replace(run_id=args.run_id)
@@ -76,7 +86,8 @@ def run(args) -> dict:
         train_items = load_ucf101_list(os.path.join(lists, "trainlist01.txt"), videos, mapping)
         val_items = load_ucf101_list(os.path.join(lists, "testlist01.txt"), videos, mapping)
     res = train_action(p, train_items=train_items, val_items=val_items, save_dir=args.save_dir,
-                       max_epochs=args.epochs, seed=args.seed, device=device)
+                       max_epochs=args.epochs, seed=args.seed, device=device,
+                       mesh=mesh)
     print(f"done; best acc {res['best_acc']} at {res['best_path']}")
     return res
 

@@ -18,6 +18,10 @@ Synthetic smoke on the CPU (4 classes, 8x32x32 clips of procedural videos, 16
 procedural images, float32; an i3d ft takes its smallest clip, 9x193x193, and the VISPR
 images that size too):
 ``python -m ted_spad_tpu_torch.train_anonymizer --synthetic --device cpu --epochs 1``.
+
+``--mesh`` trains data parallel: ``torchrun --nproc_per_node=N -m ted_spad_tpu_torch.train_anonymizer --mesh ...``
+runs one process per card (``cuda:LOCAL_RANK``, NCCL), each step the one-process step
+over the global batch; on the CPU add ``--backend gloo --device cpu``.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ import os
 
 
 def parser() -> argparse.ArgumentParser:
+    from ted_spad_tpu_torch.cli import add_mesh_args
+
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--params", type=str, default=None,
@@ -42,6 +48,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0, help="data, augmentation and dropout seed")
     ap.add_argument("--device", type=str, default="cuda",
                     help="torch device (default cuda; 'cpu' runs on the CPU)")
+    add_mesh_args(ap)
     return ap
 
 
@@ -54,7 +61,10 @@ def run(args) -> dict:
     from ted_spad_tpu_torch.stages.anonymization_training import train_anonymizer
     from ted_spad_tpu_torch.utils.device import resolve_device
 
-    device = resolve_device(args.device)
+    from ted_spad_tpu_torch.cli import maybe_mesh
+
+    mesh = maybe_mesh(args)
+    device = resolve_device(args.device if mesh is None else mesh.device)
     p = apply_params_file(AnonymizationParams(), args.params)
     if args.run_id:
         p = p.replace(run_id=args.run_id)
@@ -78,7 +88,7 @@ def run(args) -> dict:
                                  os.path.join(args.vispr_root, "train_labels.pkl"))
     res = train_anonymizer(p, train_items=train_items, val_items=val_items, vispr_source=vispr,
                            save_dir=args.save_dir, max_epochs=args.epochs, seed=args.seed,
-                           device=device)
+                           device=device, mesh=mesh)
     print(f"done; best acc {res['best_acc']} at {res['best_path']}")
     return res
 

@@ -13,6 +13,10 @@ layout. ``--test_only CKPT`` evaluates a checkpoint written by either package.
 
 Synthetic smoke on the CPU (small widths, feature files in a temporary directory):
 ``python -m ted_spad_tpu_torch.train_mgfn --synthetic --device cpu --epochs 2``.
+
+``--mesh`` trains data parallel: ``torchrun --nproc_per_node=N -m ted_spad_tpu_torch.train_mgfn --mesh ...``
+runs one process per card (``cuda:LOCAL_RANK``, NCCL), each step the one-process step
+over the global batch; on the CPU add ``--backend gloo --device cpu``.
 """
 
 from __future__ import annotations
@@ -60,6 +64,8 @@ def write_synthetic_features(root: str, *, n_train: int, n_test: int, feature_si
 
 
 def parser() -> argparse.ArgumentParser:
+    from ted_spad_tpu_torch.cli import add_mesh_args
+
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--params", type=str, default=None,
@@ -77,6 +83,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", type=str, default="cuda",
                     help="torch device (default cuda; 'cpu' runs on the CPU)")
+    add_mesh_args(ap)
     return ap
 
 
@@ -87,7 +94,10 @@ def run(args) -> dict:
     from ted_spad_tpu_torch.config.params import MGFNParams, apply_params_file
     from ted_spad_tpu_torch.utils.device import resolve_device
 
-    device = resolve_device(args.device)
+    from ted_spad_tpu_torch.cli import maybe_mesh
+
+    mesh = maybe_mesh(args)
+    device = resolve_device(args.device if mesh is None else mesh.device)
     p = apply_params_file(MGFNParams.for_dataset(args.datasetname, seed=args.seed), args.params)
     gt = None
     if args.synthetic:
@@ -110,9 +120,10 @@ def run(args) -> dict:
         from ted_spad_tpu_torch.stages.anomaly_detection import evaluate, make_score_fn
 
         model = load_mgfn_model(p, saved_model_file=args.test_only, device=device)
-        roc, pr = evaluate(make_score_fn(model, device=device),
+        eval_batch = 8 if mesh is None else max(8 // mesh.world_size, 1) * mesh.world_size
+        roc, pr = evaluate(make_score_fn(model, device=device, mesh=mesh),
                            TestFeatureDataset(p.test_rgb_list, p.datasetname),
-                           gt if gt is not None else np.load(p.gt),
+                           gt if gt is not None else np.load(p.gt), eval_batch=eval_batch,
                            frames_per_clip=p.frames_per_clip)
         print(f"roc_auc {roc:.4f} pr_auc {pr:.4f}")
         return {"roc_auc": roc, "pr_auc": pr}
@@ -120,7 +131,7 @@ def run(args) -> dict:
     from ted_spad_tpu_torch.stages.anomaly_detection import train_anomaly_detection
 
     res = train_anomaly_detection(p, save_dir=args.save_dir, gt=gt, max_epochs=args.epochs,
-                                  shuffle=args.shuffle, device=device)
+                                  shuffle=args.shuffle, device=device, mesh=mesh)
     print(f"done; best {res['best_metric']:.4f} at {res['best_path']}")
     return res
 

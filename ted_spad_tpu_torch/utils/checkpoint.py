@@ -10,6 +10,10 @@ a background writer whose host snapshot is taken on the caller, same-path saves 
 supersede a queued one, best-metric gated saves named
 ``{name}_{epoch}_best_{metric:.4f}.ckpt`` (or, with a threshold, every epoch past
 it), and a rolling ``{name}_temp.ckpt``.
+
+Under data parallel rank 0 alone writes (every rank holds the same weights, so the
+files are those of a one-process run; the other ranks' saves return the path and
+write nothing), and ``load_checkpoint`` waits for every rank at a barrier first.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from ted_spad_tpu_torch.parallel import multihost
 from ted_spad_tpu_torch.utils import msgpack_codec
 
 
@@ -50,8 +55,9 @@ def _write_atomic(path: str, state: Any) -> None:
 
 
 def save_checkpoint(path: str, payload: Mapping[str, Any]) -> str:
-    """Atomically write a dict of named trees; returns ``path``."""
-    _write_atomic(path, snapshot(payload))
+    """Atomically write a dict of named trees (rank 0 only); returns ``path``."""
+    if multihost.is_writer():
+        _write_atomic(path, snapshot(payload))
     return path
 
 
@@ -77,6 +83,8 @@ class AsyncCheckpointWriter:
         atexit.register(self._drain_at_exit)
 
     def save(self, path: str, payload: Mapping[str, Any]) -> str:
+        if not multihost.is_writer():
+            return path
         state = snapshot(payload)
         with self._lock:
             while path not in self._pending and len(self._order) >= self._max_pending:
@@ -148,6 +156,7 @@ def flush_checkpoints() -> None:
 def load_checkpoint(path: str) -> dict[str, Any]:
     """The dict of named trees in ``path`` (numpy leaves; bfloat16 ones as tensors)."""
     flush_checkpoints()  # read-after-write in one process: drain pending saves first
+    multihost.barrier()  # ... and rank 0's, under data parallel
     with open(path, "rb") as f:
         return msgpack_codec.restore(f.read())
 

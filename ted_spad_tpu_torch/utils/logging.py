@@ -2,7 +2,8 @@
 ted_spad_tpu/utils/logging.py). :class:`MetricsWriter` appends JSONL scalars to
 ``<log_dir>/<run_id>/metrics.jsonl`` and mirrors them to tensorboardX where that
 package is installed, as the reference logs them (mgfn main.py:46, 97-102);
-:func:`config_dump` writes a run's configuration beside them."""
+:func:`config_dump` writes a run's configuration beside them. Under data parallel
+only rank 0 writes them."""
 
 from __future__ import annotations
 
@@ -16,10 +17,14 @@ from typing import Any
 
 class MetricsWriter:
     def __init__(self, log_dir: str, run_id: str):
+        from ted_spad_tpu_torch.parallel.multihost import is_writer
+
         self.dir = os.path.join(log_dir, run_id)
+        self._f = self._tb = None
+        if not is_writer():
+            return
         os.makedirs(self.dir, exist_ok=True)
         self._f = open(os.path.join(self.dir, "metrics.jsonl"), "a")
-        self._tb = None
         try:  # optional mirror; the JSONL file is the record
             from tensorboardX import SummaryWriter  # type: ignore
         except ImportError:
@@ -29,6 +34,8 @@ class MetricsWriter:
     def scalar(self, tag: str, value: float, step: int) -> None:
         # NaN ("no measurement this epoch") is written to the JSONL file but not to
         # tensorboardX, which warns on every non-finite value and plots nothing.
+        if self._f is None:
+            return
         self._f.write(json.dumps({"tag": tag, "value": float(value), "step": int(step),
                                   "ts": time.time()}) + "\n")
         self._f.flush()
@@ -40,10 +47,14 @@ class MetricsWriter:
             self.scalar(tag, v, step)
 
     def text(self, tag: str, content: str) -> None:
+        if self._f is None:
+            return
         with open(os.path.join(self.dir, f"{tag}.txt"), "w") as f:
             f.write(content)
 
     def close(self) -> None:
+        if self._f is None:
+            return
         self._f.close()
         if self._tb is not None:
             self._tb.close()
