@@ -129,7 +129,17 @@ Phases, each fatal on failure:
      step's; step times and the collectives' share; each rank's K1 and K2 launches on
      extract_features(mesh=) with the UNet++ and the plain-UNet fa and on
      train_anonymizer(mesh=) with the plain UNet (one epoch of 2 steps); then a group of
-     one over NCCL runs train_anonymizer(mesh=) for one step.
+     one over NCCL runs train_anonymizer(mesh=) for one step;
+ 17. the paper's workflow from seeds: each of the six seed kinds drawn in the published
+     file's layout (utils/reference_layout.py), converted by the convert_weights CLI and
+     loaded on the card, every converted tensor bit-equal to its source; the converted
+     I3Res50's float32 features on the card against the CPU's from the same file (TF32
+     off), the unconverted template the control; run_parity --dry-run with a params
+     overlay that makes every fa the plain UNet (K1 and K2 launches against the counts
+     predicted from its batch counts, the report's keys and finite values, each stage's
+     wall time); validate_adversarial --scale reference for one epoch of each (the cMAPs,
+     the remat "auto" resolves to, stage times, peak memory); profile_stage extraction
+     (its trace naming K1 and cuDNN's convolutions) and mgfn.
 
 Prints the kernel table as one JSON line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero, printing no result,
@@ -287,6 +297,15 @@ DP_TIMED_STEPS = 2
 DP_EXTRACT_VIDEOS, DP_EXTRACT_BATCH = 4, 16  # synthetic serving videos (10 clips each), clips per step
 DP_DRIVER = (2, 4)  # videos, VISPR pairs per batch of the data-parallel drivers
 DP_RANK_TIMEOUT_S = 600
+# Phase 17: the I3Res50 converted from a reference-layout seed, card against CPU in
+# float32 with TF32 off (clips, frames, side); the parity dry run's report keys (the
+# JAX harness's); the reference-scale validation's arguments.
+SEED_FEATURE_CLIPS = (2, 16, 112)
+SEED_FEATURE_RTOL = 1e-4
+PARITY_REPORT_KEYS = {"mode", "cmap_raw", "cmap_anon", "cmap_delta_pct", "cmap_delta_target_pct",
+                      "auc_raw", "auc_anon", "auc_delta_pts", "auc_delta_target_pts",
+                      "extraction_clips_per_sec", "seeds_converted"}
+VALIDATION_ARGS = ["--scale", "reference", "--epochs", "1", "--attack_epochs", "1"]
 
 
 T0 = time.perf_counter()
@@ -2979,6 +2998,226 @@ def dp_phase(device, workdir: str, card: str) -> dict:
     return launches
 
 
+def _seed_model(kind: str, path: str, device):
+    from ted_spad_tpu_torch.models import load_fa_model, load_fb_model, load_ft_model
+
+    if kind == "unet++":
+        return load_fa_model("unet++", saved_model_file=path, dtype="float32", device=device)
+    if kind == "r50":
+        return load_fb_model(saved_model_file=path, dtype="float32", device=device)
+    return load_ft_model(kind, saved_model_file=path, num_classes=400, dtype="float32",
+                         device=device)
+
+
+def seed_conversion(device, workdir: str, card: str) -> None:
+    """Each of the six seed kinds from a seeded state_dict in the published file's
+    layout (utils/reference_layout.py), saved with torch.save, converted by the
+    convert_weights CLI (template on the card, 400 classes) and loaded with
+    load_*_model on the card: every converted tensor equal to its source under the
+    layout rule, bit for bit (the UNet++ payload reads the trunk to layer3, the r50
+    one leaves the ImageNet fc). Then the converted I3Res50's float32 features on the
+    card against the CPU's from the same file (TF32 off), the unconverted template
+    the control."""
+    import numpy as np
+    import torch
+
+    from ted_spad_tpu_torch import convert_weights
+    from ted_spad_tpu_torch.models import load_ft_model
+    from ted_spad_tpu_torch.utils.device import tf32_off
+    from ted_spad_tpu_torch.utils.reference_layout import module_state_dict, reference_state_dict
+    from ted_spad_tpu_torch.utils.torch_convert import SEED_KINDS
+
+    root = os.path.join(workdir, "seeds")
+    os.makedirs(root)
+    files = {}
+    for kind in SEED_KINDS:
+        sd = reference_state_dict(kind, seed=11)
+        src, out = os.path.join(root, f"{kind}.pth"), os.path.join(root, f"{kind}.ckpt")
+        torch.save(sd, src)
+        t0 = time.perf_counter()
+        convert_weights.run(convert_weights.parser().parse_args(
+            ["--kind", kind, "--src", src, "--out", out, "--num_classes", "400",
+             "--device", str(device)]))
+        t1 = time.perf_counter()
+        model = _seed_model(kind, out, device)
+        torch.cuda.synchronize(device)
+        t2 = time.perf_counter()
+        if next(model.parameters()).device != device:
+            raise AssertionError(f"{kind}: the loaded model is not on {device}")
+        back = module_state_dict(kind, model)
+        left = {"unet++": {k for k in sd if k.startswith("layer4.")}, "r50": {"fc.weight", "fc.bias"}}
+        compared = sorted(set(sd) - left.get(kind, set()))
+        if not set(compared) <= set(back) or (kind == "unet++" and set(back) & left[kind]):
+            raise AssertionError(f"{kind}: converted keys {sorted(set(compared) - set(back))[:4]} missing")
+        unequal = [k for k in compared if not (back[k].dtype == sd[k].dtype and torch.equal(back[k], sd[k]))]
+        if unequal:
+            raise AssertionError(f"{kind}: {len(unequal)} converted tensors differ from their source: "
+                                 f"{unequal[:4]}")
+        log(f"[seeds] {kind}: {len(compared)} of {len(sd)} source tensors converted and bit-equal on "
+            f"the card ({sum(int(sd[k].numel()) for k in compared):,} values); convert_weights "
+            f"{t1 - t0:.2f}s, {os.path.getsize(out) / 1e6:.1f} MB, load_*_model on the card "
+            f"{t2 - t1:.2f}s | {card}")
+        files[kind] = out
+        del model
+
+    n, t, side = SEED_FEATURE_CLIPS
+    x = torch.from_numpy(np.random.default_rng(5).uniform(0, 1, (n, 3, t, side, side)).astype(np.float32))
+    ft_cpu = load_ft_model("largei3d", saved_model_file=files["largei3d"], num_classes=400,
+                           dtype="float32", device="cpu")
+    ft = _seed_model("largei3d", files["largei3d"], device)
+    template = load_ft_model("largei3d", num_classes=400, dtype="float32", device=device)
+    with torch.inference_mode(), tf32_off():
+        ref = ft_cpu.extract_features(x)
+        got = ft.extract_features(x.to(device)).cpu()
+        control = template.extract_features(x.to(device)).cpu()
+    err = float((got - ref).norm() / ref.norm())
+    err_control = float((control - ref).norm() / ref.norm())
+    log(f"[seeds] converted I3Res50 features, card vs CPU from the same file (float32, TF32 off, "
+        f"{n} x {t} x {side}^2): ||d||/||cpu|| {err:.3e}, max |d| {float((got - ref).abs().max()):.3e} "
+        f"(limit {SEED_FEATURE_RTOL:g}); control, the unconverted template: {err_control:.3e} | {card}")
+    if not (got.shape == (n, FEATURE_DIM) and err <= SEED_FEATURE_RTOL):
+        raise AssertionError(f"converted I3Res50 features on the card {err:.3e} from the CPU's")
+    if err_control <= 100 * SEED_FEATURE_RTOL:
+        raise AssertionError(f"the unconverted template's features read {err_control:.3e}: "
+                             "the gate does not tell converted weights apart")
+
+
+def parity_expected() -> dict:
+    """K1's and K2's launches in ``run_parity --dry-run`` with the plain-UNet fa, from its
+    batch counts: K1 once per extraction batch (36 clips of the 6 crime videos, 6 each,
+    in batches of 4, raw and anonymized); K2 nine times per eval-mode fa forward: the
+    reconstruction's one validation batch (8 images), the adversarial stage's fb/ft
+    steps (two VISPR views and the clips each; 4 pairs of 4 VISPR images and 2 videos,
+    fa steps first, so 2), its preview and its validation (2 modes x 4 videos / 2), the
+    anonymized attacker's 2 train steps and 2 validation batches (16 images / 8), and
+    the anonymized extraction's batches."""
+    extract = -(-6 * len(range(0, 96 - 15 + 1, 16)) // 4)
+    fbft = min(16 // 4, 8 // 2) // 2
+    fa_forwards = 1 + 3 * fbft + 1 + 2 * (4 // 2) + 16 // 8 + 16 // 8 + extract
+    return expected(K1=2 * extract, K2=9 * fa_forwards)
+
+
+def parity_dry_run(device, workdir: str, card: str) -> dict:
+    """``run_parity --dry-run`` on the card: full-width models, tiny inputs, its
+    --params_dir overlay setting arch_fa = "unet" for the recon, anon, privacy and
+    extract stages (the reference's REF_PARAMS paths), so K2 runs in every eval-mode
+    fa forward (float32) and K1 in both extractions. The report's keys and finite
+    values, each stage's wall time, the launches against parity_expected. Returns the
+    kernels' launch counts."""
+    import numpy as np
+
+    from ted_spad_tpu_torch import run_parity
+
+    params_dir = os.path.join(workdir, "reference_params")
+    for key in ("recon", "anon", "privacy", "extract"):
+        path = os.path.join(params_dir, run_parity.REF_PARAMS[key])
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            f.write('arch_fa = "unet"\n')
+    save = os.path.join(workdir, "parity")
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    res = run_parity.main(["--dry-run", "--device", str(device), "--params_dir", params_dir,
+                           "--save_dir", save])
+    got = launch_counts()
+    want = parity_expected()
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(save, "parity_report.json")) as f:
+        report = json.load(f)
+    log(f"[parity] run_parity --dry-run (plain-UNet fa): {seconds:.1f}s; stage seconds "
+        f"{json.dumps({k: round(v, 3) for k, v in res['stage_seconds'].items()})}; kernel launches "
+        f"{json.dumps(got)}, predicted from the batch counts {json.dumps(want)} | {card}")
+    log(f"[parity] report {json.dumps(report)}")
+    if set(report) != PARITY_REPORT_KEYS:
+        raise AssertionError(f"parity report keys {sorted(report)}")
+    numbers = [v for v in report.values() if isinstance(v, float)]
+    if not (len(numbers) == 9 and np.isfinite(numbers).all() and report["seeds_converted"] == ["fa", "fb", "ft"]):
+        raise AssertionError(f"parity report out of range: {report}")
+    if got != want:
+        raise AssertionError(f"parity dry run launches {got}, predicted {want}")
+    return got
+
+
+def reference_validation(device, workdir: str, card: str) -> dict:
+    """``validate_adversarial --scale reference`` for one adversarial and one attack epoch
+    with the default UNet++ fa: the three cMAP lines (printed by the CLI), the remat
+    mode "auto" resolves to at that batch, each stage's wall time, the peak memory.
+    Returns the kernels' launch counts (none: the UNet++ path runs no hand kernel)."""
+    import numpy as np
+    import torch
+
+    from ted_spad_tpu_torch import validate_adversarial
+    from ted_spad_tpu_torch.config.params import AnonymizationParams
+    from ted_spad_tpu_torch.stages.anonymization_training import _resolve_remat
+
+    p = AnonymizationParams(batch_size=8, batch_size_vispr=12)
+    remat = _resolve_remat(p, (p.batch_size, 3, p.num_frames, p.reso_h, p.reso_w, 3),
+                           (p.batch_size_vispr, p.reso_h, p.reso_w, 3))
+    torch.cuda.reset_peak_memory_stats(device)
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    res = validate_adversarial.run(validate_adversarial.parser().parse_args(
+        VALIDATION_ARGS + ["--device", str(device), "--save_dir", os.path.join(workdir, "validate")]))
+    got = launch_counts()
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    cmaps = (res["raw"]["best_cmap"], res["anonymized"]["best_cmap"])
+    log(f"[validate] --scale reference, 1 adversarial + 1 attack epoch: {time.perf_counter() - t0:.1f}s; "
+        f"cMAP raw {cmaps[0]:.4f}, anonymized {cmaps[1]:.4f}, reduction {res['delta']:+.4f}; "
+        f"remat 'auto' resolves to {remat!r} at 8 videos x 3 views + 12 VISPR pairs; stage seconds "
+        f"{json.dumps({k: round(v, 3) for k, v in res['seconds'].items()})}; peak memory {peak:.1f} GiB; "
+        f"kernel launches {json.dumps(got)} | {card}")
+    histories = [res["anon"]["history"], res["raw"]["history"], res["anonymized"]["history"]]
+    if not (all(0.0 <= c <= 1.0 for c in cmaps)
+            and all(np.isfinite(v).all() for h in histories for v in h.values() if len(v))):
+        raise AssertionError(f"reference-scale validation out of range: cMAPs {cmaps}")
+    if any(got.values()):
+        raise AssertionError(f"the UNet++ validation launched a kernel: {got}")
+    return got
+
+
+def stage_profiles(device, workdir: str, card: str) -> None:
+    """``profile_stage --stage extraction`` (serving shapes, bf16) and ``--stage mgfn`` on
+    the card: each writes one Chrome trace; the extraction trace names K1's kernel
+    (``preprocess_kernel``, csrc/preprocess.cu) and cuDNN's convolutions, the MGFN
+    trace the card's kernels."""
+    from ted_spad_tpu_torch import profile_stage
+
+    for stage in ("extraction", "mgfn"):
+        out = os.path.join(workdir, f"profile_{stage}")
+        t0 = time.perf_counter()
+        profile_stage.run(profile_stage.parser().parse_args(
+            ["--stage", stage, "--out", out, "--device", str(device)]))
+        seconds = time.perf_counter() - t0
+        (name,) = os.listdir(out)
+        path = os.path.join(out, name)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+        ops = {e["name"] for e in events if e.get("cat") == "cpu_op"}
+        k1 = [k for k in kernels if "preprocess_kernel" in k]
+        log(f"[profile_stage] {stage}: {seconds:.1f}s, trace {os.path.getsize(path) / 1e6:.2f} MB, "
+            f"{len(events)} events, {len(kernels)} distinct kernels"
+            + (f"; K1: {k1[0][:100] if k1 else 'absent'}; aten::cudnn_convolution "
+               f"{'present' if 'aten::cudnn_convolution' in ops else 'absent'}" if stage == "extraction" else "")
+            + f" | {card}")
+        if not kernels:
+            raise AssertionError(f"the {stage} trace holds no kernel of the card")
+        if stage == "extraction" and not (k1 and "aten::cudnn_convolution" in ops):
+            raise AssertionError("the extraction trace names neither K1 nor cuDNN's convolutions")
+
+
+def workflow_phase(device, workdir: str, card: str) -> dict:
+    """Phase 17: the paper's workflow from seeds. Returns the kernels' launch counts
+    on the parity dry run and on the reference-scale validation."""
+    t0 = time.perf_counter()
+    seed_conversion(device, workdir, card)
+    launches = {"parity": parity_dry_run(device, workdir, card),
+                "validation": reference_validation(device, workdir, card)}
+    stage_profiles(device, workdir, card)
+    log(f"[workflow] phase time {time.perf_counter() - t0:.1f}s")
+    return launches
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3037,6 +3276,7 @@ def main() -> int:
         launches.update(vis_launches)
         launches["ft families"] = ft_families_phase(device, workdir, card)
         launches.update(dp_phase(device, workdir, card))
+        launches.update(workflow_phase(device, workdir, card))
     # Each kernel's launches on its own main path (K1: the default UNet++ path, K2: the
     # plain-UNet path, K3: the YUV path, K4: the int8 path), and on every path driven.
     for k, name, path in ((k1, "K1 preprocess", "unet++"), (k2, "K2 double_conv", "unet"),

@@ -86,17 +86,40 @@ class VisprImageSource:
         return np.stack(imgs), labels
 
 
-class SyntheticImageSource:
-    """Deterministic procedural images with multi-hot labels, two of the attributes
-    encoded as stripe frequencies: the in-memory stand-in that runs fa pretraining,
-    privacy training and the adversarial stage without images on disk (the JAX
-    package's default ``style="stripes"``)."""
+# One saturated, mutually distinct colour per privacy attribute (style="attrs").
+_ATTR_COLORS = np.array(
+    [
+        [255, 32, 32], [32, 255, 32], [32, 96, 255], [255, 255, 32],
+        [255, 32, 255], [32, 255, 255], [255, 144, 32],
+    ],
+    np.uint8,
+)
 
-    def __init__(self, n: int = 256, num_pa: int = 7, seed: int = 0, canonical: int = CANONICAL):
+
+class SyntheticImageSource:
+    """Deterministic procedural images with multi-hot labels: the in-memory stand-in
+    that runs fa pretraining, privacy training and the adversarial stage without
+    images on disk (the JAX package's source, image for image).
+
+    ``style``:
+      - ``"stripes"`` (default): label-correlated stripe frequencies, two of the
+        attributes visually encoded;
+      - ``"attrs"``: every attribute encoded as a coloured patch (a colour and a
+        position per attribute, present iff its label bit is set) over a per-image
+        smooth random background. A raw privacy attacker can then reach a high cMAP,
+        and an anonymizer that destroys an image's distinctive content erases exactly
+        the attribute evidence, so the paper's cMAP reduction is observable on
+        synthetic data (``validate_adversarial``). The background is the identity
+        signal the NT-Xent attacker matches views with.
+    """
+
+    def __init__(self, n: int = 256, num_pa: int = 7, seed: int = 0, canonical: int = CANONICAL,
+                 style: str = "stripes"):
         self.n = n
         self.num_pa = num_pa
         self.seed = seed
         self.canonical = canonical
+        self.style = style
         rng = np.random.default_rng(seed)
         self._labels = (rng.random((n, num_pa)) < 0.3).astype(np.float32)
 
@@ -104,6 +127,8 @@ class SyntheticImageSource:
         return self.n
 
     def _image(self, i: int) -> np.ndarray:
+        if self.style == "attrs":
+            return self._image_attrs(i)
         s = self.canonical
         yy, xx = np.mgrid[0:s, 0:s]
         k = (self.seed * 131 + i * 17) % 251
@@ -112,6 +137,26 @@ class SyntheticImageSource:
         g = (yy * (1 + int(self._labels[i, 0])) + k) % 256
         b = ((xx + yy) // 2 + int(self._labels[i, 1 % self.num_pa]) * 100) % 256
         return np.stack([r, g, b], axis=-1).astype(np.uint8)
+
+    def _image_attrs(self, i: int) -> np.ndarray:
+        s = self.canonical
+        rng = np.random.default_rng((self.seed + 1) * 100003 + i)
+        # Smooth random background: a per-image identity texture for the SSL pair.
+        cell = max(s // 4, 1)
+        reps = -(-s // cell)
+        bg = rng.integers(32, 224, (reps, reps, 3))
+        img = np.kron(bg, np.ones((cell, cell, 1))).astype(np.uint8)[:s, :s]
+        ps = max(s // 4, 4)  # the patch survives the 0.6-1.0 random crop and the resize
+        for k in range(self.num_pa):
+            if self._labels[i, k] > 0:
+                gy, gx = divmod(k % 9, 3)
+                y0 = int(s * (0.12 + 0.28 * gy))
+                x0 = int(s * (0.12 + 0.28 * gx))
+                c = _ATTR_COLORS[k % len(_ATTR_COLORS)]
+                img[y0 : y0 + ps, x0 : x0 + ps] = c
+                q = ps // 3  # a contrasting core: robust to mild colour jitter
+                img[y0 + q : y0 + 2 * q, x0 + q : x0 + 2 * q] = 255 - c
+        return img
 
     def get_batch(self, indices: Sequence[int]) -> tuple[np.ndarray, np.ndarray]:
         return np.stack([self._image(int(i) % self.n) for i in indices]), self._labels[

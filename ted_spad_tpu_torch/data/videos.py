@@ -195,6 +195,29 @@ def synthetic_video_items(
     return items
 
 
+def synthetic_crime_fixture(n_abnormal: int = 3, n_normal: int = 3, *, num_frames: int = 96,
+                            h: int = 48, w: int = 64, frames_per_clip: int = 32,
+                            clip_span: int = 15, clip_step: int = 16):
+    """A synthetic UCF-Crime stand-in for the pipeline and parity dry runs (counterpart
+    of scripts/_common.py's): abnormal-family videos FIRST (the abnormal-first list
+    split, datasets/dataset.py:26-48) with their opening two clips marked anomalous in
+    the gt, then the normal family. A plumbing check, not a benchmark.
+
+    Returns (uris, gt, abnormal_split). ``clip_span`` / ``clip_step`` must match the
+    extraction params (span = (num_frames - 1) * fix_skip + 1 at the dry-run shape)."""
+    clips = len(range(0, num_frames - clip_span + 1, clip_step))
+    uris, gts = [], []
+    for i in range(n_abnormal):  # abnormal family: class 7 structure
+        uris.append(f"synthetic://n={num_frames},h={h},w={w},seed={7000 + i}")
+        m = np.zeros(clips * frames_per_clip, np.float32)
+        m[: 2 * frames_per_clip] = 1.0
+        gts.append(m)
+    for i in range(n_normal):  # normal family: class 1 structure
+        uris.append(f"synthetic://n={num_frames},h={h},w={w},seed={1000 + i}")
+        gts.append(np.zeros(clips * frames_per_clip, np.float32))
+    return uris, np.concatenate(gts), n_abnormal
+
+
 # ---------------------------------------------------------------------------
 # Batch iterators (host threads decode; the clips' device augments)
 # ---------------------------------------------------------------------------

@@ -1,12 +1,13 @@
-"""Run-scoped metrics logging and step timing (counterpart of
+"""Run-scoped metrics logging, step timing and profiler traces (counterpart of
 ted_spad_tpu/utils/logging.py). :class:`MetricsWriter` appends JSONL scalars to
 ``<log_dir>/<run_id>/metrics.jsonl`` and mirrors them to tensorboardX where that
 package is installed, as the reference logs them (mgfn main.py:46, 97-102);
 :func:`config_dump` writes a run's configuration beside them. Under data parallel
-only rank 0 writes them."""
+only rank 0 writes them. :func:`profile_trace` captures a Chrome trace of a block."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -58,6 +59,32 @@ class MetricsWriter:
         self._f.close()
         if self._tb is not None:
             self._tb.close()
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str, enabled: bool = True):
+    """``with profile_trace('logs/run'): step()`` -> a Chrome trace of the block under
+    ``log_dir`` (``<host>_<pid>.<ns>.pt.trace.json``; Perfetto or chrome://tracing
+    open it): ``torch.profiler`` with CPU activity, and CUDA activity (the card's
+    kernels and copies) when a card is in use. With ``enabled=False`` it records and
+    writes nothing. Synchronize the card before the block ends, so its last kernels
+    are in the trace."""
+    if not enabled:
+        yield
+        return
+    import socket
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(
+        log_dir, f"{socket.gethostname()}_{os.getpid()}.{time.time_ns()}.pt.trace.json"))
 
 
 class StepTimer:

@@ -289,7 +289,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          timeout=300, env={**os.environ, "PYTHONPATH": ROOT})
     assert out.returncode == 0, out.stderr
     *_, names, count = out.stdout.strip().splitlines()
-    assert int(count) >= 59
+    assert int(count) >= 70
     slice7 = {"cli", "data.gt_builders", "extract_features", "make_gt", "models.i3d", "models.mvit",
               "models.r3d"}  # the extraction options' and gt builders' modules
     slice8 = {"ops.yuv", "ops.int8conv", "ops.fast_unetpp", "ops.quant_unetpp",
@@ -302,8 +302,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                "utils.checkpoint"}  # privacy training and the adversarial stage, with their CLIs
     visualization = {"stages.visualization", "visualize_anonymization",
                      "data.video_reader"}  # stage 4.5, its CLI and the encoder binding
-    assert {f"ted_spad_tpu_torch.{m}" for m in slice7 | slice8 | training | privacy | visualization} \
-        <= set(names.split())
+    workflow = {"utils.torch_convert", "utils.reference_layout", "utils.model_size",
+                "convert_weights", "profile_stage", "run_pipeline", "validate_adversarial",
+                "run_parity"}  # seed conversion and the chained workflow, with their CLIs
+    assert {f"ted_spad_tpu_torch.{m}" for m in
+            slice7 | slice8 | training | privacy | visualization | workflow} <= set(names.split())
 
 
 def test_score_video_cli_synthetic_on_cpu(tmp_path):
