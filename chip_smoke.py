@@ -136,10 +136,11 @@ Phases, each fatal on failure:
      I3Res50's float32 features on the card against the CPU's from the same file (TF32
      off), the unconverted template the control; run_parity --dry-run with a params
      overlay that makes every fa the plain UNet (K1 and K2 launches against the counts
-     predicted from its batch counts, the report's keys and finite values, each stage's
-     wall time); validate_adversarial --scale reference for one epoch of each (the cMAPs,
-     the remat "auto" resolves to, stage times, peak memory); profile_stage extraction
-     (its trace naming K1 and cuDNN's convolutions) and mgfn.
+     predicted from the sizes the run reports, then each kernel against its plain
+     version at every shape the run gave it; the report's keys and finite values, each
+     stage's wall time); validate_adversarial --scale reference for one epoch of each
+     (the cMAPs, the remat "auto" resolved to, stage times, peak memory); profile_stage
+     extraction (its trace naming K1 and cuDNN's convolutions) and mgfn.
 
 Prints the kernel table as one JSON line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero, printing no result,
@@ -3082,19 +3083,92 @@ def seed_conversion(device, workdir: str, card: str) -> None:
                              "the gate does not tell converted weights apart")
 
 
-def parity_expected() -> dict:
-    """K1's and K2's launches in ``run_parity --dry-run`` with the plain-UNet fa, from its
-    batch counts: K1 once per extraction batch (36 clips of the 6 crime videos, 6 each,
-    in batches of 4, raw and anonymized); K2 nine times per eval-mode fa forward: the
-    reconstruction's one validation batch (8 images), the adversarial stage's fb/ft
-    steps (two VISPR views and the clips each; 4 pairs of 4 VISPR images and 2 videos,
-    fa steps first, so 2), its preview and its validation (2 modes x 4 videos / 2), the
-    anonymized attacker's 2 train steps and 2 validation batches (16 images / 8), and
-    the anonymized extraction's batches."""
-    extract = -(-6 * len(range(0, 96 - 15 + 1, 16)) // 4)
-    fbft = min(16 // 4, 8 // 2) // 2
-    fa_forwards = 1 + 3 * fbft + 1 + 2 * (4 // 2) + 16 // 8 + 16 // 8 + extract
-    return expected(K1=2 * extract, K2=9 * fa_forwards)
+def parity_expected(sizes: dict) -> dict:
+    """K1's and K2's launches in ``run_parity --dry-run`` with the plain-UNet fa, from the
+    sizes the run reports (``sizes``): K1 once per extraction batch, raw and anonymized;
+    K2 nine times (the UNet's DoubleConvs) per eval-mode fa forward: the reconstruction's
+    validation batches; three per fb/ft step of the adversarial stage (two VISPR views
+    and the clips; the steps alternate, fa first, so half the paired batches); its
+    preview and its validation batches (each mode); the anonymized attacker's train
+    steps and validation batches; and the anonymized extraction's batches."""
+    s = sizes
+    extract = {branch: -(-clips // s["extract_batch"]) for branch, clips in s["extract_clips"].items()}
+    fbft = min(s["vispr_train"] // s["anon_vispr_batch"], s["train_videos"] // s["anon_batch"]) // 2
+    fa_forwards = (-(-s["recon_val"] // s["recon_batch"]) + 3 * fbft + 1
+                   + s["anon_modes"] * -(-s["val_videos"] // s["anon_val_batch"])
+                   + s["vispr_train"] // s["privacy_batch"]
+                   + -(-s["vispr_test"] // s["privacy_val_batch"]) + extract["anon"])
+    return expected(K1=extract["raw"] + extract["anon"], K2=9 * fa_forwards)
+
+
+@contextlib.contextmanager
+def kernel_calls():
+    """Note what a path gives K1 and K2: while the block runs, the names through which
+    stages/feature_extraction.py and models/unet.py call the two wrappers are wrapped
+    to record each call's shapes, dtype and keyword arguments, then call through (the
+    wrappers keep their own counts). Yields {"K1": {key: (clips shape, kwargs)},
+    "K2": {key: (N, H, W, Cin, Cmid, Cout, dtype)}}, one entry per distinct call."""
+    import ted_spad_tpu_torch.models.unet as unet
+    import ted_spad_tpu_torch.stages.feature_extraction as fe
+
+    seen = {"K1": {}, "K2": {}}
+    k1, k2 = fe.fused_preprocess, unet.fused_double_conv
+
+    def preprocess(clips, **kw):
+        seen["K1"][(tuple(clips.shape), repr(sorted(kw.items())))] = (tuple(clips.shape), kw)
+        return k1(clips, **kw)
+
+    def double_conv(x, w1, b1, w2, b2):
+        shape = (*x.shape, w1.shape[-1], w2.shape[-1], x.dtype)
+        seen["K2"][shape] = shape
+        return k2(x, w1, b1, w2, b2)
+
+    fe.fused_preprocess, unet.fused_double_conv = preprocess, double_conv
+    try:
+        yield seen
+    finally:
+        fe.fused_preprocess, unet.fused_double_conv = k1, k2
+
+
+def check_kernel_calls(device, seen: dict, where: str) -> float:
+    """K1 and K2 against their plain versions (TF32 off) on seeded inputs at every
+    distinct call ``kernel_calls`` recorded on a path, at the smoke's tolerances.
+    Returns the worst max abs error."""
+    import torch
+
+    from ted_spad_tpu_torch.chip_probes import K1_BF16_TOL, K1_F32_TOL, double_conv_operands, k1_clips
+    from ted_spad_tpu_torch.ops import doubleconv as dc
+    from ted_spad_tpu_torch.ops import preprocess as pp
+    from ted_spad_tpu_torch.utils.device import tf32_off
+
+    worst = 0.0
+    for i, (shape, kw) in enumerate(seen["K1"].values()):
+        clips = k1_clips(device, shape, seed=200 + i)
+        got = pp.fused_preprocess(clips, **kw)
+        with tf32_off():
+            ref = pp.fused_preprocess_reference(clips, **kw)
+        err = float((got.float() - ref.float()).abs().max())
+        tol = K1_F32_TOL if got.dtype == torch.float32 else K1_BF16_TOL
+        log(f"[{where}] K1 at the path's {shape} -> {tuple(got.shape)} {str(got.dtype)[6:]}: "
+            f"max|kernel - plain| = {err:.3e} (tolerance {tol:.0e})")
+        if not (got.shape == ref.shape and err <= tol):
+            raise AssertionError(f"K1 disagrees with its plain version at {shape}: {err}")
+        worst = max(worst, err)
+    for i, (*shape, dtype) in enumerate(seen["K2"].values()):
+        args = double_conv_operands(device, tuple(shape), dtype, seed=300 + i)
+        got = dc.fused_double_conv(*args)
+        with tf32_off():
+            ref = dc.double_conv_reference(*args)
+        err = float((got.float() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        tol = K2_F32_TOL if dtype == torch.float32 else K2_BF16_TOL
+        log(f"[{where}] K2 at the path's {tuple(shape)} {str(dtype)[6:]}: max|kernel - plain| = "
+            f"{err:.3e}, {err / scale:.3e} of max|plain| {scale:.3f} (tolerance {tol:.0e})")
+        if not (scale > 0 and err <= tol * scale):
+            raise AssertionError(f"K2 disagrees with its plain version at {tuple(shape)}: {err}")
+        worst = max(worst, err)
+    torch.cuda.synchronize(device)
+    return worst
 
 
 def parity_dry_run(device, workdir: str, card: str) -> dict:
@@ -3102,7 +3176,8 @@ def parity_dry_run(device, workdir: str, card: str) -> dict:
     --params_dir overlay setting arch_fa = "unet" for the recon, anon, privacy and
     extract stages (the reference's REF_PARAMS paths), so K2 runs in every eval-mode
     fa forward (float32) and K1 in both extractions. The report's keys and finite
-    values, each stage's wall time, the launches against parity_expected. Returns the
+    values, each stage's wall time, the launches against parity_expected; then K1 and
+    K2 against their plain versions at every shape the run gave them. Returns the
     kernels' launch counts."""
     import numpy as np
 
@@ -3115,18 +3190,20 @@ def parity_dry_run(device, workdir: str, card: str) -> dict:
         with open(path, "w") as f:
             f.write('arch_fa = "unet"\n')
     save = os.path.join(workdir, "parity")
-    zero_launch_counts()
-    t0 = time.perf_counter()
-    res = run_parity.main(["--dry-run", "--device", str(device), "--params_dir", params_dir,
-                           "--save_dir", save])
-    got = launch_counts()
-    want = parity_expected()
+    with kernel_calls() as seen:
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        res = run_parity.main(["--dry-run", "--device", str(device), "--params_dir", params_dir,
+                               "--save_dir", save])
+        got = launch_counts()
+    want = parity_expected(res["sizes"])
     seconds = time.perf_counter() - t0
     with open(os.path.join(save, "parity_report.json")) as f:
         report = json.load(f)
     log(f"[parity] run_parity --dry-run (plain-UNet fa): {seconds:.1f}s; stage seconds "
         f"{json.dumps({k: round(v, 3) for k, v in res['stage_seconds'].items()})}; kernel launches "
-        f"{json.dumps(got)}, predicted from the batch counts {json.dumps(want)} | {card}")
+        f"{json.dumps(got)}, predicted from the run's sizes {json.dumps(res['sizes'])}: "
+        f"{json.dumps(want)} | {card}")
     log(f"[parity] report {json.dumps(report)}")
     if set(report) != PARITY_REPORT_KEYS:
         raise AssertionError(f"parity report keys {sorted(report)}")
@@ -3135,24 +3212,22 @@ def parity_dry_run(device, workdir: str, card: str) -> dict:
         raise AssertionError(f"parity report out of range: {report}")
     if got != want:
         raise AssertionError(f"parity dry run launches {got}, predicted {want}")
+    worst = check_kernel_calls(device, seen, "parity")
+    log(f"[parity] K1 at {len(seen['K1'])} and K2 at {len(seen['K2'])} distinct shapes of the run "
+        f"held against their plain versions: worst max abs error {worst:.3e}")
     return got
 
 
 def reference_validation(device, workdir: str, card: str) -> dict:
     """``validate_adversarial --scale reference`` for one adversarial and one attack epoch
     with the default UNet++ fa: the three cMAP lines (printed by the CLI), the remat
-    mode "auto" resolves to at that batch, each stage's wall time, the peak memory.
+    mode "auto" resolved to in the run, each stage's wall time, the peak memory.
     Returns the kernels' launch counts (none: the UNet++ path runs no hand kernel)."""
     import numpy as np
     import torch
 
     from ted_spad_tpu_torch import validate_adversarial
-    from ted_spad_tpu_torch.config.params import AnonymizationParams
-    from ted_spad_tpu_torch.stages.anonymization_training import _resolve_remat
 
-    p = AnonymizationParams(batch_size=8, batch_size_vispr=12)
-    remat = _resolve_remat(p, (p.batch_size, 3, p.num_frames, p.reso_h, p.reso_w, 3),
-                           (p.batch_size_vispr, p.reso_h, p.reso_w, 3))
     torch.cuda.reset_peak_memory_stats(device)
     zero_launch_counts()
     t0 = time.perf_counter()
@@ -3163,7 +3238,7 @@ def reference_validation(device, workdir: str, card: str) -> dict:
     cmaps = (res["raw"]["best_cmap"], res["anonymized"]["best_cmap"])
     log(f"[validate] --scale reference, 1 adversarial + 1 attack epoch: {time.perf_counter() - t0:.1f}s; "
         f"cMAP raw {cmaps[0]:.4f}, anonymized {cmaps[1]:.4f}, reduction {res['delta']:+.4f}; "
-        f"remat 'auto' resolves to {remat!r} at 8 videos x 3 views + 12 VISPR pairs; stage seconds "
+        f"remat 'auto' resolved to {res['anon']['remat']!r} at the fa step; stage seconds "
         f"{json.dumps({k: round(v, 3) for k, v in res['seconds'].items()})}; peak memory {peak:.1f} GiB; "
         f"kernel launches {json.dumps(got)} | {card}")
     histories = [res["anon"]["history"], res["raw"]["history"], res["anonymized"]["history"]]

@@ -129,8 +129,10 @@ def mgfn_lists(branch: str, feats: dict, extract_uris: list[str], crime_uris: li
 
 
 def run_parity(args, log=print) -> dict:
-    """The harness; returns the report (``parity_report.json``'s keys) with each stage's
-    wall time in seconds under ``stage_seconds`` (not written to the file)."""
+    """The harness; returns the report (``parity_report.json``'s keys) with, not written
+    to the file, each stage's wall time in seconds under ``stage_seconds`` and under
+    ``sizes`` the run's data sizes, the batch sizes its stages were given and the clips
+    each extraction read."""
     import numpy as np
 
     import ted_spad_tpu_torch.data.features as fm
@@ -304,12 +306,13 @@ def run_parity(args, log=print) -> dict:
     fa, ft = anon["fa"].to(dtype=dtype), anon["ft"].to(dtype=dtype)
     feats = {}
     extract_uris = crime_uris + [u for u in test_uris if u not in set(crime_uris)]
+    extract_batch = 4 if dry else max(fx.batch_size, 8)
     for branch in ("raw", "anon"):
         res = extract_features(
             fx.replace(anonymized=branch == "anon"), extract_uris,
             os.path.join(save, f"parity_features_{branch}"),
             fa=fa if branch == "anon" else None, ft=ft,
-            batch_size=4 if dry else max(fx.batch_size, 8), decode_hw=decode_hw,
+            batch_size=extract_batch, decode_hw=decode_hw,
             num_workers=args.num_workers, device=device,
         )
         if res["skipped"]:
@@ -366,7 +369,15 @@ def run_parity(args, log=print) -> dict:
         f"delta {auc_delta_pts:+.2f} pts (target {BASELINE_AUC_DELTA_PTS} pts)")
     log(f"  stage seconds: {json.dumps({k: round(v, 3) for k, v in seconds.items()})}")
     log(f"  report: {out}")
-    return {**report, "stage_seconds": seconds}
+    sizes = {"train_videos": len(train_items), "val_videos": len(val_items),
+             "vispr_train": len(vispr_train), "vispr_test": len(vispr_test),
+             "recon_val": len(recon_val), "recon_batch": rp.batch_size,
+             "anon_batch": ano.batch_size, "anon_vispr_batch": ano.batch_size_vispr,
+             "anon_val_batch": ano.v_batch_size, "anon_modes": ano.num_modes,
+             "privacy_batch": pp.batch_size, "privacy_val_batch": pp.v_batch_size,
+             "extract_batch": extract_batch,
+             "extract_clips": {b: feats[b]["clips"] for b in ("raw", "anon")}}
+    return {**report, "stage_seconds": seconds, "sizes": sizes}
 
 
 def parser() -> argparse.ArgumentParser:

@@ -222,7 +222,7 @@ def make_fa_step(fa: torch.nn.Module, fb: torch.nn.Module, ft: torch.nn.Module,
         labels = torch.as_tensor(labels).to(device, torch.long)
         opt_fa.zero_grad(set_to_none=True)
         mv, mb = vispr1.shape[0] // n, clips.shape[0] // n
-        remat = _resolve_remat(p, clips[:mb].shape, vispr1[:mv].shape)
+        remat = fa_step.remat = _resolve_remat(p, clips[:mb].shape, vispr1[:mv].shape)
         grads, losses = [torch.zeros_like(q) for q in params], 0.0
         with _frozen(fb, ft):
             for i in range(n):  # n == 1: the whole batch, grads and losses exact
@@ -237,6 +237,7 @@ def make_fa_step(fa: torch.nn.Module, fb: torch.nn.Module, ft: torch.nn.Module,
         opt_fa.step()
         return losses
 
+    fa_step.remat = None  # what p.remat resolved to at the last step
     return fa_step
 
 
@@ -346,7 +347,8 @@ def train_anonymizer(
     """Stage driver (train_anonymizer.py:319-555). The three models' initial weights
     come from ``p.saved_model_{fa,fb,ft}`` or ``p.seed``; the data order, the
     augmentation draws and the dropout masks from ``seed``. Returns ``{"history",
-    "best_acc", "best_path", "fa", "fb", "ft"}``. ``mesh``: data parallel on
+    "best_acc", "best_path", "fa", "fb", "ft", "remat"}``, ``remat`` what ``p.remat``
+    resolved to at the last fa step (None without one). ``mesh``: data parallel on
     ``mesh.device`` (module docstring) when the world size divides both batch sizes,
     the JAX package's condition, taken per microbatch: with ``accum_steps`` n the world
     size times n must divide them, since each rank holds an equal block of each
@@ -462,4 +464,4 @@ def train_anonymizer(
     if mesh is not None:
         mesh.barrier()  # rank 0's checkpoints are on disk for every rank
     return {"history": history, "best_acc": best.best, "best_path": best.best_path,
-            "fa": fa, "fb": fb, "ft": ft}
+            "fa": fa, "fb": fb, "ft": ft, "remat": fa_step.remat}

@@ -9,16 +9,20 @@ restored, and the refusals with JAX's messages. torch on one thread."""
 from __future__ import annotations
 
 import ast
+import dataclasses
+import hashlib
 import json
 import os
 import shutil
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import pytest
 import torch
 
+import ted_spad_tpu_torch.config.params as port_params
 import ted_spad_tpu_torch.data.features as port_features
 import ted_spad_tpu_torch.utils.checkpoint as port_checkpoint
 from ted_spad_tpu import models as jax_models
@@ -159,6 +163,7 @@ def test_validate_adversarial_tiny_on_cpu(run_dir):
         assert 0.0 <= res[k]["best_cmap"] <= 1.0 and _finite(res[k]["history"])
     assert res["delta"] == pytest.approx(res["raw"]["best_cmap"] - res["anonymized"]["best_cmap"])
     assert set(res["seconds"]) == {"anon", "privacy_raw", "privacy_anon"}
+    assert res["anon"]["remat"] is False  # "auto" at 32^2: far below REMAT_AUTO_PIXELS
 
 
 def _jax_report_keys() -> set[str]:
@@ -176,7 +181,8 @@ def test_run_parity_dry_run_tiny_on_cpu(run_dir, reads):
     assert port_features.ABNORMAL_SPLIT["UCF"] == split
     report = json.load(open(run_dir / "parity_report.json"))
     assert set(report) == _jax_report_keys()
-    assert {k: v for k, v in res.items() if k != "stage_seconds"} == report
+    assert {k: v for k, v in res.items() if k not in ("stage_seconds", "sizes")} == report
+    assert res["sizes"]["extract_clips"] == {"raw": 24, "anon": 24}  # 4 videos x 6 clips
     assert report["seeds_converted"] == ["fa", "fb", "ft"]
     assert all(np.isfinite(report[k]) for k in report if isinstance(report[k], float))
     seeds = run_dir / "seeds"
@@ -212,3 +218,247 @@ def test_run_parity_refuses_misaligned_features(tmp_path):
     with pytest.raises(RuntimeError, match="gt has 95 frames but the test features cover 3 clips"):
         run_parity.mgfn_lists("anon", feats, ["a", "b"], ["a", "b"], ["b"], np.zeros(95),
                               str(tmp_path))
+
+
+# ---- the chains' arguments against the JAX scripts' ---------------------------------
+# Each stage is replaced, in both packages, by a stub that records what it is given and
+# returns a minimal summary. The synthetic results cannot match across the two
+# packages' random generators, but what each stage is handed can: its Params, epochs,
+# sizes and data, and which file of the stage before it it reads.
+
+_PORT_PARAMS = {c.__name__: c for c in vars(port_params).values()
+                if isinstance(c, type) and dataclasses.is_dataclass(c)}
+
+
+class _Handle:
+    """A trained model as a stage summary hands it on (the port's module, the JAX
+    package's variables), named by its stage and slot."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def to(self, *args, **kwargs) -> "_Handle":
+        return self
+
+
+def _norm(v, save: str):
+    """``v`` as plain data: paths under ``save`` relative to it, Params as their fields
+    (a JAX-only field must hold its default and is dropped), data sources as their
+    length and a digest of their first and last items, arrays as a digest."""
+    if isinstance(v, _Handle):
+        return f"<{v.name}>"
+    if dataclasses.is_dataclass(v) and not isinstance(v, type):
+        fields = {f.name: getattr(v, f.name) for f in dataclasses.fields(v)}
+        port_cls = _PORT_PARAMS.get(type(v).__name__)
+        if port_cls is not None:
+            default = type(v)()
+            for k in set(fields) - {f.name for f in dataclasses.fields(port_cls)}:
+                assert fields.pop(k) == getattr(default, k), f"{type(v).__name__}.{k} set"
+        return [type(v).__name__, _norm(fields, save)]
+    if isinstance(v, str):
+        return "<save>/" + os.path.relpath(v, save) if v.startswith(save) else v
+    if isinstance(v, (list, tuple)):
+        return [_norm(x, save) for x in v]
+    if isinstance(v, dict):
+        return {k: _norm(x, save) for k, x in v.items()}
+    if isinstance(v, np.ndarray):
+        return ["array", v.dtype.str, list(v.shape), hashlib.sha1(v.tobytes()).hexdigest()]
+    if hasattr(v, "get_batch"):
+        images, labels = v.get_batch([0, len(v) - 1])
+        return [type(v).__name__, len(v), _norm(np.asarray(images), save),
+                _norm(np.asarray(labels), save)]
+    if v is None or isinstance(v, (bool, int, float)):
+        return v
+    raise TypeError(f"no plain form for {type(v)}")
+
+
+def _stub_stages(monkeypatch, jax: bool, save: str) -> list:
+    """Replace the stages (and the seed conversion's file work) of one package by
+    recorders; returns the list they append to, in call order."""
+    import ted_spad_tpu.data.features as jax_features
+    import ted_spad_tpu.stages.action_training as j_action
+    import ted_spad_tpu.stages.anomaly_detection as j_anomaly
+    import ted_spad_tpu.stages.anonymization_training as j_anon
+    import ted_spad_tpu.stages.fa_pretraining as j_recon
+    import ted_spad_tpu.stages.feature_extraction as j_extract
+    import ted_spad_tpu.stages.privacy_training as j_privacy
+    import ted_spad_tpu.utils.checkpoint as j_checkpoint
+    import ted_spad_tpu.utils.torch_convert as j_convert
+    import ted_spad_tpu_torch.stages.action_training as p_action
+    import ted_spad_tpu_torch.stages.anomaly_detection as p_anomaly
+    import ted_spad_tpu_torch.stages.anonymization_training as p_anon
+    import ted_spad_tpu_torch.stages.fa_pretraining as p_recon
+    import ted_spad_tpu_torch.stages.feature_extraction as p_extract
+    import ted_spad_tpu_torch.stages.privacy_training as p_privacy
+    import ted_spad_tpu_torch.utils.torch_convert as p_convert
+    from ted_spad_tpu_torch.utils import reference_layout
+
+    calls: list = []
+    rename = {"fa_variables": "fa", "ft_variables": "ft", "fa_model": "fa"}
+
+    def record(stage, args, kw):
+        kw = {rename.get(k, k): x for k, x in kw.items() if k not in ("device", "log_fn", "mesh")}
+        calls.append([stage, _norm(list(args), save), _norm(kw, save)])
+
+    def train_action(p, **kw):
+        record("action", [p], kw)
+        return {"history": {"val_acc": [0.5]}, "best_acc": 0.5,
+                "best_path": os.path.join(kw["save_dir"], p.run_id, "model_best.ckpt")}
+
+    def train_reconstruction(p, **kw):
+        record("recon", [p], kw)
+        return {"history": {"val_loss": [0.1]},
+                "best_path": os.path.join(kw["save_dir"], p.run_id, "model_best.ckpt")}
+
+    def train_anonymizer(p, **kw):
+        record("anon", [p], kw)
+        models = {slot: _Handle(f"{p.run_id}.{slot}") for slot in ("fa", "fb", "ft")}
+        if jax:
+            models = {f"{slot}_variables": m for slot, m in models.items()}
+        return {"history": {"val_acc": [0.5]}, "best_acc": 0.5, "best_path": None, **models}
+
+    def train_privacy(p, **kw):
+        record("privacy", [p], kw)
+        return {"history": {"val_cmap": [0.5]}, "best_cmap": 0.5, "best_path": None}
+
+    def extract_features(p, uris, out_dir, **kw):
+        record("extract", [p, uris, out_dir], kw)
+        os.makedirs(out_dir, exist_ok=True)
+        saved, clips = {}, 0
+        for i, uri in enumerate(uris):
+            n = int(uri.split("n=")[1].split(",")[0])
+            rows = len(p_extract.video_clip_starts(n, p.num_frames, p.clip_stride, p.clip_step))
+            saved[uri] = os.path.join(out_dir, f"{i}.npy")
+            np.save(saved[uri], np.zeros((rows, 2), np.float32))
+            clips += rows
+        return {"saved": saved, "existing": {}, "skipped": {}, "clips": clips,
+                "elapsed_s": 1.0, "clips_per_sec": float(clips)}
+
+    def train_anomaly_detection(p, **kw):
+        record("mgfn", [p], kw)
+        features = jax_features if jax else port_features
+        calls.append(["mgfn lists", *[_norm(open(f).read().split(), save)
+                                      for f in (p.rgb_list, p.test_rgb_list)],
+                      features.ABNORMAL_SPLIT["UCF"]])
+        return {"history": {"test_AUC": [0.5, 0.6]}}
+
+    def load_torch_checkpoint(path):
+        return {"file": os.path.basename(path)}
+
+    def convert_seed_payload(kind, sd, **kw):
+        calls.append(["convert", kind, sd["file"], kw["num_classes"], list(kw["clip_shape"])])
+        return {"kind": kind}
+
+    def save_checkpoint(path, payload):
+        calls.append(["save seed", _norm(path, save), payload])
+        return path
+
+    stages = (j_action, j_recon, j_anon, j_privacy, j_extract, j_anomaly) if jax else (
+        p_action, p_recon, p_anon, p_privacy, p_extract, p_anomaly)
+    for module, fn in zip(stages, (train_action, train_reconstruction, train_anonymizer,
+                                   train_privacy, extract_features, train_anomaly_detection)):
+        monkeypatch.setattr(module, fn.__name__, fn)
+    convert = j_convert if jax else p_convert
+    monkeypatch.setattr(convert, "load_torch_checkpoint", load_torch_checkpoint)
+    monkeypatch.setattr(convert, "convert_seed_payload", convert_seed_payload)
+    monkeypatch.setattr(j_checkpoint if jax else port_checkpoint, "save_checkpoint", save_checkpoint)
+
+    def seed_files(out_dir, seed=0):
+        return {kind: os.path.join(out_dir, name) for kind, name in reference_layout.SEED_FILES.items()}
+
+    if jax:
+        import scripts._common
+        import scripts.run_parity
+
+        monkeypatch.setattr(scripts._common, "setup_platform", lambda args: None)
+        monkeypatch.setattr(scripts.run_parity, "_oracle_state_dicts", seed_files)
+    else:
+        monkeypatch.setattr(reference_layout, "write_dry_run_seeds", seed_files)
+    return calls
+
+
+def _run_jax_script(monkeypatch, name: str, argv: list[str]) -> None:
+    import importlib
+
+    module = importlib.import_module(f"scripts.{name}")
+    if hasattr(module, "setup_platform"):
+        monkeypatch.setattr(module, "setup_platform", lambda args: None)
+    monkeypatch.setattr(sys, "argv", [f"scripts/{name}.py", *argv])
+    module.main()
+
+
+def _both(monkeypatch, tmp_path, name, jax_argv, port_run) -> tuple[list, list]:
+    """The recorded calls of JAX's script and of the port's CLI, each in a save
+    directory of its own."""
+    out = []
+    for jax in (True, False):
+        save = str(tmp_path / ("jax" if jax else "port"))
+        with monkeypatch.context() as m:
+            calls = _stub_stages(m, jax, save)
+            split = port_features.ABNORMAL_SPLIT["UCF"]
+            if jax:
+                import ted_spad_tpu.data.features as jax_features
+
+                split = jax_features.ABNORMAL_SPLIT["UCF"]
+                try:
+                    _run_jax_script(m, name, [*jax_argv, "--save_dir", save])
+                finally:  # run_pipeline.py leaves its split set
+                    jax_features.ABNORMAL_SPLIT["UCF"] = split
+            else:
+                port_run(["--device", "cpu", "--save_dir", save])
+                assert port_features.ABNORMAL_SPLIT["UCF"] == split
+        out.append(calls)
+    return out[0], out[1]
+
+
+_OVERLAYS = {"action": "weight_decay = 0.0123\n", "recon": 'arch_fa = "unet"\nlearning_rate = 0.0042\n',
+             "anon": 'arch_fa = "unet"\nnum_epochs = 7\n', "privacy": 'arch_fa = "unet"\n',
+             "extract": 'arch_fa = "unet"\nbatch_size = 12\n'}
+
+
+@pytest.mark.parametrize("tiny,overlay", [(True, False), (True, True), (False, True)])
+def test_run_parity_hands_each_stage_what_jax_does(monkeypatch, tmp_path, tiny, overlay):
+    argv = ["--dry-run"] + (["--tiny"] if tiny else [])
+    if overlay:
+        for key, text in _OVERLAYS.items():
+            path = tmp_path / "reference" / run_parity.REF_PARAMS[key]
+            path.parent.mkdir(parents=True, exist_ok=True)
+            path.write_text(text)
+        argv += ["--params_dir", str(tmp_path / "reference")]
+    monkeypatch.setattr(tempfile, "mkdtemp", lambda **kw: str(tmp_path / "jax seed sources"))
+    jax_calls, port_calls = _both(monkeypatch, tmp_path, "run_parity", argv,
+                                  lambda a: run_parity.main(argv + a))
+    assert [c[0] for c in port_calls] == (
+        ["convert", "save seed"] * 3 + ["action", "recon", "anon", "privacy", "privacy", "extract",
+                                        "extract", "mgfn", "mgfn lists", "mgfn", "mgfn lists"])
+    for ours, ref in zip(port_calls, jax_calls, strict=True):
+        assert ours == ref
+    anon = port_calls[8][1][0][1]
+    assert anon["saved_model_fa"] == "<save>/parity_recon/model_best.ckpt"
+    assert anon["saved_model_ft"] == "<save>/parity_action/model_best.ckpt"
+    assert port_calls[10][2]["fa"] == port_calls[12][2]["fa"] == "<parity_anon.fa>"
+
+
+@pytest.mark.parametrize("scale", ["tiny", "reference"])
+def test_validate_adversarial_hands_each_stage_what_jax_does(monkeypatch, tmp_path, scale):
+    argv = ["--scale", scale, "--epochs", "2", "--attack_epochs", "1"]
+    jax_calls, port_calls = _both(
+        monkeypatch, tmp_path, "validate_adversarial", argv,
+        lambda a: validate_adversarial.run(validate_adversarial.parser().parse_args(argv + a)))
+    assert [c[0] for c in port_calls] == (["recon"] if scale == "reference" else []) + [
+        "anon", "privacy", "privacy"]
+    for ours, ref in zip(port_calls, jax_calls, strict=True):
+        assert ours == ref
+    if scale == "reference":
+        assert port_calls[1][1][0][1]["saved_model_fa"] == "<save>/validate_recon/model_temp.ckpt"
+
+
+def test_run_pipeline_hands_each_stage_what_jax_does(monkeypatch, tmp_path):
+    jax_calls, port_calls = _both(
+        monkeypatch, tmp_path, "run_pipeline", ["--synthetic"],
+        lambda a: run_pipeline.run(run_pipeline.parser().parse_args(["--synthetic", *a])))
+    assert [c[0] for c in port_calls] == ["recon", "anon", "extract", "mgfn", "mgfn lists", "privacy"]
+    for ours, ref in zip(port_calls, jax_calls, strict=True):
+        assert ours == ref
+    assert port_calls[1][1][0][1]["saved_model_fa"] == "<save>/pipe_recon/model_best.ckpt"
+    assert port_calls[2][2]["fa"] == port_calls[5][2]["fa"] == "<pipe_anon.fa>"
