@@ -6,7 +6,9 @@
 Phases, each fatal on failure:
   1. build the port's CUDA kernels (csrc/preprocess.cu: K1, csrc/doubleconv.cu: K2,
      csrc/preprocess_yuv.cu: K3, csrc/int8conv.cu: K4) with nvcc, one process per
-     source, started together;
+     source, started together, and the port's decoder (csrc/videodec.cpp) with g++
+     beside them: where it does not build or load (no FFmpeg), the compiler's first
+     error line or the loader's message is printed as a reading, not a failure;
   2. hold K1 against its plain PyTorch version on the card (chip_probes.K1_CASES: the
      serving shape, a ragged one, 480x856, 1080x1920, an unaligned base address and
      a runtime-taps shape) and time kernel (and its device-only reading), plain version
@@ -15,10 +17,12 @@ Phases, each fatal on failure:
      and the registers;
   3. hold K2 against its plain version (float32 convs, TF32 off) at the plain UNet's
      nine DoubleConv shapes with a few frames, a ragged shape, the halo case and one
-     ragged shape per bf16 tile class, in float32 and bfloat16; time it at the serving
-     batch (256 frames) at those nine shapes and at four UNet++ decoder-cluster shapes,
-     beside its plain version, its bound and the cuDNN conv pair, with each shape's
-     tile class and that instantiation's registers (the bf16 ones must not spill);
+     ragged shape per bf16 tile class, in float32 and bfloat16, and its float32 form at
+     one ragged shape per edge of its tiles (chip_probes.K2_F32_RAGGED); time it at the
+     serving batch (256 frames) at those nine shapes and at four UNet++ decoder-cluster
+     shapes, beside its plain version, its bound and the cuDNN conv pair, with each
+     shape's tile class and that instantiation's registers (no instantiation, bf16 or
+     float32, may spill);
   4. drive the default serving path at full model width: synthetic videos ->
      extract_features (K1 preprocess -> UNet++ fa -> I3Res50 ft, bf16) -> .npy -> UCF
      MGFN scores -> frame timeline, with the kernels' launch counts read from that
@@ -267,7 +271,6 @@ VIS_CPU_FRAMES = 2  # UNet++ frames held against the CPU's float32 run (next two
 VIS_LEVEL_TOL = 1
 VIS_DIFF_SHARE = 1e-3
 VIS_MP4_MEAN = 16
-F32_FLOPS = 67e12  # H100 SXM float32 rate outside the tensor cores (CUDA-core FMAs)
 
 # Phase 15: the other ft families in training. The gate (card float64 against the CPU's
 # float64 step, TF32 off, dropout 0, phase 12's limits): videos x 3 views and the clip
@@ -317,10 +320,11 @@ def log(msg: str) -> None:
 
 
 def phase_build() -> tuple[dict, dict]:
-    """nvcc for every kernel source at once (one process each), then each one's
-    ptxas lines: registers, spills, shared memory. Returns K1's and K2's registers and
-    spills by instantiation, and fails if a bf16 K2 one spills (K3's and K4's are
-    logged)."""
+    """nvcc for every kernel source at once (one process each), and g++ for the port's
+    decoder beside them, then each kernel's ptxas lines: registers, spills, shared
+    memory. Returns K1's and K2's registers and spills by instantiation, and fails if a
+    K2 one spills (K3's and K4's are logged). The decoder is a reading: where it does
+    not build, its compiler's first error line is printed."""
     from concurrent.futures import ThreadPoolExecutor
 
     from ted_spad_tpu_torch.chip_probes import k1_register_report, k2_register_report
@@ -328,8 +332,10 @@ def phase_build() -> tuple[dict, dict]:
 
     names = ("preprocess", "doubleconv", "preprocess_yuv", "int8conv")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(names)) as pool:
+    with ThreadPoolExecutor(len(names) + 1) as pool:
+        decoder = pool.submit(decoder_build)
         results = list(pool.map(cuda_build.build, names))
+    log(decoder.result())
     for name, (seconds, nvcc_out) in zip(names, results):
         for line in nvcc_out.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
@@ -338,6 +344,26 @@ def phase_build() -> tuple[dict, dict]:
     log(f"[build] all kernels built in {time.perf_counter() - t0:.2f}s")
     out = dict(zip(names, results))
     return k1_register_report(out["preprocess"][1], log), k2_register_report(out["doubleconv"][1], log)
+
+
+def decoder_build() -> str:
+    """Build the port's decoder (csrc/videodec.cpp) with g++ and load it: a line saying
+    where it was built and in how long, or the compiler's first error line, or why the
+    library does not load (FFmpeg's shared libraries missing)."""
+    import ctypes
+
+    from ted_spad_tpu_torch.data import video_reader
+
+    t0 = time.perf_counter()
+    try:
+        path = video_reader.build_library()
+        ctypes.CDLL(path)
+    except (RuntimeError, OSError) as e:
+        lines = str(e).splitlines() or [repr(e)]
+        first = next((ln for ln in lines if "error" in ln), lines[-1])
+        return f"[build] the port's decoder is not available here (a reading, not a failure): {first.strip()}"
+    return (f"[build] the port's decoder (csrc/videodec.cpp) built and loaded in "
+            f"{time.perf_counter() - t0:.2f}s: {os.path.relpath(path, ROOT)}")
 
 
 def check_preprocess(device, registers: dict) -> dict:
@@ -372,7 +398,8 @@ def check_double_conv(device, registers: dict) -> dict:
     import torch
 
     from ted_spad_tpu_torch.chip_probes import (
-        K2_CLASS_RAGGED, UNET_DOUBLECONVS, UNETPP_CLUSTER, double_conv_operands,
+        K2_CLASS_RAGGED, K2_F32_RAGGED, UNET_DOUBLECONVS, UNETPP_CLUSTER, double_conv_operands,
+        k2_f32_error,
     )
     from ted_spad_tpu_torch.ops import doubleconv as dc
     from ted_spad_tpu_torch.utils.device import tf32_off
@@ -396,6 +423,14 @@ def check_double_conv(device, registers: dict) -> dict:
             if not (scale > 0 and err <= tol * scale):
                 raise AssertionError(f"K2 disagrees with its plain version at {name}: {err}")
             worst = max(worst, err)
+    for i, (name, shape) in enumerate(K2_F32_RAGGED):
+        plan = dc.k2_f32_plan(*shape)
+        rel = k2_f32_error(device, shape, seed=40 + i)
+        log(f"[K2] {name} {shape} float32 ({' then '.join(p.tile for p in plan.passes)} tiles, "
+            f"{plan.passes[0].copy_bytes}-byte x copies): max|kernel - plain| = {rel:.3e} of "
+            f"max|plain| (tolerance {K2_F32_TOL:.0e})")
+        if not rel <= K2_F32_TOL:
+            raise AssertionError(f"K2's float32 form disagrees with its plain version at {name}: {rel}")
 
     shapes = []
     for where, table in (("unet", UNET_DOUBLECONVS), ("unet++ decoder", UNETPP_CLUSTER)):
@@ -2202,52 +2237,50 @@ def _spread_error(x, ref) -> float:
 
 
 def k2_float32_chunk(device, card: str) -> dict:
-    """K2's float32 form (CUDA-core FMAs, the default visualization's) at the nine
-    DoubleConvs of one VIS_CHUNK chunk, each beside its device-only reading, its plain
-    version and the cuDNN float32 conv + bias + ReLU pair (TF32 off for both) and its
-    bound: 2*9*(Cin*Cmid + Cmid*Cout) FLOP per pixel at the float32 FMA peak, or x, the
-    output, the weights and biases moved once at the memory rate."""
+    """K2's float32 form (the default visualization's: two passes of a register-blocked
+    implicit GEMM on CUDA-core FMAs, bound by the FMA rate) at the nine DoubleConvs of
+    one VIS_CHUNK chunk (chip_probes.k2_f32_chunk_times), each beside its device-only
+    reading and TFLOP/s, its plain version, the cuDNN float32 conv + bias + ReLU pair
+    (TF32 off for both) and its bound; then the SM clock while up4 runs."""
     import torch
 
     from ted_spad_tpu_torch.chip_probes import (
-        VIS_CHUNK, double_conv_operands, time_ms, unet_doubleconv_shapes,
+        F32_FLOPS, F32_PEAK_PER_MHZ, VIS_CHUNK, double_conv_operands, k2_f32_chunk_times,
+        sm_clock_under_load,
     )
     from ted_spad_tpu_torch.ops import doubleconv as dc
-    from ted_spad_tpu_torch.utils.device import tf32_off
 
     n = VIS_CHUNK[0]
-    shapes, worst = [], 0.0
-    for i, (name, h, w, ci, cm, co) in enumerate(unet_doubleconv_shapes(*VIS_CHUNK[1:])):
-        x, w1, b1, w2, b2 = double_conv_operands(device, (n, h, w, ci, cm, co), torch.float32, seed=50 + i)
-        got = dc.fused_double_conv(x, w1, b1, w2, b2)
-        with tf32_off():
-            ref = dc.double_conv_reference(x, w1, b1, w2, b2)
-        err = float((got - ref).abs().max()) / float(ref.abs().max())
-        worst = max(worst, err)
-        ms, plain_ms, library_ms = _k2_times(x, w1, b1, w2, b2)
-        device_ms = time_ms(lambda: dc.fused_double_conv(x, w1, b1, w2, b2), reps=3, inner=1, queued=True)
-        flops = 2 * n * h * w * 9 * (ci * cm + cm * co)
-        by_ops = flops / F32_FLOPS * 1e3
-        by_bytes = 4 * (n * h * w * (ci + co) + 9 * (ci * cm + cm * co) + cm + co) / HBM_BYTES_PER_S * 1e3
-        shapes.append({"block": name, "shape": [h, w, ci, cm, co], "ms": ms, "device_only_ms": device_ms,
-                       "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": max(by_ops, by_bytes),
-                       "flops": flops, "max_rel_err": err})
-        log(f"[K2 f32] {name} {h}x{w} {ci}->{cm}->{co} x{n} float32: max|kernel - plain| {err:.3e} of "
-            f"max|plain| (limit {K2_F32_TOL:.0e}); kernel {ms:.3f} ms ({device_ms:.3f} device-only, "
-            f"{flops / device_ms * 1e-9:.1f} TFLOP/s), plain {plain_ms:.3f}, cuDNN f32 pair {library_ms:.3f}, "
-            f"bound {max(by_ops, by_bytes):.3f} ms ({'operations' if by_ops >= by_bytes else 'bytes'})")
-        del x, w1, w2, got, ref
-        if not err <= K2_F32_TOL:
-            raise AssertionError(f"K2's float32 form disagrees with its plain version at {name}: {err}")
+    shapes = k2_f32_chunk_times(device)
+    for r in shapes:
+        h, w, ci, cm, co = r["shape"]
+        log(f"[K2 f32] {r['block']} {h}x{w} {ci}->{cm}->{co} x{n} float32: max|kernel - plain| "
+            f"{r['max_rel_err']:.3e} of max|plain| (limit {K2_F32_TOL:.0e}); kernel {r['ms']:.3f} ms "
+            f"({r['device_only_ms']:.3f} device-only, {r['flops'] / r['device_only_ms'] * 1e-9:.1f} TFLOP/s), "
+            f"plain {r['plain_ms']:.3f}, cuDNN f32 pair {r['library_ms']:.3f}, bound {r['bound_ms']:.3f} ms "
+            f"({r['bound_by']})")
+        if not r["max_rel_err"] <= K2_F32_TOL:
+            raise AssertionError(f"K2's float32 form disagrees with its plain version at {r['block']}: "
+                                 f"{r['max_rel_err']}")
+    *_, up4 = shapes
+    args = double_conv_operands(device, (n, *up4["shape"]), torch.float32)
+    clock = sm_clock_under_load(lambda: dc.fused_double_conv(*args))
+    del args
+    if clock:
+        log(f"[K2 f32] up4 under load: SM clock {clock['sm_mhz']:.0f} MHz, {clock['power_w']:.1f} W: "
+            f"the FMA peak at that clock {F32_PEAK_PER_MHZ * clock['sm_mhz'] / 1e12:.1f} TFLOP/s")
     total = {k: sum(r[k] for r in shapes) for k in ("ms", "device_only_ms", "plain_ms", "library_ms", "bound_ms",
                                                      "flops")}
-    log(f"[K2 f32] the nine DoubleConvs of one {n}-frame {VIS_CHUNK[1]}x{VIS_CHUNK[2]} chunk, float32: kernel {total['ms']:.3f} ms "
-        f"({total['device_only_ms']:.3f} device-only), plain {total['plain_ms']:.3f}, cuDNN f32 pairs "
-        f"{total['library_ms']:.3f}, bound {total['bound_ms']:.3f} ms ({total['flops'] / 1e12:.3f} TFLOP at "
-        f"{F32_FLOPS / 1e12:.0f} TFLOP/s; {total['flops'] / n / 1e9:.2f} GFLOP per frame), "
-        f"{total['ms'] / total['bound_ms']:.1f}x the bound | {card}")
+    log(f"[K2 f32] the nine DoubleConvs of one {n}-frame {VIS_CHUNK[1]}x{VIS_CHUNK[2]} chunk, float32: kernel "
+        f"{total['ms']:.3f} ms ({total['device_only_ms']:.3f} device-only, "
+        f"{total['flops'] / total['device_only_ms'] * 1e-9:.1f} TFLOP/s), plain {total['plain_ms']:.3f}, "
+        f"cuDNN f32 pairs {total['library_ms']:.3f}, bound {total['bound_ms']:.3f} ms "
+        f"({total['flops'] / 1e12:.3f} TFLOP at {F32_FLOPS / 1e12:.0f} TFLOP/s; "
+        f"{total['flops'] / n / 1e9:.2f} GFLOP per frame), {total['ms'] / total['bound_ms']:.1f}x the bound, "
+        f"{total['library_ms'] / total['ms']:.2f}x faster than cuDNN | {card}")
     return {"frames": n, "frame": list(VIS_CHUNK[1:]), "dtype": "float32", **total, "bound_by": "operations",
-            "max_rel_err": worst, "shapes": shapes}
+            "max_rel_err": max(r["max_rel_err"] for r in shapes), "shapes": shapes,
+            "sm_clock_under_load": clock}
 
 
 def visualization_phase(device, workdir: str, card: str) -> tuple[dict, dict]:
@@ -3359,7 +3392,8 @@ def main() -> int:
         k["launches"] = launches[path][name]
         k["launches_by_path"] = {where: counts[name] for where, counts in launches.items()}
     k1["ten_crop"] = ten_crop
-    k2["float32_chunk"] = k2_f32
+    k2["float32_chunk"] = {**k2_f32, "registers": {k: v["registers"] for k, v in k2_registers.items()
+                                                   if k.startswith("f32")}}
 
     log(f"[card] command time {time.perf_counter() - T0:.1f}s")
     log(json.dumps({"kernels": [k1, k2, k3, k4]}))

@@ -3,6 +3,8 @@ numbers PERF.md quotes from them can be taken again:
 
     python -m ted_spad_tpu_torch.chip_probes k1     # kernel K1 alone
     python -m ted_spad_tpu_torch.chip_probes k2     # kernel K2 alone
+    python -m ted_spad_tpu_torch.chip_probes k2ab PARENT   # K2's float32 form: PARENT vs this tree
+    python -m ted_spad_tpu_torch.chip_probes k2ab DIR DIR...   # K2's float32 form of copies, in turns
     python -m ted_spad_tpu_torch.chip_probes k3     # kernel K3 (YUV420 preprocess) alone
     python -m ted_spad_tpu_torch.chip_probes k3ab DIR...   # K3 of copies of the package, in turns
     python -m ted_spad_tpu_torch.chip_probes k4     # kernel K4 (int8 conv) alone
@@ -18,10 +20,20 @@ times every kernel, and its device-only reading beside), next to its byte bound,
 plain version and both library yardsticks, and at K1_FRAME_SIZES.
 
 ``k2``: builds K2 and prints each instantiation's registers and spills (failing if
-the bf16 kernels spill), holds it against its plain version (float32 convs, TF32 off)
-at the plain UNet's nine DoubleConv shapes with two frames and at one ragged shape per
-bf16 tile class, in f32 and bf16, then times the kernel alone at 256 frames (CUDA
-events), with each shape's tile class.
+any spills), holds it against its plain version (float32 convs, TF32 off) at the plain
+UNet's nine DoubleConv shapes with two frames and at one ragged shape per bf16 tile
+class, in f32 and bf16, and the float32 form alone at K2_F32_RAGGED (one ragged shape
+per edge of its tiles), then times the bf16 kernel alone at 256 frames (CUDA events),
+with each shape's tile class, and the float32 form at the nine DoubleConvs of one
+VIS_CHUNK chunk beside the cuDNN float32 pairs.
+
+``k2ab PARENT``: K2's float32 form of PARENT (another checkout, e.g. ``git archive`` of
+the parent commit unpacked under ``build/``) and of this tree in turns, parent / change
+/ change / parent, each turn a process of its own under that tree's package and kernel
+(``k2turn``): registers, the worst error against the plain version and the event and
+device-only times at the nine DoubleConvs of one VIS_CHUNK chunk. ``k2ab DIR DIR ...``:
+the same turn for each copy of the package given (e.g. forms of the kernel under
+``build/``), once each, in that order.
 
 ``k3``: builds K3 and prints each instantiation's registers and spills beside the blocks
 per SM its plans count on (failing on a spill or a shortfall), holds it against its plain
@@ -102,6 +114,17 @@ K2_CLASS_RAGGED = (
     ("ragged 14x14", (2, 20, 30, 128, 256, 128)), ("ragged 7x14", (2, 12, 20, 256, 512, 256)),
 )
 
+# The float32 form's tiles are flat runs of BM pixels over frames and BN output
+# channels, K = 9 * Cin in stages of 16: one shape per edge (N, H, W, Cin, Cmid, Cout).
+K2_F32_RAGGED = (
+    ("f32 M across frames", (3, 7, 9, 64, 96, 64)),  # 189 pixels: tiles span frames
+    ("f32 N ragged", (2, 12, 20, 64, 200, 40)),      # 200 of 2 x 128, 40 of 64
+    ("f32 K ragged", (2, 12, 20, 20, 36, 130)),      # Cin 20: a chunk of 4 of 16
+    ("f32 Cin 3", (2, 30, 40, 3, 64, 64)),           # inc: 27 k rows, 4-byte copies
+    ("f32 odd channels", (3, 5, 7, 13, 70, 37)),     # 4-byte x, weights and stores
+)
+K2_F32_TOL = 1e-4  # of max|plain|: float32 summation order
+
 
 # K1 against its plain version: (name, clip batch shape, out_h, out_w, byte offset of the
 # batch in its buffer). The serving batch; a ragged one (f32 rows of 480 B, 5 runs);
@@ -134,6 +157,7 @@ K1_BF16_TOL = 2.0 ** -7  # one bf16 ulp at 1.0
 K1_INTERPOLATE_TOL = 5e-5  # F.interpolate computes the filter weights in its own arithmetic
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOPS = 67e12  # H100 SXM f32 rate outside the tensor cores
+F32_PEAK_PER_MHZ = 132 * 128 * 2 * 1e6  # its 132 SMs' float32 FMAs, FLOP per cycle, per MHz
 
 
 def k1_register_report(nvcc_out: str, log=print) -> dict[str, dict[str, int]]:
@@ -309,6 +333,43 @@ def time_ms(fn, reps: int = 20, inner: int = 5, queued: bool = False) -> float:
     return times[len(times) // 2]
 
 
+def sm_clock_under_load(fn, seconds: float = 1.5) -> dict:
+    """The SM clock (MHz) and board power (W) that ``nvidia-smi`` reads every 100 ms
+    while ``fn`` runs back to back for ``seconds``: the medians of the samples after the
+    first three (which may precede the load), or {} where nvidia-smi is missing. With
+    the clock, a rate reads against the peak the card had at that moment."""
+    import statistics
+    import subprocess
+
+    import torch
+
+    try:
+        proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                                 "--format=csv,noheader,nounits", "-lms", "100"],
+                                stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    except OSError:
+        return {}
+    t0 = time.perf_counter()
+    try:
+        while time.perf_counter() - t0 < seconds:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out = proc.communicate(timeout=30)[0]
+    samples = []
+    for line in out.splitlines():
+        try:
+            samples.append(tuple(float(v) for v in line.split(",")))
+        except ValueError:
+            continue  # "[N/A]" and partial lines
+    samples = [r for r in samples[3:] or samples if len(r) == 2]
+    if not samples:
+        return {}
+    return {"sm_mhz": statistics.median(r[0] for r in samples),
+            "power_w": statistics.median(r[1] for r in samples), "samples": len(samples)}
+
+
 def k1_timing(device, log=print) -> dict:
     """K1 alone at the serving shape, bf16 out, beside its bound, its plain version and
     the two library yardsticks (two dense cuBLAS f32 matmuls; F.interpolate, antialiased,
@@ -390,10 +451,11 @@ def k1(device) -> None:
         del clips
 
 
-def k2_register_report(nvcc_out: str, log=print) -> dict[str, dict[str, int]]:
+def k2_register_report(nvcc_out: str, log=print, strict: bool = True) -> dict[str, dict[str, int]]:
     """Each K2 instantiation's registers and spill bytes from nvcc's ptxas report,
     logged and keyed "bf16 Cls<...>" as ``k2_tile_plan(...).kernel`` names it, or
-    "f32 4x8"; raises if a bf16 one spills."""
+    "f32 BMxBN" as ``k2_f32_plan(...).passes[i].tile`` does; raises if one spills
+    (``strict``; an older tree timed by k2ab may name its kernels otherwise)."""
     from ted_spad_tpu_torch.utils import cuda_build
 
     report = {}
@@ -401,13 +463,16 @@ def k2_register_report(nvcc_out: str, log=print) -> dict[str, dict[str, int]]:
         if "double_conv_bf16" in name:
             args = re.findall(r"Li(\d+)E", re.search(r"ClsI(.*?)EE", name).group(1) + "E")
             label = f"bf16 Cls<{', '.join(args)}>"
-        else:
-            label = "f32 4x8"
+        elif m := re.search(r"TileILi(\d+)ELi(\d+)E", name):
+            label = f"f32 {m.group(1)}x{m.group(2)}"
+        else:  # a tree before the float32 redesign: one fused kernel
+            label = "f32 double_conv"
         report[label] = r
         log(f"[K2 build] {label}: {r['registers']} registers, spill stores "
             f"{r['spill_stores']} B, spill loads {r['spill_loads']} B")
-        if label.startswith("bf16") and (r["spill_stores"] or r["spill_loads"]):
-            raise AssertionError(f"the bf16 K2 {label} spills registers: {r}")
+    spills = {k: r for k, r in report.items() if r["spill_stores"] or r["spill_loads"]}
+    if strict and spills:
+        raise AssertionError(f"K2 instantiations spill registers: {spills}")
     return report
 
 
@@ -431,6 +496,58 @@ def double_conv_operands(device, shape, dtype, seed: int = 0, b1=None):
     return x.to(dtype), w1.to(dtype), b1, w2.to(dtype), b2
 
 
+def k2_f32_error(device, shape, seed: int = 0) -> float:
+    """max|K2 - plain| / max|plain| of the float32 form at ``shape`` (N, H, W, Cin,
+    Cmid, Cout), the plain version with TF32 off."""
+    import torch
+
+    from ted_spad_tpu_torch.ops import doubleconv as dc
+    from ted_spad_tpu_torch.utils.device import tf32_off
+
+    args = double_conv_operands(device, shape, torch.float32, seed=seed)
+    got = dc.fused_double_conv(*args)
+    with tf32_off():
+        ref = dc.double_conv_reference(*args)
+    scale = float(ref.abs().max())
+    return float((got - ref).abs().max()) / scale if scale > 0 else float("inf")
+
+
+def k2_f32_chunk_times(device) -> list[dict]:
+    """K2's float32 form at the nine DoubleConvs of one VIS_CHUNK chunk, a row each: the
+    error against the plain version, event and device-only ms (``time_ms``), the plain
+    version's ms and the cuDNN float32 conv + bias + ReLU pair's (both TF32 off), the
+    FLOP and the bound: 2*9*(Cin*Cmid + Cmid*Cout) FLOP per pixel at the float32 FMA
+    peak, or x, the output, the weights and biases moved once at the memory rate."""
+    import torch
+    import torch.nn.functional as F
+
+    from ted_spad_tpu_torch.ops import doubleconv as dc
+    from ted_spad_tpu_torch.utils.device import tf32_off
+
+    n, rows = VIS_CHUNK[0], []
+    for i, (name, h, w, ci, cm, co) in enumerate(unet_doubleconv_shapes(*VIS_CHUNK[1:])):
+        shape = (n, h, w, ci, cm, co)
+        flops = 2 * n * h * w * 9 * (ci * cm + cm * co)
+        by_ops = flops / F32_FLOPS * 1e3
+        by_bytes = 4 * (n * h * w * (ci + co) + 9 * (ci * cm + cm * co) + cm + co) / HBM_BYTES_PER_S * 1e3
+        row = {"block": name, "shape": [h, w, ci, cm, co], "flops": flops, "bound_ms": max(by_ops, by_bytes),
+               "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+               "max_rel_err": k2_f32_error(device, shape, seed=50 + i)}
+        x, w1, b1, w2, b2 = double_conv_operands(device, shape, torch.float32, seed=50 + i)
+        row["ms"] = time_ms(lambda: dc.fused_double_conv(x, w1, b1, w2, b2), reps=3, inner=1)
+        row["device_only_ms"] = time_ms(lambda: dc.fused_double_conv(x, w1, b1, w2, b2), reps=3,
+                                        inner=1, queued=True)
+        xc = x.permute(0, 3, 1, 2)
+        w1c, w2c = (t.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last) for t in (w1, w2))
+        with tf32_off():
+            row["plain_ms"] = time_ms(lambda: dc.double_conv_reference(x, w1, b1, w2, b2), reps=3, inner=1)
+            row["library_ms"] = time_ms(lambda: F.relu(F.conv2d(F.relu(F.conv2d(
+                xc, w1c, b1, padding=1)), w2c, b2, padding=1)), reps=3, inner=1)
+        rows.append(row)
+        del x, w1, w2, xc, w1c, w2c
+    return rows
+
+
 def k2(device) -> None:
     import torch
 
@@ -444,7 +561,7 @@ def k2(device) -> None:
     cases = [(name, (2, s, s, cin, cmid, cout)) for name, s, cin, cmid, cout in UNET_DOUBLECONVS]
     worst = 0.0
     for name, shape in cases + list(K2_CLASS_RAGGED):
-        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2.0 ** -6)):
+        for dtype, tol in ((torch.float32, K2_F32_TOL), (torch.bfloat16, 2.0 ** -6)):
             args = double_conv_operands(device, shape, dtype)
             got = dc.fused_double_conv(*args)
             with tf32_off():
@@ -454,6 +571,11 @@ def k2(device) -> None:
             worst = max(worst, err / scale / tol)
             print(f"{name} {shape} {str(dtype)[6:]}: max|kernel - plain| {err:.3e} = "
                   f"{err / scale:.3e} of max|plain| {scale:.3f} (tolerance {tol:.3e})", flush=True)
+    for name, shape in K2_F32_RAGGED:
+        err = k2_f32_error(device, shape)
+        worst = max(worst, err / K2_F32_TOL)
+        print(f"{name} {shape} float32: max|kernel - plain| {err:.3e} of max|plain| "
+              f"(tolerance {K2_F32_TOL:.0e})", flush=True)
     print(f"worst error / tolerance {worst:.3f}: {'exact' if worst <= 1 else 'NOT EXACT'}")
     total = 0.0
     for name, s, cin, cmid, cout in UNET_DOUBLECONVS:
@@ -472,6 +594,26 @@ def k2(device) -> None:
         print(f"{name} x256 bf16 ({plan.kernel}, {plan.smem_bytes} B): kernel {ms:.3f} ms = "
               f"{flops / ms * 1e-9:.1f} TFLOP/s", flush=True)
     print(f"the nine x256 bf16: kernel {total:.3f} ms", flush=True)
+    rows = k2_f32_chunk_times(device)
+    for r in rows:
+        print(f"f32 {r['block']} {r['shape']} x{VIS_CHUNK[0]}: kernel {r['ms']:.3f} ms "
+              f"({r['device_only_ms']:.3f} device-only, {r['flops'] / r['device_only_ms'] * 1e-9:.1f} "
+              f"TFLOP/s), cuDNN f32 pair {r['library_ms']:.3f} ms, error {r['max_rel_err']:.2e}",
+              flush=True)
+    *_, (name, h, w, ci, cm, co) = unet_doubleconv_shapes(*VIS_CHUNK[1:])
+    args = double_conv_operands(device, (VIS_CHUNK[0], h, w, ci, cm, co), torch.float32)
+    clock = sm_clock_under_load(lambda: dc.fused_double_conv(*args))
+    if clock:
+        print(f"f32 {name} under load: SM clock {clock['sm_mhz']:.0f} MHz, {clock['power_w']:.1f} W "
+              f"({clock['samples']} samples): the FMA peak at that clock "
+              f"{F32_PEAK_PER_MHZ * clock['sm_mhz'] / 1e12:.1f} TFLOP/s", flush=True)
+    del args
+    total = {k: sum(r[k] for r in rows) for k in ("ms", "device_only_ms", "library_ms", "flops")}
+    print(f"the nine f32 at one {VIS_CHUNK} chunk: kernel {total['ms']:.3f} ms "
+          f"({total['device_only_ms']:.3f} device-only, {total['flops'] / total['device_only_ms'] * 1e-9:.1f} "
+          f"TFLOP/s), cuDNN f32 pairs {total['library_ms']:.3f} ms", flush=True)
+    if worst > 1:
+        raise AssertionError(f"K2 disagrees with its plain version: worst error / tolerance {worst:.3f}")
 
 
 def gain(device) -> None:
@@ -1041,6 +1183,81 @@ def k3ab(device, *trees: str) -> None:
                   f"{t['band_rows']} rows, {t['smem_bytes']} B", flush=True)
 
 
+def k2_turn(device) -> None:
+    """One turn of ``k2ab``, under whichever package the import path finds: K2's build
+    report and its float32 form's error and times at the nine DoubleConvs of one
+    VIS_CHUNK chunk, as one JSON line."""
+    import json
+
+    from ted_spad_tpu_torch.utils import cuda_build
+
+    registers = k2_register_report(cuda_build.build("doubleconv")[1], log=lambda m: None,
+                                   strict=False)
+    rows = k2_f32_chunk_times(device)
+    print(json.dumps({"registers": {k: v for k, v in registers.items() if k.startswith("f32")},
+                      "rows": rows}), flush=True)
+
+
+def k2ab(device, *trees: str) -> None:
+    """K2's float32 form of other checkouts in turns, each turn a process of its own
+    (``k2_turn``) under that tree's package and kernel, every tree built first, all at
+    once. One tree (e.g. the parent commit from git archive, unpacked under ``build/``):
+    it and this tree in turns, parent / change / change / parent, and whether the change
+    was faster in every turn. Several (e.g. copies of the package, each with one edit of
+    csrc/doubleconv.cu): each once, in the order given."""
+    import json
+    import os
+    import subprocess
+
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if len(trees) == 1:
+        parent = os.path.abspath(trees[0])
+        turns = [("parent", parent), ("change", here), ("change", here), ("parent", parent)]
+    else:
+        turns = [(t, os.path.abspath(t)) for t in trees]
+    code = "from ted_spad_tpu_torch.utils.cuda_build import build; build('doubleconv')"
+    builds = {root: subprocess.Popen([sys.executable, "-c", code], cwd=root,
+                                     env={**os.environ, "PYTHONPATH": root}, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+              for root in dict.fromkeys(root for _, root in turns)}
+    for root, proc in builds.items():
+        out = proc.communicate(timeout=600)[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"k2ab: the build under {root} failed:\n{out[-3000:]}")
+    turn = ("import runpy, sys; sys.argv = ['chip_probes', 'k2turn']; "
+            f"runpy.run_path({os.path.abspath(__file__)!r}, run_name='__main__')")
+    totals = {}
+    for i, (tag, root) in enumerate(turns):
+        proc = subprocess.run([sys.executable, "-c", turn], cwd=root,
+                              env={**os.environ, "PYTHONPATH": root}, capture_output=True,
+                              text=True, timeout=900)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith('{"registers"')]
+        if proc.returncode != 0 or not lines:
+            raise RuntimeError(f"k2ab turn {i} ({tag}) failed (exit {proc.returncode}):\n"
+                               f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        reading = json.loads(lines[-1])
+        rows = reading["rows"]
+        total = {k: sum(r[k] for r in rows) for k in ("ms", "device_only_ms", "flops")}
+        worst = max(r["max_rel_err"] for r in rows)
+        totals.setdefault(tag, []).append(total["ms"])
+        regs = ", ".join(f"{k} {v['registers']}" + (f" (spills {v['spill_stores']} / {v['spill_loads']} B)"
+                                                     if v["spill_stores"] or v["spill_loads"] else "")
+                         for k, v in reading["registers"].items())
+        print(f"[k2ab] turn {i} {tag}: the nine f32 DoubleConvs of one {VIS_CHUNK} chunk "
+              f"{total['ms']:.3f} ms ({total['device_only_ms']:.3f} device-only, "
+              f"{total['flops'] / total['device_only_ms'] * 1e-9:.1f} TFLOP/s); worst error "
+              f"{worst:.3e} of max|plain|; registers {regs}", flush=True)
+        for r in rows:
+            print(f"[k2ab]     {r['block']:>6} {r['shape']}: {r['ms']:.3f} ms "
+                  f"({r['device_only_ms']:.3f} device-only)", flush=True)
+        if not worst <= K2_F32_TOL:
+            raise AssertionError(f"k2ab turn {i} ({tag}): K2's float32 form disagrees: {worst}")
+    if len(trees) == 1:
+        faster = max(totals["change"]) < min(totals["parent"])
+        print(f"[k2ab] change {totals['change']} ms against parent {totals['parent']} ms: "
+              f"{'faster in every turn' if faster else 'NOT faster in every turn'}", flush=True)
+
+
 def k4_operands(device, x_shape, w_shape, seed: int = 0):
     """Seeded int8 activations (codes in [-127, 127]) and a float kernel quantized and
     packed for K4, on the card."""
@@ -1493,11 +1710,12 @@ def main() -> int:
     import torch
 
     probes = {"k1": k1, "k2": k2, "k3": k3, "k4": k4, "k4class": k4class, "gain": gain, "mgfn": mgfn,
-              "int8ab": int8ab, "int8step": int8_step_turn, "k3ab": k3ab, "k3turn": k3_turn}
+              "int8ab": int8ab, "int8step": int8_step_turn, "k3ab": k3ab, "k3turn": k3_turn,
+              "k2ab": k2ab, "k2turn": k2_turn}
     takes_arg = ("int8ab", "int8step", "k3turn")
     n_args = len(sys.argv) - 2
     if (len(sys.argv) < 2 or sys.argv[1] not in probes
-            or (n_args < 1 if sys.argv[1] == "k3ab" else n_args != (sys.argv[1] in takes_arg))):
+            or (n_args < 1 if sys.argv[1] in ("k3ab", "k2ab") else n_args != (sys.argv[1] in takes_arg))):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():

@@ -50,8 +50,9 @@
 // - Epilogue straight from the accumulators: bias, ReLU, the outside-image mask and
 //   bf16 rounding, written as bf16x2 to the conv1 tile (conv1) or to device memory
 //   (conv2). No f32 scratch tile.
-// f32 keeps the first port's design on CUDA-core FMAs (a 4 x 8 tile, staged
-// synchronously): it serves only the f32 checks and paths.
+// f32 (the float32 paths: the default visualization, the parity dry run's fa forwards)
+// has its own design below: two passes of a register-blocked implicit GEMM on
+// CUDA-core FMAs, bound by the FMA rate, with a float32 conv1 scratch in device memory.
 //
 // Left to a later change: wgmma from shared memory with TMA-fed, mbarrier-paced
 // multi-stage pipelines, and a cluster of blocks sharing each weight chunk by TMA
@@ -66,7 +67,6 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 256;  // the f32 kernel's block
 constexpr int kErrTooWide = -2;  // no tile class fits this Cmid in shared memory
 
 __host__ __device__ constexpr int ceil_div(int a, int b) { return (a + b - 1) / b; }
@@ -384,182 +384,223 @@ double_conv_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w1,
 }
 
 // ---------------------------------------------------------------------------------
-// f32: CUDA-core FMAs over a 4 x 8 tile, staged synchronously. The haloed patch is
-// staged with a row pitch of TW+4 pixels and conv1's rows use the same pitch, so tap
-// (dy, dx) is the A matrix dy*(TW+4) + dx rows further on; the two extra columns per
-// row are computed and dropped. conv2 does the same over the conv1 tile (pitch TW+2).
+// f32: two passes of one implicit-GEMM conv3x3 + bias + ReLU on CUDA-core FMAs
+// (products and sums in float32, no TF32). Pass 1 writes relu(conv3x3(x, w1) + b1) to
+// a float32 scratch in device memory, pass 2 reads it as its input. The scratch's round
+// trip is 8 * Cmid bytes a pixel against 18 * Cmid * (Cin + Cout) FLOP, so it costs
+// about 3% of the operations bound, where a fused float32 tile (2 KB a pixel of conv1
+// at Cmid 512) would be ~8x8 outputs and recompute half of conv1 again for its halo.
+//
+// One pass: out[m][o] = relu(b[o] + sum_k A[m][k] * B[k][o]) over
+//   M = N * H * W pixels, flattened over frames, so that small frames fill the tiles;
+//   N = the output channels;
+//   K = 9 * Cin ordered (chunk of BK channels, tap): a stage holds one tap of one chunk,
+//     so the 9 taps of a chunk re-read the same pixel lines from L1. A[m][k] is the
+//     input pixel at tap (dy, dx) of pixel m, zero outside m's own frame (each pixel's
+//     frame, row and column are known, so no tap reaches into a neighbouring frame),
+//     past M and past Cin; B[k][o] = w[tap][c][o], which is row tap * Cin + c of the
+//     HWIO weights seen as a (9 * Cin, Cout) matrix. Where Cin % 4 != 0 (inc's Cin 3),
+//     K runs over that matrix's rows in order, 4-byte copies, so 27 rows fill 2 stages.
+// What bounds it: the FMA pipes (128 float32 FMAs per SM per cycle, 67 TFLOP/s on an
+// H100 SXM), where shared memory, the copies and the barriers keep up with them. So:
+// - Register blocking: 128 threads (4 warps), each with an 8 x 8 output tile (64
+//   accumulators) of a BM x BN block tile. Per 4 k a thread reads its 8 B columns as
+//   two 16-byte vectors per k, then each of its 8 A rows as one 16-byte vector of the
+//   4 k: 16 shared loads feed 256 FMAs. Its rows are tm + (BM / 8) i and its columns
+//   tn * 4 + j and BN / 2 + tn * 4 + j, so that a quarter-warp reads one A row (a
+//   broadcast) and 128 contiguous bytes of one B row, and A's rows are padded to 20
+//   floats, so the quarter-warps' four rows fall in distinct banks.
+// - Three blocks an SM (168 registers a thread, no spill on sm_90a): one block's
+//   barrier and ring refill overlap the others' FMAs. One block of 256 threads an SM
+//   took 1.13x as long, two of 256 threads at 128 registers spilled (PERF.md §6).
+// - A 3-stage cp.async ring with src-size 0 zero-fill for every masked element, one
+//   __syncthreads per stage: two stages are in flight while the third feeds the FMAs.
+// - Weights are read once per BM-pixel tile (not once per 32 outputs), 36 * Cin * BN
+//   bytes a block from L2; neighbouring blocks along M share them.
+// - Epilogue from the registers: bias, ReLU, 16-byte stores (4-byte where Cout % 4 != 0),
+//   ragged M and N masked.
+// Two block tiles: 64 x 128, and 128 x 64 where Cout <= 64 so no half-empty N tile is
+// computed (inc, up4 and up3's conv2 at the full and half frame). Mirrored by
+// ops/doubleconv.py:k2_f32_plan.
 
 namespace f32 {
 
-constexpr int TH = 4, TW = 8, KC = 16, NC = 64;
-constexpr int P1 = TW + 4;                    // patch pitch = conv1 row pitch
-constexpr int M1 = (TH + 2) * P1;             // conv1 GEMM rows (halo tile)
-constexpr int M1P = round16(M1);
-constexpr int PATCH = (TH + 4) * P1;          // real patch rows
-constexpr int PATCH_ROWS = M1P + 2 * P1 + 2;  // rows conv1 reads
-constexpr int P2 = TW + 2;                    // conv1-tile pitch = conv2 row pitch
-constexpr int M2 = TH * P2;                   // conv2 GEMM rows
-constexpr int M2P = round16(M2);
-constexpr int MID = (TH + 2) * P2;            // real conv1-tile rows
-constexpr int MID_ROWS = M2P + 2 * P2 + 2;    // rows conv2 reads
-constexpr int LDX = KC + 8, LDW = NC + 8;
-static_assert(PATCH <= PATCH_ROWS && MID <= MID_ROWS, "tile geometry");
+constexpr int BK = 16;     // k rows per stage
+constexpr int STAGES = 3;  // the cp.async ring
+constexpr int THREADS = 128;
+constexpr int MIN_BLOCKS = 3;  // blocks an SM that __launch_bounds__ holds registers to
+constexpr int LDA = BK + 4;  // A rows in shared memory, padded (see above)
 
-__host__ __device__ int mid_ld(int cmid) { return round16(cmid) + 8; }
-__host__ __device__ size_t mid_bytes(int cmid) {
-  return align128(static_cast<size_t>(MID_ROWS) * mid_ld(cmid) * 4);
-}
-constexpr size_t kXsBytes = align128(static_cast<size_t>(PATCH_ROWS) * LDX * 4);
-constexpr size_t kWsBytes = static_cast<size_t>(9) * KC * LDW * 4;
-
-// xs[r][k] = x[y0 - 2 + r / P1][x0 - 2 + r % P1][c0 + k], zero outside the image,
-// past Cin and on the rows after the real patch.
-__device__ void stage_patch(float* xs, const float* __restrict__ xf, int y0, int x0, int c0,
-                            int h, int w, int cin) {
-  if (cin % 4 == 0) {
-    constexpr int KV = KC / 4;
-    for (int i = threadIdx.x; i < PATCH_ROWS * KV; i += kThreads) {
-      const int r = i / KV, kv = i - r * KV;
-      const int gy = y0 - 2 + r / P1, gx = x0 - 2 + r % P1, c = c0 + kv * 4;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (r < PATCH && gy >= 0 && gy < h && gx >= 0 && gx < w && c < cin)
-        v = __ldg(reinterpret_cast<const float4*>(xf + (static_cast<size_t>(gy) * w + gx) * cin + c));
-      *reinterpret_cast<float4*>(xs + r * LDX + kv * 4) = v;
-    }
-    return;
-  }
-  for (int i = threadIdx.x; i < PATCH_ROWS * KC; i += kThreads) {
-    const int r = i / KC, k = i - r * KC;
-    const int gy = y0 - 2 + r / P1, gx = x0 - 2 + r % P1, c = c0 + k;
-    xs[r * LDX + k] = r < PATCH && gy >= 0 && gy < h && gx >= 0 && gx < w && c < cin
-                          ? xf[(static_cast<size_t>(gy) * w + gx) * cin + c]
-                          : 0.f;
-  }
-}
-
-// ws[tap][k][j] = wg[tap][c0 + k][n0 + j], zero past ci / co.
-__device__ void stage_weights(float* ws, const float* __restrict__ wg, int c0, int n0, int ci,
-                              int co) {
-  if (co % 4 == 0) {
-    constexpr int NV = NC / 4;
-    for (int i = threadIdx.x; i < 9 * KC * NV; i += kThreads) {
-      const int row = i / NV, nv = i - row * NV;  // row = tap * KC + k
-      const int tap = row / KC, c = c0 + row - tap * KC, o = n0 + nv * 4;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (c < ci && o < co)
-        v = __ldg(reinterpret_cast<const float4*>(wg + (static_cast<size_t>(tap) * ci + c) * co + o));
-      *reinterpret_cast<float4*>(ws + row * LDW + nv * 4) = v;
-    }
-    return;
-  }
-  for (int i = threadIdx.x; i < 9 * KC * NC; i += kThreads) {
-    const int row = i / NC, j = i - row * NC;
-    const int tap = row / KC, c = c0 + row - tap * KC, o = n0 + j;
-    ws[row * LDW + j] = c < ci && o < co ? wg[(static_cast<size_t>(tap) * ci + c) * co + o] : 0.f;
-  }
-}
-
-// Thread t owns column t % NC and rows t / NC + 4 r of an (M x NC) chunk.
-template <int M>
-struct Acc {
-  static constexpr int kRowGroups = kThreads / NC;
-  static constexpr int R = M / kRowGroups;
-  static_assert(M % kRowGroups == 0, "rows per thread");
-  float c[R];
-
-  __device__ void zero() {
-#pragma unroll
-    for (int r = 0; r < R; ++r) c[r] = 0.f;
-  }
-
-  __device__ void mma(const float* a, int lda, const float* b, int ldb, int kc) {
-    const int j = threadIdx.x % NC, m0 = threadIdx.x / NC;
-    for (int k = 0; k < kc; ++k) {
-      const float wv = b[k * ldb + j];
-#pragma unroll
-      for (int r = 0; r < R; ++r) c[r] = fmaf(a[(m0 + kRowGroups * r) * lda + k], wv, c[r]);
-    }
-  }
-
-  template <class F>
-  __device__ void each(int m_real, int ncw, F&& visit) {
-    const int j = threadIdx.x % NC, m0 = threadIdx.x / NC;
-    if (j >= ncw) return;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int m = m0 + kRowGroups * r;
-      if (m < m_real) visit(m, j, c[r]);
-    }
-  }
+template <int BM_, int BN_>
+struct Tile {
+  static constexpr int BM = BM_, BN = BN_;
+  static constexpr int TM = BM / 8, TN = BN / 8;  // threads along M and N
+  static constexpr int WN = TN / 8;               // warps along N (a warp: 4 x 8 threads)
+  static constexpr int A_FLOATS = BM * LDA, B_FLOATS = BK * BN;
+  static constexpr int STAGE_FLOATS = A_FLOATS + B_FLOATS;
+  static constexpr int SMEM_BYTES = STAGES * STAGE_FLOATS * 4;
+  static constexpr int A_ROWS = BM * (BK / 4) / THREADS;  // 16-byte A copies a thread
+  static_assert(TM * TN == THREADS && TN % 8 == 0, "8 x 8 outputs a thread, 4 x 8 threads a warp");
+  static_assert(BM * (BK / 4) % THREADS == 0 && BK * BN / 4 % THREADS == 0, "copies a thread");
 };
 
-__global__ void __launch_bounds__(kThreads)
-double_conv(const float* __restrict__ x, const float* __restrict__ w1,
-            const float* __restrict__ b1, const float* __restrict__ w2,
-            const float* __restrict__ b2, float* __restrict__ out, int h, int w, int cin,
-            int cmid, int cout, int tiles_x) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ldm = mid_ld(cmid);
-  float* mid = reinterpret_cast<float*>(smem);  // conv1 result, (MID_ROWS, ldm)
-  unsigned char* stage = smem + mid_bytes(cmid);
-  float* xs = reinterpret_cast<float*>(stage);             // (PATCH_ROWS, LDX)
-  float* ws = reinterpret_cast<float*>(stage + kXsBytes);  // (9 * KC, LDW)
+// Mirrored by ops/doubleconv.py:_K2_F32_TILES.
+using TileWide = Tile<64, 128>;    // Cout > 64
+using TileNarrow = Tile<128, 64>;  // Cout <= 64
 
-  const int frame = blockIdx.y;
-  const int y0 = (blockIdx.x / tiles_x) * TH;
-  const int x0 = (blockIdx.x % tiles_x) * TW;
-  const int cin_p = round16(cin), cmid_p = round16(cmid), cout_p = round16(cout);
-  const float* xf = x + static_cast<size_t>(frame) * h * w * cin;
+__device__ __forceinline__ void cp_async_ca(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2) : "memory");
+}
 
-  // Rows past the conv1 tile feed only conv2's dropped rows; keep them finite.
-  for (int i = threadIdx.x; i < (MID_ROWS - MID) * ldm; i += kThreads) mid[MID * ldm + i] = 0.f;
+// out = relu(conv3x3(x, w) + b) for x (M pixels of H x W frames, Cin), w (3, 3, Cin,
+// Cout), out (M, Cout), all float32.
+template <class T>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+conv3x3(const float* __restrict__ x, const float* __restrict__ w, const float* __restrict__ b,
+        float* __restrict__ out, int m_total, int h, int wd, int cin, int cout) {
+  extern __shared__ __align__(128) float ring[];
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.x * T::BM, n0 = blockIdx.y * T::BN;
+  const int hw = h * wd;
+  const bool vec_a = cin % 4 == 0, vec_b = cout % 4 == 0;
+  const int k_stages = vec_a ? 9 * ceil_div(cin, BK) : ceil_div(9 * cin, BK);
 
-  // conv1 over the haloed tile -> mid, chunk by chunk of Cmid.
-  for (int n0 = 0; n0 < cmid_p; n0 += NC) {
-    const int ncw = min(NC, cmid_p - n0);
-    Acc<M1P> acc;
-    acc.zero();
-    for (int c0 = 0; c0 < cin_p; c0 += KC) {
-      const int kc = min(KC, cin_p - c0);
-      __syncthreads();  // the previous chunk's readers are done with xs/ws
-      stage_patch(xs, xf, y0, x0, c0, h, w, cin);
-      stage_weights(ws, w1, c0, n0, cin, cmid);
-      __syncthreads();
-      for (int tap = 0; tap < 9; ++tap) {
-        const int off = (tap / 3) * P1 + tap % 3;
-        acc.mma(xs + off * LDX, LDX, ws + tap * KC * LDW, LDW, kc);
-      }
-    }
-    acc.each(M1, ncw, [&](int m, int j, float v) {
-      const int i = m / P1, jj = m - i * P1;
-      if (jj >= TW + 2) return;  // a dropped pitch column
-      const int gy = y0 - 1 + i, gx = x0 - 1 + jj, c = n0 + j;
-      const bool inside = gy >= 0 && gy < h && gx >= 0 && gx < w && c < cmid;
-      mid[(i * P2 + jj) * ldm + c] = inside ? fmaxf(v + b1[c], 0.f) : 0.f;
-    });
+  // The pixels this thread copies on the 16-byte path, fixed over the stages: rows
+  // tid / 4 + (THREADS / 4) j of the tile, channels 4 (tid % 4) of the stage's chunk.
+  int a_pix[T::A_ROWS], a_yx[T::A_ROWS];
+#pragma unroll
+  for (int j = 0; j < T::A_ROWS; ++j) {
+    const int m = m0 + tid / (BK / 4) + j * (THREADS / (BK / 4));
+    const int r = m % hw;
+    a_pix[j] = m < m_total ? m : -1;
+    a_yx[j] = (r / wd) << 16 | (r % wd);
   }
 
-  // conv2 over mid -> out, chunk by chunk of Cout.
-  for (int n0 = 0; n0 < cout_p; n0 += NC) {
-    const int ncw = min(NC, cout_p - n0);
-    Acc<M2P> acc;
-    acc.zero();
-    for (int c0 = 0; c0 < cmid_p; c0 += KC) {
-      const int kc = min(KC, cmid_p - c0);
-      __syncthreads();  // mid is complete; the previous readers of ws are done
-      stage_weights(ws, w2, c0, n0, cmid, cout);
-      __syncthreads();
-      for (int tap = 0; tap < 9; ++tap) {
-        const int off = (tap / 3) * P2 + tap % 3;
-        acc.mma(mid + off * ldm + c0, ldm, ws + tap * KC * LDW, LDW, kc);
+  auto load = [&](int s) {
+    if (s >= k_stages) return;
+    float* as = ring + (s % STAGES) * T::STAGE_FLOATS;
+    float* bs = as + T::A_FLOATS;
+    if (vec_a) {
+      const int tap = s % 9, c0 = s / 9 * BK, dy = tap / 3 - 1, dx = tap % 3 - 1;
+      const int c = c0 + (tid % (BK / 4)) * 4;
+#pragma unroll
+      for (int j = 0; j < T::A_ROWS; ++j) {
+        const int y = (a_yx[j] >> 16) + dy, xx = (a_yx[j] & 0xffff) + dx;
+        const bool ok = a_pix[j] >= 0 && y >= 0 && y < h && xx >= 0 && xx < wd && c < cin;
+        const float* src = ok ? x + (static_cast<size_t>(a_pix[j] + dy * wd + dx) * cin + c) : x;
+        const int row = tid / (BK / 4) + j * (THREADS / (BK / 4));
+        cp_async_ca(smem_addr(as + row * LDA + (tid % (BK / 4)) * 4), src, ok);
+      }
+    } else {
+      // One k column a thread (tid % BK), rows tid / BK + (THREADS / BK) j.
+      const int k = s * BK + tid % BK, tap = k / cin, c = k - tap * cin;
+      const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+      for (int row = tid / BK; row < T::BM; row += THREADS / BK) {
+        const int m = m0 + row, r = m % hw, y = r / wd + dy, xx = r % wd + dx;
+        const bool ok = m < m_total && k < 9 * cin && y >= 0 && y < h && xx >= 0 && xx < wd;
+        const float* src = ok ? x + (static_cast<size_t>(m + dy * wd + dx) * cin + c) : x;
+        cp_async_4(smem_addr(as + row * LDA + tid % BK), src, ok);
       }
     }
-    acc.each(M2, ncw, [&](int m, int j, float v) {
-      const int i = m / P2, jj = m - i * P2;
-      const int gy = y0 + i, gx = x0 + jj, c = n0 + j;
-      if (jj < TW && gy < h && gx < w && c < cout)
-        out[((static_cast<size_t>(frame) * h + gy) * w + gx) * cout + c] = fmaxf(v + b2[c], 0.f);
-    });
+    // B: k rows of the (9 * Cin, Cout) weight matrix, BN columns from n0.
+    const int k_base = vec_a ? (s % 9) * cin + s / 9 * BK : s * BK;
+    const int k_end = vec_a ? (s % 9) * cin + cin : 9 * cin;
+    if (vec_b) {
+      for (int i = tid; i < BK * T::BN / 4; i += THREADS) {
+        const int kk = i / (T::BN / 4), col = (i % (T::BN / 4)) * 4;
+        const int k = k_base + kk, o = n0 + col;
+        const bool ok = k < k_end && o < cout;
+        const float* src = ok ? w + static_cast<size_t>(k) * cout + o : w;
+        cp_async_ca(smem_addr(bs + kk * T::BN + col), src, ok);
+      }
+    } else {
+      for (int i = tid; i < BK * T::BN; i += THREADS) {
+        const int kk = i / T::BN, col = i % T::BN;
+        const int k = k_base + kk, o = n0 + col;
+        const bool ok = k < k_end && o < cout;
+        const float* src = ok ? w + static_cast<size_t>(k) * cout + o : w;
+        cp_async_4(smem_addr(bs + kk * T::BN + col), src, ok);
+      }
+    }
+  };
+
+  const int warp = tid / 32, lane = tid % 32;
+  const int tm = (warp / T::WN) * 4 + lane / 8, tn = (warp % T::WN) * 8 + lane % 8;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    load(s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < k_stages; ++s) {
+    cp_async_wait_ring();  // stage s has landed (this thread's copies)
+    __syncthreads();       // everyone's copies, and every reader is done with stage s - 1
+    load(s + STAGES - 1);  // into the slot stage s - 1 used
+    cp_async_commit();
+    const float* as = ring + (s % STAGES) * T::STAGE_FLOATS;
+    const float* bs = as + T::A_FLOATS;
+#pragma unroll
+    for (int kq = 0; kq < BK / 4; ++kq) {
+      float bv[4][8];  // B[kq * 4 + kk][this thread's 8 columns]
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float* brow = bs + (kq * 4 + kk) * T::BN + tn * 4;
+        const float4 b0 = *reinterpret_cast<const float4*>(brow);
+        const float4 b1 = *reinterpret_cast<const float4*>(brow + T::BN / 2);
+        bv[kk][0] = b0.x, bv[kk][1] = b0.y, bv[kk][2] = b0.z, bv[kk][3] = b0.w;
+        bv[kk][4] = b1.x, bv[kk][5] = b1.y, bv[kk][6] = b1.z, bv[kk][7] = b1.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 a4 = *reinterpret_cast<const float4*>(as + (tm + T::TM * i) * LDA + kq * 4);
+        const float a[4] = {a4.x, a4.y, a4.z, a4.w};
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[kk], bv[kk][j], acc[i][j]);
+      }
+    }
+  }
+  cp_async_wait_all();
+
+  // Epilogue: bias, ReLU, masked stores.
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int o = n0 + half * (T::BN / 2) + tn * 4;
+    float bias[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bias[j] = o + j < cout ? b[o + j] : 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int m = m0 + tm + T::TM * i;
+      if (m >= m_total) continue;
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = fmaxf(acc[i][half * 4 + j] + bias[j], 0.f);
+      float* dst = out + static_cast<size_t>(m) * cout + o;
+      if (vec_b && o + 3 < cout) {
+        *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (o + j < cout) dst[j] = v[j];
+      }
+    }
   }
 }
 
@@ -595,28 +636,47 @@ int launch_bf16(const void* x, const void* w1, const float* b1, const void* w2, 
                        cmid, cout, tiles_x);
 }
 
+template <class T>
+int launch_f32_pass(const float* x, const float* w, const float* b, float* out, int n, int h,
+                    int wd, int cin, int cout, cudaStream_t stream) {
+  const int m_total = n * h * wd;
+  const dim3 grid(ceil_div(m_total, T::BM), ceil_div(cout, T::BN));
+  return launch_kernel(f32::conv3x3<T>, f32::THREADS, T::SMEM_BYTES, grid, stream, x, w, b, out,
+                       m_total, h, wd, cin, cout);
+}
+
+int launch_f32_conv(const float* x, const float* w, const float* b, float* out, int n, int h,
+                    int wd, int cin, int cout, cudaStream_t stream) {
+  if (cout <= 64)
+    return launch_f32_pass<f32::TileNarrow>(x, w, b, out, n, h, wd, cin, cout, stream);
+  return launch_f32_pass<f32::TileWide>(x, w, b, out, n, h, wd, cin, cout, stream);
+}
+
+// Pass 1 into the scratch `mid` (n, h, w, cmid), pass 2 from it into out.
 int launch_f32(const void* x, const void* w1, const float* b1, const void* w2, const float* b2,
-               void* out, int n, int h, int w, int cin, int cmid, int cout, cudaStream_t stream) {
-  const int tiles_x = ceil_div(w, f32::TW);
-  const dim3 grid(tiles_x * ceil_div(h, f32::TH), n);
-  const size_t smem = f32::mid_bytes(cmid) + f32::kXsBytes + f32::kWsBytes;
-  return launch_kernel(f32::double_conv, kThreads, smem, grid, stream, static_cast<const float*>(x),
-                       static_cast<const float*>(w1), b1, static_cast<const float*>(w2), b2,
-                       static_cast<float*>(out), h, w, cin, cmid, cout, tiles_x);
+               void* mid, void* out, int n, int h, int w, int cin, int cmid, int cout,
+               cudaStream_t stream) {
+  float* m = static_cast<float*>(mid);
+  const int err = launch_f32_conv(static_cast<const float*>(x), static_cast<const float*>(w1), b1, m,
+                                  n, h, w, cin, cmid, stream);
+  if (err != 0) return err;
+  return launch_f32_conv(m, static_cast<const float*>(w2), b2, static_cast<float*>(out), n, h, w,
+                         cmid, cout, stream);
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes). x (n, h, w, cin), w1 (3, 3, cin, cmid),
 // w2 (3, 3, cmid, cout) and out (n, h, w, cout) are contiguous bfloat16
-// (is_bf16 != 0) or float32; b1 (cmid,) and b2 (cout,) float32. Returns the
-// cudaError_t of the launch (0 on success), or -2 when no tile class fits the conv1
-// tile of this cmid in a block's shared memory.
+// (is_bf16 != 0) or float32; b1 (cmid,) and b2 (cout,) float32; mid, float32 only:
+// a scratch of n * h * w * cmid floats for the conv1 result (unused for bfloat16).
+// Returns the cudaError_t of the launch (0 on success), or -2 when no tile class fits
+// the bfloat16 conv1 tile of this cmid in a block's shared memory.
 extern "C" int ted_double_conv(const void* x, const void* w1, const float* b1, const void* w2,
-                               const float* b2, void* out, int is_bf16, int n, int h, int w,
-                               int cin, int cmid, int cout, void* stream) {
+                               const float* b2, void* mid, void* out, int is_bf16, int n, int h,
+                               int w, int cin, int cmid, int cout, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!is_bf16) return launch_f32(x, w1, b1, w2, b2, out, n, h, w, cin, cmid, cout, s);
+  if (!is_bf16) return launch_f32(x, w1, b1, w2, b2, mid, out, n, h, w, cin, cmid, cout, s);
   if (cmid <= 64) return launch_bf16<ClassA64>(x, w1, b1, w2, b2, out, n, h, w, cin, cmid, cout, s);
   if (cmid <= 128) return launch_bf16<ClassA>(x, w1, b1, w2, b2, out, n, h, w, cin, cmid, cout, s);
   if (cmid <= 256) return launch_bf16<ClassB>(x, w1, b1, w2, b2, out, n, h, w, cin, cmid, cout, s);

@@ -1,81 +1,115 @@
 """Host video decode and encode for the port (counterpart of
-ted_spad_tpu/data/video_reader.py): a ctypes binding of the native C++/FFmpeg layer in
-native/videodec/libvideodec.so -- RGB and planar YUV420 reads (the GIL is released
-during decode, so a Python thread pool decodes several videos at once) and the
-streaming mp4 encoder (``VideoWriter``, ``write_mp4``) --, ``write_y4m``, a pure numpy
-YUV4MPEG2 writer, and ``SyntheticVideoReader`` for procedural ``synthetic://`` videos
-that need no media files.
+ted_spad_tpu/data/video_reader.py): a ctypes binding of the port's C++/FFmpeg layer,
+csrc/videodec.cpp -- RGB and planar YUV420 reads (the GIL is released during decode,
+so a Python thread pool decodes several videos at once) and the streaming mp4 encoder
+(``VideoWriter``, ``write_mp4``) --, ``write_y4m``, a pure numpy YUV4MPEG2 writer, and
+``SyntheticVideoReader`` for procedural ``synthetic://`` videos that need no media
+files.
+
+The layer is built with g++ at first use into
+``build/ted_spad_tpu_torch/libvideodec-<hash>.so`` under the repository root, the hash
+covering the source and the flags, as utils/cuda_build.py keys the kernels. It is the
+JAX package's native/videodec with swscale's output staged at aligned line sizes, so
+native-size reads at widths that 16 does not divide are stable and right there (the
+JAX package's reads are not; at other widths and at scaled reads the bytes are its).
 """
 
 from __future__ import annotations
 
 import ctypes
 import fcntl
+import hashlib
 import os
 import subprocess
+import threading
+
 import numpy as np
 
-_LIB_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native", "videodec")
-_LIB_PATH = os.path.abspath(os.path.join(_LIB_DIR, "libvideodec.so"))
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SOURCE = os.path.join(_PKG_DIR, "csrc", "videodec.cpp")
+_LIB_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "ted_spad_tpu_torch")
+_CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
+_LIBS = ("-lavformat", "-lavcodec", "-lavutil", "-lswscale")
 _lib = None
 _lib_error: str | None = None
+_lib_lock = threading.Lock()
+
+
+def library_path() -> str:
+    """Where the layer of this source and these flags is built."""
+    with open(_SOURCE, "rb") as f:
+        digest = hashlib.sha1(f.read() + " ".join(_CXX_FLAGS + _LIBS).encode()).hexdigest()[:12]
+    return os.path.join(_LIB_DIR, f"libvideodec-{digest}.so")
+
+
+def build_library() -> str:
+    """Compile csrc/videodec.cpp with g++ unless its library exists, under an exclusive
+    file lock (decode pool threads and processes may race here), and return its path.
+    Raises ``RuntimeError`` with the compiler's output when the build fails."""
+    target = library_path()
+    os.makedirs(_LIB_DIR, exist_ok=True)
+    with open(os.path.join(_LIB_DIR, ".videodec.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(target):
+            tmp = f"{target}.{os.getpid()}.tmp"
+            try:
+                proc = subprocess.run(["g++", *_CXX_FLAGS, "-o", tmp, _SOURCE, *_LIBS],
+                                      capture_output=True, text=True)
+            except OSError as e:
+                raise RuntimeError(f"videodec build failed: {e}") from e
+            if proc.returncode != 0:
+                raise RuntimeError(f"videodec build failed (g++ exit {proc.returncode}):\n"
+                                   f"{proc.stdout}{proc.stderr}")
+            os.replace(tmp, target)
+    return target
 
 
 def _load_library():
     global _lib, _lib_error
-    if _lib is not None or _lib_error is not None:
-        return _lib
-    try:
-        # Always run make (a no-op when the .so is fresh), under an exclusive lock:
-        # decode pool threads may race here and make writes the .so non-atomically.
-        try:
-            with open(os.path.join(os.path.dirname(_LIB_PATH), ".build.lock"), "w") as lk:
-                fcntl.flock(lk, fcntl.LOCK_EX)
-                subprocess.run(
-                    ["make", "-C", os.path.dirname(_LIB_PATH)], check=True, capture_output=True
-                )
-        except (OSError, subprocess.CalledProcessError):
-            if not os.path.exists(_LIB_PATH):
-                raise  # nothing to load and no way to build it
-            # No build toolchain, but a prebuilt .so exists: load it as it is.
-        lib = ctypes.CDLL(_LIB_PATH)
-        lib.vd_open_opts.restype = ctypes.c_void_p
-        lib.vd_open_opts.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_int]
-        lib.vd_close.argtypes = [ctypes.c_void_p]
-        lib.vd_num_frames.restype = ctypes.c_int64
-        lib.vd_num_frames.argtypes = [ctypes.c_void_p]
-        lib.vd_fps.restype = ctypes.c_double
-        lib.vd_fps.argtypes = [ctypes.c_void_p]
-        lib.vd_width.restype = ctypes.c_int
-        lib.vd_width.argtypes = [ctypes.c_void_p]
-        lib.vd_height.restype = ctypes.c_int
-        lib.vd_height.argtypes = [ctypes.c_void_p]
-        lib.vd_read_indices.restype = ctypes.c_int64
-        lib.vd_read_indices.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64),
-                                        ctypes.c_int64, ctypes.POINTER(ctypes.c_uint8)]
-        lib.vd_read_strided.restype = ctypes.c_int64
-        lib.vd_read_strided.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                                        ctypes.c_int64, ctypes.POINTER(ctypes.c_uint8)]
-        lib.vd_last_error.restype = ctypes.c_char_p
-        for name in ("vd_native_width", "vd_native_height", "vd_full_range", "vd_colorspace"):
-            getattr(lib, name).restype = ctypes.c_int
-            getattr(lib, name).argtypes = [ctypes.c_void_p]
-        lib.vd_read_strided_yuv.restype = ctypes.c_int64
-        lib.vd_read_strided_yuv.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                                            ctypes.c_int64] + [ctypes.POINTER(ctypes.c_uint8)] * 3
-        lib.ve_open_cs.restype = ctypes.c_void_p
-        lib.ve_open_cs.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_double,
-                                   ctypes.c_char_p, ctypes.c_int]
-        lib.ve_write.restype = ctypes.c_int
-        lib.ve_write.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint8)]
-        lib.ve_close.restype = ctypes.c_int
-        lib.ve_close.argtypes = [ctypes.c_void_p]
-        _lib = lib
-    except (OSError, subprocess.CalledProcessError, AttributeError) as e:
-        _lib_error = str(e)
-        _lib = None
+    with _lib_lock:
+        if _lib is None and _lib_error is None:
+            try:
+                _lib = _bind(ctypes.CDLL(build_library()))
+            except (OSError, RuntimeError, AttributeError) as e:
+                _lib_error = str(e)
     return _lib
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the layer's C signatures on ``lib``."""
+    lib.vd_open_opts.restype = ctypes.c_void_p
+    lib.vd_open_opts.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_int]
+    lib.vd_close.argtypes = [ctypes.c_void_p]
+    lib.vd_num_frames.restype = ctypes.c_int64
+    lib.vd_num_frames.argtypes = [ctypes.c_void_p]
+    lib.vd_fps.restype = ctypes.c_double
+    lib.vd_fps.argtypes = [ctypes.c_void_p]
+    lib.vd_width.restype = ctypes.c_int
+    lib.vd_width.argtypes = [ctypes.c_void_p]
+    lib.vd_height.restype = ctypes.c_int
+    lib.vd_height.argtypes = [ctypes.c_void_p]
+    lib.vd_read_indices.restype = ctypes.c_int64
+    lib.vd_read_indices.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64),
+                                    ctypes.c_int64, ctypes.POINTER(ctypes.c_uint8)]
+    lib.vd_read_strided.restype = ctypes.c_int64
+    lib.vd_read_strided.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                                    ctypes.c_int64, ctypes.POINTER(ctypes.c_uint8)]
+    lib.vd_last_error.restype = ctypes.c_char_p
+    for name in ("vd_native_width", "vd_native_height", "vd_full_range", "vd_colorspace"):
+        getattr(lib, name).restype = ctypes.c_int
+        getattr(lib, name).argtypes = [ctypes.c_void_p]
+    lib.vd_read_strided_yuv.restype = ctypes.c_int64
+    lib.vd_read_strided_yuv.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                                        ctypes.c_int64] + [ctypes.POINTER(ctypes.c_uint8)] * 3
+    lib.ve_open_cs.restype = ctypes.c_void_p
+    lib.ve_open_cs.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_double,
+                               ctypes.c_char_p, ctypes.c_int]
+    lib.ve_write.restype = ctypes.c_int
+    lib.ve_write.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint8)]
+    lib.ve_close.restype = ctypes.c_int
+    lib.ve_close.argtypes = [ctypes.c_void_p]
+    return lib
 
 
 def native_available() -> bool:

@@ -10,10 +10,13 @@ Layouts are the JAX package's: x (N, H, W, Cin), weights (3, 3, I, O), biases f3
   the same again for conv2 with the result in the input dtype.
 - ``fused_double_conv``: the kernel wrapper (K2, csrc/doubleconv.cu). On a CUDA
   tensor it launches the hand-written kernel; on a CPU tensor it runs the plain
-  version. Its ``launches`` attribute counts kernel launches. K2 has no backward:
-  on the card it refuses (``refuse_grad``) inputs that ask for a gradient.
-- ``k2_tile_plan``: the kernel's tile class and shared memory for a shape, computed
-  as the kernel lays them out; raises ``ValueError`` where no class fits.
+  version. Its ``launches`` attribute counts one per DoubleConv it runs on the card
+  (the float32 form's two kernel launches included). K2 has no backward: on the card
+  it refuses (``refuse_grad``) inputs that ask for a gradient.
+- ``k2_tile_plan``: the bf16 kernel's tile class and shared memory for a shape,
+  computed as the kernel lays them out; raises ``ValueError`` where no class fits.
+- ``k2_f32_plan``: the float32 form's two passes (block tile, ring, shared memory,
+  grid) and its conv1 scratch, likewise.
 """
 
 from __future__ import annotations
@@ -63,6 +66,55 @@ _K2_CLASSES = (
 )
 
 
+# The float32 form's implicit GEMM (csrc/doubleconv.cu, namespace f32): k rows per stage,
+# ring stages, threads a block, blocks an SM, A rows padded to BK + 4 floats; block
+# tiles (BM, BN) by Cout: the narrow one up to _K2_F32_NARROW_COUT, the wide one above.
+_K2_F32_BK, _K2_F32_STAGES, _K2_F32_THREADS, _K2_F32_MIN_BLOCKS = 16, 3, 128, 3
+_K2_F32_TILES = {"wide": (64, 128), "narrow": (128, 64)}
+_K2_F32_NARROW_COUT = 64
+
+
+class K2F32Pass(NamedTuple):
+    cin: int
+    cout: int
+    tile: str  # "BMxBN": pixels x output channels of a block
+    stages: int  # of the cp.async ring
+    threads: int  # of a block
+    smem_bytes: int  # dynamic shared memory of one block
+    grid: tuple[int, int]  # (pixel tiles, output-channel tiles)
+    k_stages: int  # stages of BK k rows over K = 9 * Cin
+    copy_bytes: int  # of each cp.async of x: 16 where Cin % 4 == 0, else 4
+
+
+class K2F32Plan(NamedTuple):
+    passes: tuple[K2F32Pass, K2F32Pass]  # x -> scratch (Cin -> Cmid), scratch -> out
+    scratch_bytes: int  # the float32 conv1 result, N * H * W * Cmid * 4
+
+
+def k2_f32_pass(m: int, cin: int, cout: int) -> K2F32Pass:
+    """One pass of the float32 form over ``m`` pixels, Cin -> Cout, as the kernel lays
+    it out."""
+    bm, bn = _K2_F32_TILES["narrow" if cout <= _K2_F32_NARROW_COUT else "wide"]
+    bk = _K2_F32_BK
+    smem = _K2_F32_STAGES * (bm * (bk + 4) + bk * bn) * 4
+    k_stages = 9 * _cdiv(cin, bk) if cin % 4 == 0 else _cdiv(9 * cin, bk)
+    return K2F32Pass(cin, cout, f"{bm}x{bn}", _K2_F32_STAGES, _K2_F32_THREADS, smem,
+                     (_cdiv(m, bm), _cdiv(cout, bn)), k_stages, 16 if cin % 4 == 0 else 4)
+
+
+def k2_f32_plan(n: int, h: int, w: int, cin: int, cmid: int, cout: int) -> K2F32Plan:
+    """The float32 K2's two passes and scratch for N frames of (H, W) and Cin -> Cmid
+    -> Cout. Raises ValueError where the kernel's index arithmetic would not hold: it
+    keeps a pixel's row and column in 16 bits each and M = N * H * W in an int."""
+    if min(n, h, w, cin, cmid, cout) <= 0:
+        raise ValueError(f"k2_f32_plan: sizes must be positive, got {(n, h, w, cin, cmid, cout)}")
+    m = n * h * w
+    if h >= 2 ** 15 or w >= 2 ** 16 or m >= 2 ** 31:
+        raise ValueError(f"K2's float32 form takes H < 32768, W < 65536 and N*H*W < 2**31, "
+                         f"got {(n, h, w)}")
+    return K2F32Plan((k2_f32_pass(m, cin, cmid), k2_f32_pass(m, cmid, cout)), m * cmid * 4)
+
+
 class K2Plan(NamedTuple):
     tile_class: str  # "THxTW" outputs per block
     smem_bytes: int  # dynamic shared memory of one block
@@ -110,7 +162,7 @@ def _library():
     fn = load("doubleconv").ted_double_conv
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.restype = i
-    fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+    fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
     return fn
 
 
@@ -160,7 +212,9 @@ def fused_double_conv(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     Returns (N, H, W, Cout) in x.dtype, contiguous. On CUDA this launches kernel K2
     on the current stream, and raises ``RuntimeError`` under grad mode when an input
     requires grad (``refuse_grad``); on the CPU it runs ``double_conv_reference``,
-    which is differentiable.
+    which is differentiable. The float32 form is two kernel launches, conv1 into a
+    float32 scratch of N*H*W*Cmid (``k2_f32_plan``) and conv2 from it; ``launches``
+    counts the call once, as for bf16's one launch.
     """
     _check(x, w1, b1, w2, b2)
     if x.device.type == "cpu":
@@ -170,20 +224,26 @@ def fused_double_conv(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     refuse_grad(x, w1, b1, w2, b2)
     n, h, w, cin = x.shape
     cmid, cout = w1.shape[-1], w2.shape[-1]
-    if not 0 < n <= 65535 or h * w == 0:
-        raise ValueError(f"fused_double_conv launches one grid row per frame, 1 to 65535 "
-                         f"frames of a non-empty image; got x {tuple(x.shape)}")
+    bf16 = x.dtype == torch.bfloat16
+    if n <= 0 or h * w == 0 or (bf16 and n > 65535):
+        raise ValueError(f"fused_double_conv takes 1 to 65535 frames of a non-empty image in "
+                         f"bfloat16 (one grid row per frame), any count in float32; got x "
+                         f"{tuple(x.shape)} {x.dtype}")
     if any(t.data_ptr() % 16 for t in (x, w1, w2)):
         raise ValueError("fused_double_conv: x, w1 and w2 must start on a 16-byte boundary "
                          "(the kernel reads them 16 bytes at a time)")
-    if x.dtype == torch.bfloat16:
+    if bf16:
         k2_tile_plan(h, w, cin, cmid, cout)  # raises where no tile class fits
+        mid = None
+    else:
+        k2_f32_plan(n, h, w, cin, cmid, cout)  # raises where the index arithmetic would not hold
+        mid = torch.empty((n, h, w, cmid), dtype=torch.float32, device=x.device)
     out = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = _library()(
             x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            out.data_ptr(), int(x.dtype == torch.bfloat16), n, h, w, cin, cmid, cout,
-            torch.cuda.current_stream().cuda_stream,
+            None if mid is None else mid.data_ptr(), out.data_ptr(), int(bf16), n, h, w, cin,
+            cmid, cout, torch.cuda.current_stream().cuda_stream,
         )
     if err == _ERR_TOO_WIDE:
         raise ValueError(f"fused_double_conv: the conv1 tile of Cmid={cmid} in {x.dtype} does "

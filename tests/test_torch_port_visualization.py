@@ -76,9 +76,9 @@ def test_mp4_written_by_one_package_decodes_in_the_other(tmp_path, colorspace):
     same bytes, each decoded by the other package's reader gives the frames the other
     package's file gives, and those stay near the input (H.264 is lossy). The frames
     are 48x64 plus one odd row and column, which both writers crop. (A width that 16
-    does not divide is not decoded here: the shared native decoder reads such a stream
-    nondeterministically, and corrupts the heap at 72, in either package; ROADMAP.md
-    Queue 3.)"""
+    does not divide is not decoded here: the JAX package's decoder reads such a stream
+    nondeterministically, and corrupts the heap at 72. The port's own decoder reads it
+    right; test_torch_port_videodec.py holds that.)"""
     frames = _frames(6, 49, 65, seed=2)
     ours = vr.write_mp4(str(tmp_path / "p.mp4"), frames, fps=25, colorspace=colorspace)
     theirs = jax_vr.write_mp4(str(tmp_path / "j.mp4"), frames, fps=25, colorspace=colorspace)
