@@ -27,11 +27,20 @@ Phases, each fatal on failure:
      extract_features (K1 preprocess -> UNet++ fa -> I3Res50 ft, bf16) -> .npy -> UCF
      MGFN scores -> frame timeline, with the kernels' launch counts read from that
      run (K2: none);
-  5. fidelity: the first batch again through the f32 plain path with TF32 off;
+  5. fidelity: the first batch again through the f32 plain path with TF32 off (plain
+     preprocess, the fa and ft module forwards, not the fast forms the bf16 step runs);
      every clip's feature cosine to it must reach FIDELITY_COS_MIN and the batch's
      error, against the spread between its clips, stay within FIDELITY_SPREAD_MAX,
      which two controls (a wrong preprocess with R and B swapped, another clip's
-     features) must exceed, so the limit is shown to tell them apart;
+     features) must exceed, so the limit is shown to tell them apart (every later
+     feature gate against an f32 plain path runs the module forwards likewise);
+  5b. the eval fast forms (ops/fast_unetpp.py, ops/fast_i3d.py): one serving batch
+     through the step, which must launch K1 once and run the fused UNet++ with its s2d
+     head and the I3Res50's s2d stem once each (a fallback to a module fails it), timed
+     and profiled beside the same step with the module forms; the s2d stem against the
+     module's stem ConvBN at the serving batch (error over the between-clip spread
+     <= STEM_SPREAD_MAX, max |d| <= STEM_MAX_REL of max |module|; the previous clip's
+     output the control);
   6. the same for the plain-UNet path (arch_fa="unet": K1 -> UNet whose nine
      DoubleConvs are K2 -> I3Res50 -> .npy -> MGFN), with K1 launched once and K2
      nine times per batch, and a second fidelity gate on the fa output itself;
@@ -102,8 +111,9 @@ Phases, each fatal on failure:
      epoch each, their checkpoints reloaded bit-equal, the adversarial fa and ft served
      through the extraction step and its fb loaded as the SSL fb;
  14. the visualization stage (anonymize_video at its defaults, float32, chunks of 32) on a
-     96-frame 240x320 synthetic video: the UNet++ fa (no kernel; its first frames held
-     against the CPU's float32 stage within 1 level) and the plain UNet, whose nine
+     96-frame 240x320 synthetic video: the UNet++ fa (no kernel; its fused form's first
+     frames held against the CPU's float32 stage through the module forward within 1
+     level) and the plain UNet, whose nine
      DoubleConvs run K2's float32 form (27 launches; frames held against the same stage
      through the plain DoubleConv within 1 level and a share of 1e-3), then in bf16 (K2's
      bf16 form, 27 launches, held to the fa-fidelity limit against the float32 plain
@@ -173,6 +183,12 @@ FEATURE_DIM = 2048  # I3Res50 pooled feature
 # error over the batch, measured against the spread between its clips, can.
 FIDELITY_COS_MIN = 0.99
 FIDELITY_SPREAD_MAX = 0.5
+
+# The s2d I3Res50 stem (BN folded into bf16 weights) against the module's stem ConvBN
+# on the same bf16 clips: both accumulate in float32 and round to bf16 once, the folded
+# weights round differently; 2**-6 of the largest value is one to two bf16 ulps there.
+STEM_SPREAD_MAX = 0.01
+STEM_MAX_REL = 2.0 ** -6
 
 K2_CHECK_FRAMES = 2
 K2_TIMED_FRAMES = 256  # one 16-clip batch of 16 frames: one launch per DoubleConv
@@ -592,10 +608,87 @@ def serving_path(device, workdir: str) -> dict:
     fa32 = load_fa_model(seed=0, dtype="float32", device=device)
     ft32 = load_ft_model(seed=0, dtype="float32", device=device)
     ref_step = make_extract_step(ft32, p.replace(compute_dtype="float32"), fa32,
-                                 use_kernel=False, device=device)
+                                 use_kernel=False, device=device, fast_forms=False)
     got = step(batch).double()
     ref = ref_step(batch).double()
     feature_gate(got, ref, step(batch.flip(-1).contiguous()).double(), "[fidelity]")
+    return launches
+
+
+def fast_forms_phase(device, card: str) -> dict:
+    """Phase 5b: the eval fast forms on the serving step. One 16-clip batch through
+    make_extract_step with the fast forms (the fused UNet++ whose s2d head feeds the
+    I3Res50's s2d stem), read for its launches (K1 once) and for the fast forms it ran
+    (the fused UNet++ once with emit_s2d, the s2d stem once: a fallback to the module
+    fails the phase), timed and profiled beside the same step with the module forms;
+    then the s2d stem against the module's stem ConvBN at the serving batch, with the
+    previous clip's stem output as the control. Returns the launches."""
+    import torch
+
+    from ted_spad_tpu_torch.chip_probes import time_ms
+    from ted_spad_tpu_torch.config.params import FeatureExtractionParams
+    from ted_spad_tpu_torch.models import load_fa_model, load_ft_model
+    from ted_spad_tpu_torch.ops import fast_i3d, fast_unetpp
+    from ted_spad_tpu_torch.ops.preprocess import fused_preprocess
+    from ted_spad_tpu_torch.stages.feature_extraction import make_extract_step
+
+    t0 = time.perf_counter()
+    p = FeatureExtractionParams(batch_size=16)
+    uris = [f"synthetic://n={SERVING_FRAMES},h=240,w=320,seed={i}" for i in range(2)]
+    batch = first_batch(uris, p, device)
+    fa, ft = load_fa_model(seed=0, device=device), load_ft_model(seed=0, device=device)
+    step = make_extract_step(ft, p, fa, device=device)
+    ran = {"fused UNet++ emit_s2d": 0, "s2d stem": 0}
+    real_fa, real_stem = fast_unetpp.fast_unetpp_apply, fast_i3d.s2d_stem
+
+    def fa_spy(*a, **k):
+        ran["fused UNet++ emit_s2d"] += bool(k.get("emit_s2d"))
+        return real_fa(*a, **k)
+
+    def stem_spy(*a, **k):
+        ran["s2d stem"] += 1
+        return real_stem(*a, **k)
+
+    fast_unetpp.fast_unetpp_apply, fast_i3d.s2d_stem = fa_spy, stem_spy
+    try:
+        zero_launch_counts()
+        feats = step(batch)
+        torch.cuda.synchronize(device)
+        launches = launch_counts()
+    finally:
+        fast_unetpp.fast_unetpp_apply, fast_i3d.s2d_stem = real_fa, real_stem
+    log(f"[fast] one {p.batch_size}-clip step with the fast forms: kernel launches "
+        f"{json.dumps(launches)}, fast forms run {json.dumps(ran)}, features {tuple(feats.shape)}")
+    if launches != expected(K1=1) or ran != {"fused UNet++ emit_s2d": 1, "s2d stem": 1}:
+        raise AssertionError(f"[fast] the step did not run K1 once and both fast forms: {launches}, {ran}")
+    if not bool(torch.isfinite(feats).all()):
+        raise AssertionError("[fast] non-finite features")
+    module = make_extract_step(ft, p, fa, device=device, fast_forms=False)
+    fast_ms = time_ms(lambda: step(batch), reps=5, inner=2)
+    module_ms = time_ms(lambda: module(batch), reps=5, inner=2)
+    log(f"[fast] extract step {fast_ms:.3f} ms with the fast forms = {p.batch_size / fast_ms * 1e3:.2f} "
+        f"clips/s; {module_ms:.3f} ms with the module forms ({module_ms / fast_ms:.3f}x) | {card}")
+    profile_step(lambda: step(batch), steps=3)
+
+    # The s2d stem against the module's stem ConvBN on this batch's preprocessed clips.
+    with torch.inference_mode():
+        img = fused_preprocess(batch, out_dtype=torch.bfloat16)  # (B, T, 224, 224, 3)
+        clips = img.permute(0, 4, 1, 2, 3)
+        ref = ft.i3d.stem(clips).double()
+        got = fast_i3d.s2d_stem(ft.i3d.stem, fast_i3d.space_to_depth_2x2(clips, channel_dim=1),
+                                torch.bfloat16).double()
+    spread = torch.linalg.norm(ref - ref.mean(0))
+    err = float(torch.linalg.norm(got - ref) / spread)
+    control = float(torch.linalg.norm(got.roll(1, dims=0) - ref) / spread)
+    worst = float((got - ref).abs().max() / ref.abs().max())
+    log(f"[fast] s2d stem vs the module stem ConvBN, {tuple(clips.shape)} bf16: error / between-clip "
+        f"spread {err:.6f}, max |d| / max |module| {worst:.3e} (limits {STEM_SPREAD_MAX}, "
+        f"{STEM_MAX_REL:.3e}); control, the previous clip's: {control:.6f}")
+    if not (err <= STEM_SPREAD_MAX and worst <= STEM_MAX_REL):
+        raise AssertionError(f"[fast] the s2d stem disagrees with the module stem: {err}, {worst}")
+    if not control > STEM_SPREAD_MAX:
+        raise AssertionError(f"[fast] the stem gate does not reject its control: {control}")
+    log(f"[fast] phase time {time.perf_counter() - t0:.1f}s")
     return launches
 
 
@@ -714,7 +807,7 @@ def unet_path(device, workdir: str) -> dict:
     fa32 = unet("float32")
     ft32 = load_ft_model(seed=0, dtype="float32", device=device)
     ref_step = make_extract_step(ft32, p.replace(compute_dtype="float32"), fa32,
-                                 use_kernel=False, device=device)
+                                 use_kernel=False, device=device, fast_forms=False)
     got = step(batch).double()
     feature_gate(got, ref_step(batch).double(), step(batch.flip(-1).contiguous()).double(),
                  "[unet fidelity]")
@@ -1019,7 +1112,7 @@ def option_step(device, tag: str, p, fa, ft, fa32, ft32, batch, card: str,
     if profile:
         profile_step(lambda: step(batch), steps=2)
     ref_step = make_extract_step(ft32, p.replace(compute_dtype="float32"), fa32, use_kernel=False,
-                                 device=device)
+                                 device=device, fast_forms=False)
     feature_gate(got.double(), ref_step(batch).double(),
                  step(batch.flip(-1).contiguous()).double(), tag)
     return launches
@@ -1069,7 +1162,7 @@ def xd_path(device, workdir: str, fa, fa32, card: str) -> dict:
     profile_step(lambda: step(batch), steps=3)
     ft32 = load_ft_model("i3d", seed=0, dtype="float32", device=device)
     ref_step = make_extract_step(ft32, p.replace(compute_dtype="float32"), fa32, use_kernel=False,
-                                 device=device)
+                                 device=device, fast_forms=False)
     feature_gate(step(batch).double(), ref_step(batch).double(),
                  step(batch.flip(-1).contiguous()).double(), "[xd fidelity]")
     return launches
@@ -1261,7 +1354,8 @@ def yuv_path(device, workdir: str, fa, fa32, card: str) -> tuple[dict, dict]:
     profile_step(lambda: step(batch), steps=3)
     ft32 = load_ft_model(seed=0, dtype="float32", device=device)
     ref_step = fe.make_extract_step(ft32, p.replace(compute_dtype="float32"), fa32,
-                                    use_kernel=False, device=device, yuv=True, yuv_hw=(240, 320))
+                                    use_kernel=False, device=device, yuv=True, yuv_hw=(240, 320),
+                                    fast_forms=False)
 
     @contextlib.contextmanager
     def red_blue_swapped():  # the control: K3's output with its channels reversed
@@ -2304,8 +2398,9 @@ def visualization_phase(device, workdir: str, card: str) -> tuple[dict, dict]:
     launches["visualization unet++"] = upp["launches"]
     if upp["launches"] != expected():
         raise AssertionError(f"the UNet++ visualization launched a kernel: {upp['launches']}")
+    # The CPU's reference runs the module forward: the card's runs the fused UNet++.
     fa_cpu = load_fa_model(dtype="float32", device="cpu")
-    cpu_anon = make_anonymize_fn(fa_cpu)
+    cpu_anon = make_anonymize_fn(_ModuleForward(fa_cpu))
     to_u8 = lambda out: (out * 255.0 + 0.5).to(torch.uint8).cpu().numpy()  # noqa: E731
     cpu = to_u8(cpu_anon(frames_in[:2 * VIS_CPU_FRAMES]))
     gap = _level_gap(upp["frames"][:VIS_CPU_FRAMES], cpu[:VIS_CPU_FRAMES])
@@ -2313,7 +2408,8 @@ def visualization_phase(device, workdir: str, card: str) -> tuple[dict, dict]:
                 "R/B swapped": _level_gap(upp["frames"][:VIS_CPU_FRAMES],
                                           to_u8(cpu_anon(frames_in[:VIS_CPU_FRAMES, :, :, ::-1].copy())))}
     del fa_cpu
-    log(f"[vis] UNet++ frames 0-{VIS_CPU_FRAMES - 1}, card against the CPU's float32 stage: max |d| {gap[0]} "
+    log(f"[vis] UNet++ frames 0-{VIS_CPU_FRAMES - 1}, card (fused UNet++) against the CPU's float32 stage "
+        f"through the module forward: max |d| {gap[0]} "
         f"levels, {gap[1]:.2e} of values differ (limit {VIS_LEVEL_TOL} level); controls (max |d|, share): "
         f"{json.dumps(controls)}")
     if not gap[0] <= VIS_LEVEL_TOL:
@@ -2396,6 +2492,20 @@ def visualization_phase(device, workdir: str, card: str) -> tuple[dict, dict]:
     chunk["launches"] = unet["launches"]["K2 double_conv"]
     log(f"[vis] phase time {time.perf_counter() - t0:.1f}s")
     return chunk, launches
+
+
+class _ModuleForward:
+    """A fa whose eval calls run its module forward (``make_fast_fa_apply`` routes
+    anything but a UNet++ module there); for the visualization stage's ``fa``."""
+
+    def __init__(self, fa):
+        self.fa = fa
+
+    def parameters(self):
+        return self.fa.parameters()
+
+    def __call__(self, x):
+        return self.fa(x)
 
 
 class _PlainDoubleConvs:
@@ -3361,7 +3471,9 @@ def main() -> int:
     k2 = check_double_conv(device, k2_registers)
 
     with tempfile.TemporaryDirectory() as workdir:
-        launches = {"unet++": serving_path(device, workdir), "unet": unet_path(device, workdir)}
+        launches = {"unet++": serving_path(device, workdir)}
+        launches["fast forms"] = fast_forms_phase(device, card)
+        launches["unet"] = unet_path(device, workdir)
         serving_cli(workdir)
         features = sorted(os.path.join(workdir, "features", f)
                           for f in os.listdir(os.path.join(workdir, "features")) if f.endswith(".npy"))

@@ -10,6 +10,8 @@ numbers PERF.md quotes from them can be taken again:
     python -m ted_spad_tpu_torch.chip_probes k4     # kernel K4 (int8 conv) alone
     python -m ted_spad_tpu_torch.chip_probes k4class   # K4 at the serving 2D 3x3 convs, timed only
     python -m ted_spad_tpu_torch.chip_probes int8ab PARENT   # int8 step: PARENT vs this tree
+    python -m ted_spad_tpu_torch.chip_probes fastforms   # the eval fast forms' pieces, timed
+    python -m ted_spad_tpu_torch.chip_probes stepab PARENT   # UNet++ serving step: PARENT vs this tree
     python -m ted_spad_tpu_torch.chip_probes gain   # the UNet's outc gain vs the gates
     python -m ted_spad_tpu_torch.chip_probes mgfn   # where MGFN's card-vs-CPU step error sits
 
@@ -59,6 +61,20 @@ of the parent commit unpacked under ``build/``) and of this tree in turns, paren
 change / change / parent, each in a process of its own: step time, the bf16 step's, K4's
 device time per step from the profiler and the top kernels, and the step outputs on the
 first batch compared bit for bit under deterministic cuDNN.
+
+``fastforms``: the eval fast forms (ops/fast_unetpp.py, ops/fast_i3d.py) at the serving
+batch, bf16, each piece timed (CUDA events) beside its module form, with the profiler's
+top kernels: the UNet++ fa (module; fused with each encoder stem mode; the s2d head),
+the I3Res50 stem (module ConvBN; the s2d relayout of a clip batch; the s2d stem) and the
+16-clip extraction step (module forms; fast forms, bridged), each checked against the
+module form (error over the spread between frames or clips).
+
+``stepab PARENT``: the 16-clip UNet++ serving step (``make_extract_step`` at the default
+configuration, seeded models, the first batch of STEP_AB_URIS) of PARENT (e.g. ``git
+archive`` of the parent commit unpacked under ``build/``) and of this tree in turns,
+parent / change / change / parent, each turn a process of its own (``stepturn``): step
+time (CUDA events), device time per step, busy share and top kernels from the profiler,
+and the change's features against the parent's (error over the spread between clips).
 
 ``gain``: the random-init UNet's sigmoid output sits near 0.5, so the bf16 ft's own
 rounding can swamp the differences between clips. For outc gains 1, 4, 8 and 16 it
@@ -1660,12 +1676,12 @@ def int8_step_turn(device, out_path: str) -> None:
           flush=True)
 
 
-def int8ab(device, parent: str) -> None:
-    """The int8 step of ``parent`` (a checkout of another commit, e.g. from git archive)
-    and of this tree in turns, parent / change / change / parent, each turn a process of
-    its own (``int8_step_turn``) under that tree's package and kernels: the step's time
-    and the bf16 step's, K4's device time per step, and whether the change's step output
-    equals the parent's bit for bit under deterministic cuDNN."""
+def _ab_turns(parent: str, turn: str, tag: str, headline) -> dict:
+    """The turns parent / change / change / parent of the probe ``turn`` (it takes an
+    output path, saves its output there and prints one JSON line starting '{"step_ms"'),
+    each a process of its own under that tree's package and kernels (``parent``: another
+    checkout, e.g. from git archive). Prints each turn's ``headline(reading)`` and top
+    kernels; returns {"parent": [output, output], "change": [output, output]}."""
     import json
     import os
     import subprocess
@@ -1674,29 +1690,39 @@ def int8ab(device, parent: str) -> None:
 
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     trees = {"parent": os.path.abspath(parent), "change": here}
-    outs, runs = {}, []
+    outs = {}
     os.makedirs(os.path.join(here, "build"), exist_ok=True)
-    for i, tag in enumerate(("parent", "change", "change", "parent")):
-        root = trees[tag]
-        out = os.path.join(here, "build", f"int8ab_{i}_{tag}.pt")
-        code = ("import runpy, sys; out, path = sys.argv[1:]; "
-                "sys.argv = ['chip_probes', 'int8step', out]; runpy.run_path(path, run_name='__main__')")
-        proc = subprocess.run([sys.executable, "-c", code, out, os.path.abspath(__file__)],
-                              cwd=root, env={**os.environ, "PYTHONPATH": root},
+    for i, tree in enumerate(("parent", "change", "change", "parent")):
+        out = os.path.join(here, "build", f"{tag}_{i}_{tree}.pt")
+        code = ("import runpy, sys; probe, out, path = sys.argv[1:]; "
+                "sys.argv = ['chip_probes', probe, out]; runpy.run_path(path, run_name='__main__')")
+        proc = subprocess.run([sys.executable, "-c", code, turn, out, os.path.abspath(__file__)],
+                              cwd=trees[tree], env={**os.environ, "PYTHONPATH": trees[tree]},
                               capture_output=True, text=True, timeout=900)
         lines = [ln for ln in proc.stdout.splitlines() if ln.startswith('{"step_ms"')]
         if proc.returncode != 0 or not lines:
-            raise RuntimeError(f"int8ab turn {i} ({tag}) failed (exit {proc.returncode}):\n"
+            raise RuntimeError(f"{tag} turn {i} ({tree}) failed (exit {proc.returncode}):\n"
                                f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
         reading = json.loads(lines[-1])
-        runs.append((tag, reading))
-        outs.setdefault(tag, []).append(torch.load(out))
-        print(f"[int8ab] turn {i} {tag}: int8 step {reading['step_ms']:.3f} ms, bf16 step "
-              f"{reading['bf16_step_ms']:.3f} ms, device {reading['device_ms']:.3f} ms/step "
-              f"(busy {reading['busy']:.3f}), K4 {reading['k4_device_ms']:.3f} ms/step",
-              flush=True)
+        outs.setdefault(tree, []).append(torch.load(out))
+        print(f"[{tag}] turn {i} {tree}: {headline(reading)}", flush=True)
         for name, ms in reading["top"]:
-            print(f"[int8ab]     {ms:8.3f} ms  {name}", flush=True)
+            print(f"[{tag}]     {ms:8.3f} ms  {name}", flush=True)
+    return outs
+
+
+def int8ab(device, parent: str) -> None:
+    """The int8 step of ``parent`` (a checkout of another commit, e.g. from git archive)
+    and of this tree in turns (``_ab_turns`` of ``int8_step_turn``): the step's time and
+    the bf16 step's, K4's device time per step, and whether the change's step output
+    equals the parent's bit for bit under deterministic cuDNN."""
+    import json
+
+    import torch
+
+    outs = _ab_turns(parent, "int8step", "int8ab", lambda r: (
+        f"int8 step {r['step_ms']:.3f} ms, bf16 step {r['bf16_step_ms']:.3f} ms, device "
+        f"{r['device_ms']:.3f} ms/step (busy {r['busy']:.3f}), K4 {r['k4_device_ms']:.3f} ms/step"))
     same = {"parent twice": torch.equal(*outs["parent"]), "change twice": torch.equal(*outs["change"]),
             "change vs parent": torch.equal(outs["change"][0], outs["parent"][0])}
     print(f"[int8ab] step outputs on the first batch, cuDNN deterministic: {json.dumps(same)}",
@@ -1706,13 +1732,128 @@ def int8ab(device, parent: str) -> None:
         raise AssertionError(f"int8ab: outputs differ (change vs parent max |d| {d})")
 
 
+def _spread(x, ref) -> float:
+    """||x - ref|| / ||ref - mean of ref over the batch||, in float64."""
+    import torch
+
+    x, ref = x.double(), ref.double()
+    return float(torch.linalg.norm(x - ref) / torch.linalg.norm(ref - ref.mean(0)))
+
+
+def _timed(tag: str, fn, ref=None, top: int = 3) -> float:
+    """Print one piece's time (CUDA events), its profiler's top kernels and, with
+    ``ref``, its output's error over the batch spread against ``ref``."""
+    out = fn()
+    ms = time_ms(fn, reps=5, inner=2)
+    prof = device_profile(fn, steps=2)
+    err = "" if ref is None else f", error / spread vs the module form {_spread(out, ref):.6f}"
+    print(f"[fast] {tag}: {ms:.3f} ms (device {prof['device_ms']:.3f} ms, busy {prof['busy']:.3f})"
+          f"{err}", flush=True)
+    for name, kms in prof["kernels"][:top]:
+        print(f"[fast]     {kms:8.3f} ms  {name[:100]}", flush=True)
+    return ms
+
+
+def fastforms(device) -> None:
+    """See the module docstring."""
+    import torch
+
+    import ted_spad_tpu_torch.stages.feature_extraction as fe
+    from ted_spad_tpu_torch.config.params import FeatureExtractionParams
+    from ted_spad_tpu_torch.models import load_fa_model, load_ft_model
+    from ted_spad_tpu_torch.ops import fast_i3d, fast_unetpp
+
+    p = FeatureExtractionParams(batch_size=16)
+    fa, ft = load_fa_model(seed=0, device=device), load_ft_model(seed=0, device=device)
+    g = torch.Generator(device=device).manual_seed(0)
+    n, t = p.batch_size, p.num_frames
+    frames = torch.rand((n * t, 224, 224, 3), generator=g, device=device).to(torch.bfloat16)
+    x = frames.permute(0, 3, 1, 2)
+
+    with torch.inference_mode():
+        ref = fa(x)
+        _timed("UNet++ module, 256 frames", lambda: fa(x), top=6)
+        for stem in ("plain", "s2d"):
+            _timed(f"UNet++ fused form, stem {stem}", lambda: fast_unetpp.fast_unetpp_apply(
+                fa, frames, stem_mode=stem).movedim(-1, 1), ref, top=8)
+        s2d_ref = fast_i3d.space_to_depth_2x2(ref.to(torch.bfloat16), channel_dim=1)
+        _timed("UNet++ fused form, emit_s2d", lambda: fast_unetpp.fast_unetpp_apply(
+            fa, frames, emit_s2d=True).movedim(-1, 1), s2d_ref)
+
+        clips = torch.rand((n, t, 224, 224, 3), generator=g, device=device).to(torch.bfloat16)
+        c = clips.permute(0, 4, 1, 2, 3)
+        stem_ref = ft.i3d.stem(c)
+        _timed("I3Res50 stem, module ConvBN", lambda: ft.i3d.stem(c))
+        xs = fast_i3d.space_to_depth_2x2(c, channel_dim=1)
+        _timed("s2d relayout of the clips", lambda: fast_i3d.space_to_depth_2x2(c, channel_dim=1))
+        _timed("I3Res50 s2d stem", lambda: fast_i3d.s2d_stem(ft.i3d.stem, xs, torch.bfloat16),
+               stem_ref)
+
+    # Clips of synthetic videos: random pixels give every clip the same features, and the
+    # error over the spread between clips would read noise.
+    batch = torch.from_numpy(next(fe.iter_clip_batches(STEP_AB_URIS, p, n, num_workers=1))[0]).to(device)
+    fa32 = load_fa_model(seed=0, dtype="float32", device=device)
+    ft32 = load_ft_model(seed=0, dtype="float32", device=device)
+    ref32 = fe.make_extract_step(ft32, p.replace(compute_dtype="float32"), fa32, use_kernel=False,
+                                 device=device, fast_forms=False)(batch)
+    del fa32, ft32
+    print("[fast] the steps below against the float32 module step (plain preprocess, TF32 off)")
+    module = fe.make_extract_step(ft, p, fa, device=device, fast_forms=False)
+    _timed("extraction step, module forms", lambda: module(batch), ref32, top=8)
+    step = fe.make_extract_step(ft, p, fa, device=device)
+    _timed("extraction step, fast forms (bridged)", lambda: step(batch), ref32, top=10)
+
+
+STEP_AB_URIS = [f"synthetic://n=320,h=240,w=320,seed={700 + i}" for i in range(2)]
+
+
+def step_turn(device, out_path: str) -> None:
+    """One turn of ``stepab`` under whichever tree's package is on the path: the default
+    16-clip UNet++ serving step on the first batch of STEP_AB_URIS; saves its features to
+    ``out_path`` and prints one JSON line (step time, device time, busy share, top
+    kernels)."""
+    import json
+
+    import torch
+
+    import ted_spad_tpu_torch.stages.feature_extraction as fe
+    from ted_spad_tpu_torch.config.params import FeatureExtractionParams
+    from ted_spad_tpu_torch.models import load_fa_model, load_ft_model
+
+    p = FeatureExtractionParams(batch_size=16)
+    fa, ft = load_fa_model(seed=0, device=device), load_ft_model(seed=0, device=device)
+    clips, _, _ = next(fe.iter_clip_batches(STEP_AB_URIS, p, p.batch_size, num_workers=1))
+    batch = torch.from_numpy(clips).to(device)
+    step = fe.make_extract_step(ft, p, fa, device=device)
+    torch.save(step(batch).cpu(), out_path)
+    prof = device_profile(lambda: step(batch))
+    print(json.dumps({"step_ms": time_ms(lambda: step(batch), reps=5, inner=2),
+                      "device_ms": prof["device_ms"], "busy": prof["busy"],
+                      "top": [(n[:80], round(ms, 3)) for n, ms in prof["kernels"][:10]]}),
+          flush=True)
+
+
+def stepab(device, parent: str) -> None:
+    """See the module docstring."""
+    import json
+
+    outs = _ab_turns(parent, "stepturn", "stepab", lambda r: (
+        f"step {r['step_ms']:.3f} ms, device {r['device_ms']:.3f} ms/step (busy {r['busy']:.3f})"))
+    errs = {"parent twice": _spread(outs["parent"][1], outs["parent"][0]),
+            "change twice": _spread(outs["change"][1], outs["change"][0]),
+            "change vs parent": _spread(outs["change"][0], outs["parent"][0])}
+    print(f"[stepab] features on the first batch, error / between-clip spread: {json.dumps(errs)}",
+          flush=True)
+
+
 def main() -> int:
     import torch
 
     probes = {"k1": k1, "k2": k2, "k3": k3, "k4": k4, "k4class": k4class, "gain": gain, "mgfn": mgfn,
               "int8ab": int8ab, "int8step": int8_step_turn, "k3ab": k3ab, "k3turn": k3_turn,
-              "k2ab": k2ab, "k2turn": k2_turn}
-    takes_arg = ("int8ab", "int8step", "k3turn")
+              "k2ab": k2ab, "k2turn": k2_turn, "fastforms": fastforms, "stepab": stepab,
+              "stepturn": step_turn}
+    takes_arg = ("int8ab", "int8step", "k3turn", "stepab", "stepturn")
     n_args = len(sys.argv) - 2
     if (len(sys.argv) < 2 or sys.argv[1] not in probes
             or (n_args < 1 if sys.argv[1] in ("k3ab", "k2ab") else n_args != (sys.argv[1] in takes_arg))):

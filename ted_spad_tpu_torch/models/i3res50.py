@@ -137,11 +137,20 @@ class I3Res50(nn.Module):
 
     def features(self, x: torch.Tensor, train: bool = False, frozen_bn: bool = False,
                  remat_blocks: bool = False) -> torch.Tensor:
-        """(B, 3, T, H, W) -> (B, 2048) float32 (== extract_features, large_i3d.py:249-263).
-        ``remat_blocks`` checkpoints the stem and each of the four stages on its own
-        (``layers.checkpoint``): their outputs stay resident."""
+        """(B, 3, T, H, W) -> (B, 2048) float32 (== extract_features, large_i3d.py:249-263):
+        the stem, then ``features_from_stem``. ``remat_blocks`` checkpoints the stem and
+        each of the four stages on its own (``layers.checkpoint``): their outputs stay
+        resident."""
         run = checkpoint if remat_blocks else (lambda fn, *a: fn(*a))
         x = run(lambda t: self.stem(t, train, frozen_bn), x.to(self.stem.conv.weight.dtype))
+        return self.features_from_stem(x, train, frozen_bn, remat_blocks)
+
+    def features_from_stem(self, x: torch.Tensor, train: bool = False, frozen_bn: bool = False,
+                           remat_blocks: bool = False) -> torch.Tensor:
+        """The backbone from the stem's output (B, 64, T/2, H/2, W/2) onward -> (B, 2048):
+        the entry point of the space-to-depth stem (ops/fast_i3d.py), which computes the
+        stem conv outside the module."""
+        run = checkpoint if remat_blocks else (lambda fn, *a: fn(*a))
         x = max_pool_valid(x, (2, 3, 3), (2, 2, 2))
         x = run(lambda t: self._layer(t, 0, train, frozen_bn), x)
         x = max_pool_valid(x, (2, 1, 1), (2, 1, 1))
@@ -149,15 +158,21 @@ class I3Res50(nn.Module):
             x = run(lambda t, li=li: self._layer(t, li, train, frozen_bn), x)
         return global_avg_pool(x)
 
+    def head(self, feat: torch.Tensor, train: bool = False,
+             generator: torch.Generator | None = None) -> torch.Tensor:
+        """The logits from the pooled feature: dropout (train mode, ``generator``), then
+        ``fc``; float32 (float64 for a float64 model)."""
+        h = feat.to(self.fc.weight.dtype)
+        if train:
+            h = dropout(h, self.dropout_rate, generator)
+        return at_least_f32(self.fc(h))
+
     def forward(self, x: torch.Tensor, train: bool = False, frozen_bn: bool = False,
                 generator: torch.Generator | None = None, remat_blocks: bool = False):
         """(logits, pooled feature), float32 (float64 for a float64 model): the logits
         from the feature through dropout (train mode, ``generator``) and ``fc``."""
         feat = self.features(x, train, frozen_bn, remat_blocks)
-        h = feat.to(self.fc.weight.dtype)
-        if train:
-            h = dropout(h, self.dropout_rate, generator)
-        return at_least_f32(self.fc(h)), feat
+        return self.head(feat, train, generator), feat
 
 
 class MlpHead(nn.Module):
@@ -191,10 +206,25 @@ class WrapperI3D(nn.Module):
                            generator=generator)
         self.mlp = MlpHead(layer_specs[-1][0] * 4, generator=generator)
 
-    def extract_features(self, x: torch.Tensor) -> torch.Tensor:
-        return self.i3d.features(x)
+    def extract_features(self, x: torch.Tensor, train: bool = False,
+                         frozen_bn: bool = False) -> torch.Tensor:
+        return self.i3d.features(x, train, frozen_bn)
+
+    def extract_features_from_stem(self, x: torch.Tensor, train: bool = False,
+                                   frozen_bn: bool = False,
+                                   remat_blocks: bool = False) -> torch.Tensor:
+        """``extract_features`` from the stem's output onward (ops/fast_i3d.py)."""
+        return self.i3d.features_from_stem(x, train, frozen_bn, remat_blocks)
 
     def forward(self, x: torch.Tensor, train: bool = False, frozen_bn: bool = False,
                 generator: torch.Generator | None = None, remat_blocks: bool = False):
         logits, feat = self.i3d(x, train, frozen_bn, generator, remat_blocks)
         return logits, self.mlp(feat, train)
+
+    def forward_from_stem(self, x: torch.Tensor, train: bool = False, frozen_bn: bool = False,
+                          generator: torch.Generator | None = None,
+                          remat_blocks: bool = False):
+        """``forward``'s (logits, 128-d embedding) from the stem's output onward
+        (ops/fast_i3d.py)."""
+        feat = self.i3d.features_from_stem(x, train, frozen_bn, remat_blocks)
+        return self.i3d.head(feat, train, generator), self.mlp(feat, train)

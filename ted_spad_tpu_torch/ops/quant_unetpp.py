@@ -36,7 +36,8 @@ import torch.nn.functional as F
 from ted_spad_tpu_torch.ops import int8conv
 from ted_spad_tpu_torch.ops.fast_unetpp import (
     _R18_ENC_LAYERS, _apply_head, _bn_affine, _decoder_schedule, _pad_to, _resnet_maxpool,
-    _stem_conv, conv_nhwc, encoder_layout_standard, kernel, up2_conv, up2_dilated_kernel,
+    _stem_conv, conv_nhwc, decoder_channels, encoder_layout_standard, kernel, up2_conv,
+    up2_dilated_kernel,
 )
 from ted_spad_tpu_torch.ops.int8conv import quantize_weight, weight_qscale  # noqa: F401
 
@@ -283,8 +284,7 @@ def check_quant_fa(fa_model) -> None:
     from ted_spad_tpu_torch.models.unet import UNetPlusPlus
 
     if not (isinstance(fa_model, UNetPlusPlus)
-            and tuple(getattr(fa_model, n).conv2.conv.out_channels
-                      for n in ("x_0_0", "x_0_1", "x_0_2", "x_0_3")) == (256, 128, 64, 32)
+            and decoder_channels(fa_model) == (256, 128, 64, 32)
             and encoder_layout_standard(fa_model.encoder)):
         raise ValueError("quant='int8' supports the standard UNet++ (r18 encoder, decoder "
                          "(256,128,64,32)) eval path only")

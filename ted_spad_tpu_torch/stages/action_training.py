@@ -47,6 +47,8 @@ from ted_spad_tpu_torch.models import load_fa_model, load_ft_model
 from ted_spad_tpu_torch.ops.augment import (
     AugmentParams, augment_batch, center_crop_resize, five_crop_corners, resize_frames,
 )
+from ted_spad_tpu_torch.ops.fast_i3d import make_fast_ft_forward
+from ted_spad_tpu_torch.ops.fast_unetpp import make_fast_fa_apply
 from ted_spad_tpu_torch.ops.losses import (
     cross_entropy_loss, l2_normalize, nt_xent_loss, supcon_loss, triplet_margin_loss,
 )
@@ -69,14 +71,15 @@ def _apply_fa_frames(fa: torch.nn.Module, video: torch.Tensor, quirk: bool = Fal
     """The frozen fa per frame of (..., T, H, W, 3) float video, without gradients ->
     the same shape, float32. ``quirk`` (with (B, T) leading dims) reproduces the
     reference's scrambled fa input (train_anonymized_action.py:47-58): fa sees
-    3-slice bundles of the (C, T) axis instead of RGB frames."""
+    3-slice bundles of the (C, T) axis instead of RGB frames. The UNet++ runs its fused
+    eval form (``make_fast_fa_apply``)."""
     lead = video.shape[:-3]
     with torch.no_grad():
         if quirk and len(lead) == 2:
             frames = scrambled_frame_view(video)
         else:
             frames = video.reshape((-1,) + video.shape[-3:])
-        out = fa(frames.permute(0, 3, 1, 2)).float().permute(0, 2, 3, 1)
+        out = make_fast_fa_apply(fa)(frames.permute(0, 3, 1, 2)).float().permute(0, 2, 3, 1)
         if quirk and len(lead) == 2:
             return unscrambled_frame_view(out, *lead)
         return out.reshape(lead + out.shape[-3:])
@@ -150,15 +153,17 @@ def make_eval_step(ft: torch.nn.Module, p: ActionParams, fa: torch.nn.Module | N
     float32 softmax of the centre view (at reso / 0.8 uncropped when ``cropping_factor
     == 1``, the reference's output_reso quirk, ucf101_dl.py:229-234), mirrored with
     ``hflip``, through the frozen fa when given; ``three_crop`` averages it with the
-    top-left and bottom-right corners at the crop factor (ucf101_dl.py:297-320)."""
+    top-left and bottom-right corners at the crop factor (ucf101_dl.py:297-320). An
+    I3Res50 ft runs its s2d stem (``make_fast_ft_forward``)."""
     device = module_device(ft, device)
+    ft_forward = make_fast_ft_forward(ft)
 
     def one_view(view: torch.Tensor, hflip: bool) -> torch.Tensor:
         if hflip:
             view = view.flip(-2)
         if fa is not None:
             view = _apply_fa_frames(fa, view, quirk=p.quirk_compat)
-        logits, _ = ft(view.permute(0, 4, 1, 2, 3))
+        logits, _ = ft_forward(view.permute(0, 4, 1, 2, 3))
         return torch.softmax(logits.float(), dim=-1)
 
     def eval_step(clips_u8, cropping_factor: float, hflip: bool) -> torch.Tensor:

@@ -32,6 +32,7 @@ from ted_spad_tpu_torch.data.images import sample_image_augment_params
 from ted_spad_tpu_torch.data.prefetch import prefetch
 from ted_spad_tpu_torch.models import load_fa_model
 from ted_spad_tpu_torch.ops.augment import AugmentParams, augment_batch, center_crop_resize
+from ted_spad_tpu_torch.ops.fast_unetpp import make_fast_fa_apply
 from ted_spad_tpu_torch.ops.losses import l1_loss
 from ted_spad_tpu_torch.stages.common import (
     LRScheduler, augment_dtype, autocast, epoch_mean, make_optimizer, module_device, set_learning_rate,
@@ -77,15 +78,17 @@ def make_eval_step(model: torch.nn.Module, out_hw: tuple[int, int], *,
                    compute_dtype: str | None = "bfloat16",
                    device: str | torch.device = "cuda") -> Callable:
     """``eval_step(images_u8) -> (l1, recon, img)``: the centre square resized to
-    ``out_hw`` (float32 in [0, 1], NHWC), the fa in eval mode, the L1 between them."""
+    ``out_hw`` (float32 in [0, 1], NHWC), the fa in eval mode (the UNet++ through its
+    fused eval form, ``make_fast_fa_apply``), the L1 between them."""
     device = module_device(model, device)
+    fast_fa = make_fast_fa_apply(model)
     out_h, out_w = out_hw
 
     def eval_step(images_u8):
         images = torch.as_tensor(images_u8).to(device, non_blocking=True)
         with torch.inference_mode(), autocast(device, compute_dtype):
             img = center_crop_resize(images[:, None], 1.0, out_h, out_w, no_ar_distortion=True)[:, 0]
-            recon = model(img.permute(0, 3, 1, 2)).float().permute(0, 2, 3, 1)
+            recon = fast_fa(img.permute(0, 3, 1, 2)).float().permute(0, 2, 3, 1)
             return l1_loss(recon, img), recon, img
 
     return eval_step

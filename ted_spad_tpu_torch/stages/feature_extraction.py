@@ -4,10 +4,11 @@ feature_extraction/dali_extraction.py).
 
 Windowing: 16-frame clips at stride 2, non-overlapping step 32. Per clip batch:
 uint8 clips -> preprocess (kernel K1 on CUDA: crop, antialiased resize to 224^2,
-/255) -> frozen fa per frame (UNet++, or the plain UNet whose DoubleConvs run kernel
-K2 on CUDA; ``arch_fa``) -> ft ``extract_features`` (``arch_ft``: I3Res50 2048-d,
-InceptionI3d 1024-d, R3D-18 512-d, MViTv2-S 768-d) -> one feature per clip, stacked
-into a per-video ``.npy`` of (num_clips, F).
+/255) -> frozen fa per frame (UNet++ through its fused eval form, ops/fast_unetpp.py,
+or the plain UNet whose DoubleConvs run kernel K2 on CUDA; ``arch_fa``) -> ft
+``extract_features`` (``arch_ft``: I3Res50 2048-d with its s2d stem, ops/fast_i3d.py,
+fed by the UNet++ head in the s2d layout; InceptionI3d 1024-d, R3D-18 512-d, MViTv2-S
+768-d) -> one feature per clip, stacked into a per-video ``.npy`` of (num_clips, F).
 
 Options (``FeatureExtractionParams``), all through K1 on the card:
 - ``ncrops`` 5 or 10: torchvision's five / ten crops of ``cropping_factor`` in one K1
@@ -54,6 +55,8 @@ from ted_spad_tpu_torch.config.params import FeatureExtractionParams
 from ted_spad_tpu_torch.data.video_reader import open_video
 from ted_spad_tpu_torch.models import UNet, load_fa_model, load_ft_model
 from ted_spad_tpu_torch.models.i3res50 import WrapperI3D
+from ted_spad_tpu_torch.ops.fast_i3d import make_fast_ft_extract
+from ted_spad_tpu_torch.ops.fast_unetpp import make_fast_fa_apply
 from ted_spad_tpu_torch.ops.preprocess import (
     Crop, center_crop, fused_preprocess, fused_preprocess_reference, multi_crops,
 )
@@ -310,6 +313,7 @@ def make_extract_step(
     yuv_hw: tuple[int, int] = (240, 320),
     quant_act_scales: dict[str, float] | None = None,
     int8_kernel: bool | None = None,
+    fast_forms: bool = True,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """One step: (B, T, H, W, 3) uint8 clips on ``device`` -> (B, F) float32, or
     (B, ncrops, F) with ``p.ncrops > 1`` (F: the ft's feature width).
@@ -328,6 +332,13 @@ def make_extract_step(
     and the ft too when the scales hold its sites (``i3d_in``). ``int8_kernel`` (default:
     ``use_kernel``) runs its int8 convolutions through kernel K4, or with False through
     the plain int8 conv.
+    ``fast_forms`` (default True, as in the JAX package): the fa through its fused eval
+    form (``make_fast_fa_apply``: a UNet++ with folded BN and no upsampled or
+    concatenated tensors; a UNet still runs its module, K2 and all) and an I3Res50 ft
+    through its s2d stem (``make_fast_ft_extract``). Where neither quirk_compat is set
+    nor a side 16 does not divide, and both support it, the fa's head writes the s2d
+    layout the ft's stem reads (``emit_s2d`` -> ``input_s2d``). False runs the module
+    forwards (the fidelity gate's reference).
     Float32 convolutions and matmuls run with TF32 off during the step
     (utils/device.tf32_off); the caller's TF32 settings are left as they were."""
     check_supported(p, yuv)
@@ -341,17 +352,25 @@ def make_extract_step(
         int8_kernel = use_kernel
     preprocess = _make_preprocess(p, use_kernel, yuv, yuv_hw)
     fa_apply = None
+    fa_kw = {"use_kernel": use_kernel} if isinstance(fa, UNet) else {}
     if fa is not None:
         if quant_act_scales is not None:
             fa_apply = make_quant_fa_apply(fa, quant_act_scales, use_kernel=int8_kernel)
-        elif isinstance(fa, UNet):
-            fa_apply = lambda frames: fa(frames, use_kernel=use_kernel)  # noqa: E731
+        elif fast_forms:
+            fa_apply = make_fast_fa_apply(fa)
         else:
             fa_apply = fa
     if quant_act_scales is not None and "i3d_in" in quant_act_scales:
         ft_extract = make_quant_ft_extract(ft_model, quant_act_scales, use_kernel=int8_kernel)
+    elif fast_forms:
+        ft_extract = make_fast_ft_extract(ft_model)
     else:
         ft_extract = ft_model.extract_features
+    # The s2d bridge, under the JAX package's condition.
+    bridged = (fa is not None and not p.quirk_compat
+               and getattr(fa_apply, "supports_s2d", False)
+               and getattr(ft_extract, "supports_s2d", False)
+               and p.reso_h % 16 == 0 and p.reso_w % 16 == 0)
 
     def extract(clips_u8: torch.Tensor) -> torch.Tensor:
         if clips_u8.device != device:
@@ -362,8 +381,14 @@ def make_extract_step(
             n = lead.numel()  # clips x crops: folded into ft's batch
             # (n*T, 3, h, w) in channels_last memory: a view, no copy.
             frames = img.reshape((n * t,) + img.shape[-3:]).permute(0, 3, 1, 2)
+            if bridged:
+                # (n*T, 12, h/2, w/2) s2d frames -> (n, 12, T, h/2, w/2): views.
+                s2d = fa_apply(frames, emit_s2d=True).permute(0, 2, 3, 1)
+                clips = s2d.reshape(n, t, *s2d.shape[1:]).permute(0, 4, 1, 2, 3)
+                feats = ft_extract(clips, input_s2d=True)
+                return feats.reshape(*lead, feats.shape[-1])
             if fa_apply is not None:
-                frames = fa_apply(frames)  # (n*T, 3, h, w) float32
+                frames = fa_apply(frames, **fa_kw)  # (n*T, 3, h, w) float32
             frames = frames.permute(0, 2, 3, 1)
             if fa is not None and p.quirk_compat:
                 clips = extraction_return_scramble(frames, n, t)

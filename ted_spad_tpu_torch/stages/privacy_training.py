@@ -37,6 +37,7 @@ from ted_spad_tpu_torch.data.prefetch import prefetch
 from ted_spad_tpu_torch.models import load_fa_model, load_fb_model
 from ted_spad_tpu_torch.ops.augment import AugmentParams, augment_batch, center_crop_resize
 from ted_spad_tpu_torch.ops.losses import bce_with_logits_loss
+from ted_spad_tpu_torch.ops.fast_unetpp import make_fast_fa_apply
 from ted_spad_tpu_torch.ops.metrics import macro_average_precision, multilabel_prf1
 from ted_spad_tpu_torch.stages.common import (
     LRScheduler, augment_dtype, autocast, epoch_mean, make_optimizer, module_device, set_learning_rate,
@@ -50,11 +51,12 @@ from ted_spad_tpu_torch.utils.logging import MetricsWriter
 
 def anonymize(fa: torch.nn.Module | None, img: torch.Tensor) -> torch.Tensor:
     """The frozen fa in eval mode over (B, H, W, 3) images, without gradients ->
-    (B, H, W, 3) float32 (the images themselves without an fa)."""
+    (B, H, W, 3) float32 (the images themselves without an fa); the UNet++ through its
+    fused eval form (``make_fast_fa_apply``)."""
     if fa is None:
         return img
     with torch.no_grad():
-        return fa(img.permute(0, 3, 1, 2)).float().permute(0, 2, 3, 1)
+        return make_fast_fa_apply(fa)(img.permute(0, 3, 1, 2)).float().permute(0, 2, 3, 1)
 
 
 def make_steps(fb: torch.nn.Module, fa: torch.nn.Module | None, optimizer: torch.optim.Optimizer,

@@ -26,6 +26,7 @@ from ted_spad_tpu_torch.data.video_reader import (
     VideoWriter, Y4MWriter, native_available, open_video,
 )
 from ted_spad_tpu_torch.models import load_fa_model
+from ted_spad_tpu_torch.ops.fast_unetpp import make_fast_fa_apply
 from ted_spad_tpu_torch.utils.device import tf32_off
 from ted_spad_tpu_torch.utils.naming import base_name
 
@@ -33,13 +34,15 @@ from ted_spad_tpu_torch.utils.naming import base_name
 def make_anonymize_fn(fa: torch.nn.Module) -> Callable[[np.ndarray], torch.Tensor]:
     """``anonymize(frames_u8 (N, H, W, 3)) -> (N, H, W, 3)`` float32 in [0, 1] on the
     fa's device: /255, the eval fa (in its weights' dtype, float32 convolutions with
-    TF32 off), clip(0, 1). Runs under ``inference_mode``."""
+    TF32 off; the UNet++ through its fused eval form, ``make_fast_fa_apply``), clip(0,
+    1). Runs under ``inference_mode``."""
     device = next(fa.parameters()).device
+    fast_fa = make_fast_fa_apply(fa)
 
     def anonymize(frames_u8) -> torch.Tensor:
         with torch.inference_mode(), tf32_off():
             img = torch.as_tensor(frames_u8).to(device).float() / 255.0
-            out = fa(img.permute(0, 3, 1, 2)).float()
+            out = fast_fa(img.permute(0, 3, 1, 2)).float()
             return out.clamp(0.0, 1.0).permute(0, 2, 3, 1)
 
     return anonymize
