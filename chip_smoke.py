@@ -84,14 +84,20 @@ Phases, each fatal on failure:
      chip_probes.K4_CASES with every form of chip_probes.K4_FORMS; each of the 79 timed at
      its shape with its form beside its bound (the form's bytes), the plain version, the
      cuDNN bf16 conv and torch._int_mm + the epilogue's torch ops at the 1x1 shapes;
- 12. training the models the serving path runs: one fa pretraining step (UNet++, 2 x
-     224^2) and one action training step (I3Res50 with its head, 2 videos x 3 'trip'
-     views of 16 x 112^2) on the card held against the CPU's float64 step from the same
+ 12. training the models the serving path runs, through the train forms
+     (ops/fast_unetpp.py: fast_unetpp_train_apply; ops/fast_i3d.py:
+     make_fast_ft_train_forward): one fa pretraining step (UNet++, 2 x 224^2) and one
+     action training step (I3Res50 with its head, FrozenBN, 2 videos x 3 'trip' views
+     of 16 x 112^2) on the card held against the CPU's float64 step from the same
      weights, batch and draw (TF32 off, dropout 0): the card's float64 step on the loss,
-     every gradient and every BN statistic, its float32 step on the loss and statistics
-     (its gradients printed), the card's float32 step on another batch the control; the
-     full-width bf16 steps timed (UNet++ 32 x 224^2; I3Res50 16 videos x 3 views of
-     16 x 224^2, 8 where 16 do not fit) with peak memory and a device profile; then
+     every gradient and every BN statistic, and to the same limits against the card's
+     float64 step with the module forms (module_train_forms), which must not have run
+     a train form where the train-form step must have; its float32 step on the loss and
+     statistics (its gradients printed), the card's float32 step on another batch the
+     control; the full-width bf16 steps timed with the train forms and with the module
+     forms in alternating turns of one run (chip_probes.train_ab; UNet++ 32 x 224^2; I3Res50 16 videos x 3 views of 16 x 224^2, 8
+     where 16 do not fit) with peak memory, the fused cuDNN calls made under grad
+     counted (none may be), and a device profile of each train-form step; then
      train_reconstruction and anonymized train_action (through the fa just saved) for
      one short epoch each, their checkpoints reloaded bit-equal and served through the
      extraction step. No kernel launches on this path;
@@ -101,10 +107,14 @@ Phases, each fatal on failure:
      remat "on" held against the CPU's float64 step under "off" from the same weights,
      batch and draw (TF32 off, dropout 0; loss, every gradient, every BN statistic;
      the card's float32 step beside it; the card's float32 step on another batch the control;
-     no gradient on the fa step's frozen fb and ft); the full-width bf16 steps timed
-     with peak memory and a device profile (privacy: 32 x 224^2; fa and fb/ft: 8
-     videos x 3 views x 16 x 224^2 + 12 pairs under remat "auto" and "blocks", and 4
-     videos under "auto", which resolves to no remat there); the privacy batch through
+     no gradient on the fa step's frozen fb and ft); the train forms' gate: the card's
+     float64 fa step under "blocks" and fb/ft step under "on" and "blocks" against the
+     CPU's step and against the card's float64 module-form step (ADV_FORM_GATES); the
+     full-width bf16 steps timed with peak memory (privacy: 32 x 224^2; the fa and fb/ft
+     steps at 8 videos x 3 views x 16 x 224^2 + 12 pairs under remat "auto" (full remat
+     there), "blocks" and "off", each with the train forms and the module forms in
+     alternating turns (chip_probes.train_ab), fused cuDNN calls under grad counted,
+     kernels by time of the train-form steps under "auto"); the privacy batch through
      the bf16 plain-UNet fa with K2 against its plain version; train_privacy (anon,
      plain-UNet fa: K2 9 times per fa forward) and train_anonymizer (plain-UNet fa: K2
      on the fb/ft step's, the preview's and the validation's fa forwards) for one short
@@ -239,7 +249,10 @@ EVAL_AUC_ATOL = 1e-4
 # 16 x 224^2, FrozenBN, dropout 0.5), bf16 under autocast; 8 videos where 16 do not fit.
 TRAIN_FA_BATCH = 32
 TRAIN_FT_BATCHES = (16, 8)
-TRAIN_TIMED_STEPS = 5
+# The train-form A/B of phases 12 and 13 (chip_probes.train_ab): after one discarded
+# turn, these turns, each its step built anew, one warm-up step and TRAIN_AB_STEPS timed.
+TRAIN_AB_TURNS = ("train form", "module form", "module form", "train form")
+TRAIN_AB_STEPS = 1
 # Card step vs the CPU's float64 step from the same weights, batch and draw, TF32 off,
 # dropout 0: the loss, each gradient tensor and each BN running statistic
 # (||card - cpu|| / ||cpu||). The card's float64 step is held to all three, its float32
@@ -264,13 +277,19 @@ TRAIN_DRIVER_STEPS = 2  # steps in each stage driver's one epoch
 # with its head; 2 videos x 3 views x 16 x 112^2 and 4 VISPR pairs of 112^2).
 PRIV_GATE = (4, 224)  # images, side
 ADV_GATE = (2, 4, 112)  # videos (x 3 views of 16 frames), VISPR pairs, side
-# Full-width bf16 steps timed (1 warm-up, ADV_TIMED_STEPS timed): the privacy step at
-# PrivacyParams' batch (32 images of 224^2, through the bf16 UNet++ fa), and the fa and
-# fb/ft steps at AnonymizationParams' (8 videos x 3 views x 16 x 224^2 + 12 VISPR pairs)
-# under remat "auto" (full remat at this size) and "blocks", and at 4 videos + 12 pairs
-# under "auto" (no remat: below REMAT_AUTO_PIXELS).
-ADV_TIMED_STEPS = 3
-ADV_TIMED = (("auto", 8), ("blocks", 8), ("auto", 4))  # (remat, videos)
+# Full-width bf16 steps timed: the privacy step at PrivacyParams' batch (32 images of
+# 224^2, through the bf16 UNet++ fa; 1 warm-up, ADV_TIMED_STEPS timed); the fa step and
+# the fb/ft step at AnonymizationParams' (8 videos x 3 views x 16 x 224^2 + 12 VISPR
+# pairs) under each remat of ADV_TIMED ("auto" is full remat at this size), each with the
+# train forms and with the module forms (TRAIN_AB_TURNS).
+ADV_TIMED_STEPS = 2
+ADV_TIMED = ("auto", "blocks", "off")
+# The train forms' gate on the card (privacy_gate): (remat, the call the train form
+# makes under grad, its count): the fa step's three train-mode fa forwards under
+# "blocks"; the fb/ft step's stem under "on" and under "blocks" (the stem one
+# checkpointed piece), in the forward and in the recompute.
+ADV_FORM_GATES = {"fa": (("blocks", "fast_unetpp_train_apply", 3),),
+                  "fb/ft": (("on", "s2d_stem_conv", 2), ("blocks", "s2d_stem_conv", 2))}
 # The stage drivers: train_privacy (anon through the plain-UNet fa, K2) for one epoch of
 # 2 steps of 32 images and 1 validation batch; train_anonymizer (plain-UNet fa) for one
 # epoch of 4 batches (2 fa steps, 2 fb/ft steps) of 2 videos and 4 VISPR pairs at 224^2.
@@ -1560,23 +1579,27 @@ def _fa_gate_step(device, dtype, images, draw) -> tuple:
     import torch
 
     from ted_spad_tpu_torch.models import load_fa_model
+    from ted_spad_tpu_torch.stages import fa_pretraining
     from ted_spad_tpu_torch.stages.common import make_optimizer
-    from ted_spad_tpu_torch.stages.fa_pretraining import make_train_step
     from ted_spad_tpu_torch.utils.device import tf32_off
 
     side = TRAIN_GATE_FA[1]
     model = load_fa_model(seed=0, dtype="float32", device=device).to(dtype).requires_grad_(True)
     seen = {}
+    l1_loss = fa_pretraining.l1_loss
 
-    def keep_sign(mod, inp, out) -> None:
-        seen["sign"] = torch.sign(out.detach() - inp[0]).cpu()
+    def keep_sign(recon, x):
+        seen["sign"] = torch.sign(recon.detach() - x).cpu()
+        return l1_loss(recon, x)
 
-    hook = model.register_forward_hook(keep_sign)
-    step = make_train_step(model, make_optimizer(model.parameters(), "adam", 1e-3), (side, side),
-                           compute_dtype="float32", device=device)
-    with tf32_off():
-        loss = float(step(images, draw))
-    hook.remove()
+    step = fa_pretraining.make_train_step(model, make_optimizer(model.parameters(), "adam", 1e-3),
+                                          (side, side), compute_dtype="float32", device=device)
+    fa_pretraining.l1_loss = keep_sign
+    try:
+        with tf32_off():
+            loss = float(step(images, draw))
+    finally:
+        fa_pretraining.l1_loss = l1_loss
     return (loss, *_train_readings(model), seen["sign"])
 
 
@@ -1629,12 +1652,17 @@ def show_step(r: dict) -> str:
 def training_gate(device, card: str) -> None:
     """Card against CPU: one step of each stage at full width from the same seeded
     weights, batch and augmentation draw, TF32 off, dropout 0 (fa: 2 images of 224^2;
-    ft: 2 videos x 3 'trip' views of 16 x 112^2), through make_train_step, held against
-    the CPU's float64 step (TRAIN_* limits; the card's float32 gradients printed, the fa's
-    with its L1 sign flips), the card's float32 step on another batch the control."""
+    ft: 2 videos x 3 'trip' views of 16 x 112^2, FrozenBN), through make_train_step, so
+    through the train forms, held against the CPU's float64 step (TRAIN_* limits; the
+    card's float32 gradients printed, the fa's with its L1 sign flips) and the card's
+    float64 step with the module forms (``module_train_forms``) to the same limits, the
+    card's float32 step on another batch the control. The train-form step must have
+    run its train form (the fa's ``fast_unetpp_train_apply``, the ft's s2d stem conv
+    under grad), the module step must not, and no fused cuDNN call may run under grad."""
     import numpy as np
     import torch
 
+    from ted_spad_tpu_torch.chip_probes import check_train_form, counted, module_train_forms
     from ted_spad_tpu_torch.config.params import ActionParams
     from ted_spad_tpu_torch.data.images import ReconstructionSource, sample_image_augment_params
     from ted_spad_tpu_torch.data.videos import ClipDataset, synthetic_video_items
@@ -1652,11 +1680,18 @@ def training_gate(device, card: str) -> None:
                                      .batches(n, seed=1))[:2]]
 
     f64 = torch.float64
-    for name, run, batches in (("fa", _fa_gate_step, fa_batches),
-                               ("ft", lambda d, t, b: _ft_gate_step(d, t, p, b), ft_batches)):
+    for name, run, batches, key in (("fa", _fa_gate_step, fa_batches, "fast_unetpp_train_apply"),
+                                    ("ft", lambda d, t, b: _ft_gate_step(d, t, p, b), ft_batches,
+                                     "s2d_stem_conv")):
         t0 = time.perf_counter()
         ref = run("cpu", f64, *batches[0])
-        card64 = _step_against(ref, run(device, f64, *batches[0]))
+        with counted({}) as calls:
+            got64 = run(device, f64, *batches[0])
+        with module_train_forms(), counted({}) as module_calls:
+            module64 = _step_against(module := run(device, f64, *batches[0]), got64)
+        check_train_form(calls, key, "train form", f"the card's float64 {name} step", n=1)
+        check_train_form(module_calls, key, "module form", f"the card's float64 {name} step")
+        card64 = _step_against(ref, got64)
         got32 = run(device, torch.float32, *batches[0])
         card32 = _step_against(ref, got32)
         control = _step_against(ref, run(device, torch.float32, *batches[1]))
@@ -1667,11 +1702,16 @@ def training_gate(device, card: str) -> None:
             f"{TRAIN_LOSS_RTOL}, gradients {TRAIN_GRAD_RTOL}, statistics {TRAIN_STATS_RTOL}, zero "
             f"gradients {TRAIN_NULL_GRAD}); control, the card's float32 step on another batch: "
             f"{show_step(control)}; {time.perf_counter() - t0:.1f}s | {card}")
-        for label, r, grads in (("float64", card64, True), ("float32", card32, False)):
+        log(f"[train] {name} step, train form against the card's float64 module step (same weights, "
+            f"batch and draw): {show_step(module64)}; calls {json.dumps(calls)}, module step's "
+            f"{json.dumps(module_calls)}; module step against the CPU's: "
+            f"{show_step(_step_against(ref, module))} | {card}")
+        for label, r, grads in (("float64", card64, True), ("float32", card32, False),
+                                ("float64 module-form", module64, True)):
             if not (r["loss"] <= TRAIN_LOSS_RTOL and r["stats"][0] <= TRAIN_STATS_RTOL
                     and r["null"][1] <= TRAIN_NULL_GRAD
                     and (not grads or r["grad"][0] <= TRAIN_GRAD_RTOL)):
-                raise AssertionError(f"the card's {label} {name} train step disagrees with the CPU's")
+                raise AssertionError(f"the card's {label} {name} train step disagrees with its reference")
         if not (control["loss"] > TRAIN_LOSS_RTOL and control["grad"][0] > TRAIN_GRAD_RTOL
                 and control["stats"][0] > TRAIN_STATS_RTOL):
             raise AssertionError(f"the {name} step gate does not tell another batch apart")
@@ -1693,10 +1733,30 @@ def _timed_steps(step, n: int) -> list[float]:
     return times
 
 
+def _ab(tag: str, what: str, device, make_step, run, key: str, items: float, unit: str,
+        card: str) -> None:
+    """One step with the train forms against the module forms (``chip_probes.train_ab``
+    over TRAIN_AB_TURNS: each form checked to have run, no fused cuDNN call under grad),
+    logged with each form's steps and peak memory."""
+    import statistics
+
+    from ted_spad_tpu_torch.chip_probes import ab_summary, fused_under_grad, train_ab
+
+    ab = train_ab(device, make_step, run, key, what, turns=TRAIN_AB_TURNS, n=TRAIN_AB_STEPS,
+                  warmup=1, profile=False)
+    steps = {form: [round(x, 3) for r in rs for x in r["ms"]] for form, rs in ab.items()}
+    fused = sum(fused_under_grad(r["calls"]) for rs in ab.values() for r in rs)
+    log(f"[{tag}] {what}: {ab_summary(ab)}; steps {json.dumps(steps)} ms; train form "
+        f"{items * 1e3 / statistics.median(steps['train form']):.2f} {unit}/s; fused cuDNN calls "
+        f"under grad {fused}; a train-form turn's calls {json.dumps(ab['train form'][0]['calls'])} | {card}")
+
+
 def training_steps(device, card: str) -> int:
-    """The full-width bf16 steps timed: the fa step (UNet++ at 224^2, batch 32) and the
-    ft step (I3Res50 with its head, 16 x 224^2, 'trip', FrozenBN, dropout 0.5, 16
-    videos x 3 views, or 8 where they do not fit). Returns the ft batch used."""
+    """The full-width bf16 steps timed, each with the train forms and with the module
+    forms in turns (``_ab``), peak memory beside each: the fa step (UNet++ at 224^2,
+    batch 32) and the ft step (I3Res50 with its head, 16 x 224^2, 'trip', FrozenBN,
+    dropout 0.5, 16 videos x 3 views, or 8 where they do not fit); a device profile of
+    each train-form step. Returns the ft batch used."""
     import numpy as np
     import torch
 
@@ -1709,24 +1769,24 @@ def training_steps(device, card: str) -> int:
     from ted_spad_tpu_torch.stages.common import make_optimizer
 
     rp = ReconstructionParams()
-    torch.cuda.reset_peak_memory_stats(device)
     fa = load_fa_model(rp.arch_fa, seed=0, dtype="float32", device=device).requires_grad_(True)
-    step = fa_pretraining.make_train_step(
-        fa, make_optimizer(fa.parameters(), "adam", rp.learning_rate), (rp.reso_h, rp.reso_w),
-        compute_dtype=rp.compute_dtype, device=device)
+
+    def make_fa_step():
+        return fa_pretraining.make_train_step(
+            fa, make_optimizer(fa.parameters(), "adam", rp.learning_rate), (rp.reso_h, rp.reso_w),
+            compute_dtype=rp.compute_dtype, device=device)
+
     src = ReconstructionSource(synthetic_n=TRAIN_FA_BATCH, seed=0)
     images = torch.from_numpy(src.get_batch(list(range(TRAIN_FA_BATCH)))[0]).to(device)
     draw = sample_image_augment_params(np.random.default_rng(0), TRAIN_FA_BATCH, src.canonical,
                                        rp.reso_h, rp.reso_w)
-    ms = _timed_steps(lambda: step(images, draw), TRAIN_TIMED_STEPS)
     n_params = sum(q.numel() for q in fa.parameters())
-    mean = sum(ms) / len(ms)
-    log(f"[train] fa step (UNet++ {n_params:,} params, {TRAIN_FA_BATCH} images of {rp.reso_h}^2, "
-        f"{rp.compute_dtype} autocast, augment + forward + L1 + backward + Adam): steps "
-        f"{json.dumps([round(x, 3) for x in ms])} ms, mean {mean:.3f} ms/step = "
-        f"{TRAIN_FA_BATCH * 1e3 / mean:.1f} images/s, peak device memory "
-        f"{torch.cuda.max_memory_allocated(device) / 2**20:.1f} MiB | {card}")
-    log("[train] where an fa step's time goes:")
+    _ab("train", f"fa step (UNet++ {n_params:,} params, {TRAIN_FA_BATCH} images of {rp.reso_h}^2, "
+        f"{rp.compute_dtype} autocast, augment + forward + L1 + backward + Adam)", device,
+        make_fa_step, lambda step: step(images, draw), "fast_unetpp_train_apply", TRAIN_FA_BATCH,
+        "images", card)
+    log("[train] where an fa step's time goes (train form):")
+    step = make_fa_step()
     profile_step(lambda: step(images, draw), steps=2)
     del fa, step, images
     torch.cuda.empty_cache()
@@ -1736,35 +1796,37 @@ def training_steps(device, card: str) -> int:
                                   seed=0)
     batch = next(ClipDataset(items, p, views=3, num_workers=8, seed=0).batches(TRAIN_FT_BATCHES[0]))
     for b in TRAIN_FT_BATCHES:
-        torch.cuda.reset_peak_memory_stats(device)
         ft = load_ft_model(p.arch, seed=0, dtype="float32", device=device, num_classes=p.num_classes,
                            dropout_rate=p.ft_dropout or None).requires_grad_(True)
         gen = torch.Generator(device=device).manual_seed(0)
-        opt = make_optimizer(ft.parameters(), p.opt_type, p.learning_rate, p.weight_decay, p.momentum)
-        step = action_training.make_train_step(ft, opt, p, generator=gen, device=device)
+
+        def make_ft_step():
+            opt = make_optimizer(ft.parameters(), p.opt_type, p.learning_rate, p.weight_decay,
+                                 p.momentum)
+            return action_training.make_train_step(ft, opt, p, generator=gen, device=device)
+
         clips = torch.from_numpy(batch.clips[:b]).to(device)
         draw = AugmentParams(**{k: v[:b * 3] for k, v in vars(batch.params).items()})
+        n_params = sum(q.numel() for q in ft.parameters())
+        what = (f"ft step (I3Res50 + head {n_params:,} params, {b} videos x 3 'trip' views of "
+                f"{p.num_frames} x {p.reso_h}^2{'' if b == TRAIN_FT_BATCHES[0] else ', batch cut from 16'}, "
+                f"FrozenBN, dropout {ft.i3d.dropout_rate}, {p.compute_dtype} autocast, augment + forward + "
+                f"CE + triplet + backward + Adam)")
         try:
-            ms = _timed_steps(lambda: step(clips, batch.labels[:b], draw), TRAIN_TIMED_STEPS)
+            _ab("train", what, device, make_ft_step, lambda step: step(clips, batch.labels[:b], draw),
+                "s2d_stem_conv", b, "clips", card)
         except torch.cuda.OutOfMemoryError:
             log(f"[train] ft step: {b} videos x 3 views do not fit in the card's memory")
-            del ft, step, opt, clips
+            del ft, clips
             torch.cuda.empty_cache()
             continue
         break
     else:
         raise AssertionError("no ft batch fits in the card's memory")
-    mean = sum(ms) / len(ms)
-    n_params = sum(q.numel() for q in ft.parameters())
-    log(f"[train] ft step (I3Res50 + head {n_params:,} params, {b} videos x 3 'trip' views of "
-        f"{p.num_frames} x {p.reso_h}^2{'' if b == TRAIN_FT_BATCHES[0] else ', batch cut from 16'}, "
-        f"FrozenBN, dropout {ft.i3d.dropout_rate}, {p.compute_dtype} autocast, augment + forward + "
-        f"CE + triplet + backward + Adam): steps {json.dumps([round(x, 3) for x in ms])} ms, mean "
-        f"{mean:.3f} ms/step = {b * 1e3 / mean:.2f} clips/s ({3 * b * 1e3 / mean:.2f} views/s), peak "
-        f"device memory {torch.cuda.max_memory_allocated(device) / 2**20:.1f} MiB | {card}")
-    log("[train] where an ft step's time goes:")
+    log("[train] where an ft step's time goes (train form):")
+    step = make_ft_step()
     profile_step(lambda: step(clips, batch.labels[:b], draw), steps=2)
-    del ft, step, opt, clips
+    del ft, step, clips
     torch.cuda.empty_cache()
     return b
 
@@ -1993,39 +2055,65 @@ def privacy_gate(device, card: str) -> None:
     loss limit with its gradients and statistics printed (the fb/ft step's MLP head
     normalizes 6 embeddings in train mode, and float32 rounding moves its statistics by
     2.3e-4 on an H100), the card's float32 step on another batch the control, which must
-    exceed each limit."""
+    exceed each limit. The train forms (ADV_FORM_GATES): the card's float64 fa step
+    under "blocks" and fb/ft step under "on", held to the same limits against the CPU's
+    step and against the card's float64 step with the module forms
+    (``module_train_forms``), each having run its train form the expected number of
+    times (the module step never) and no fused cuDNN call under grad."""
     import torch
 
+    from ted_spad_tpu_torch.chip_probes import check_train_form, counted, module_train_forms
     from ted_spad_tpu_torch.config.params import AnonymizationParams
 
     n_videos, n_pairs, side = ADV_GATE
     base = dict(num_frames=16, reso_h=side, reso_w=side, compute_dtype="float32")
-    p_on = AnonymizationParams(**base, remat="on")
-    p_off = AnonymizationParams(**base, remat="off")
-    adv = _adv_inputs(p_on, n_videos, n_pairs)
+    params = {remat: AnonymizationParams(**base, remat=remat) for remat in ("on", "off", "blocks")}
+    adv = _adv_inputs(params["on"], n_videos, n_pairs)
     cases = (
-        ("privacy", lambda d, t, b: _privacy_gate_step(d, t, *b), _priv_batches(*PRIV_GATE),
+        ("privacy", lambda d, t, b, q: _privacy_gate_step(d, t, *b), _priv_batches(*PRIV_GATE),
          "4 images of 224^2 through the UNet++ fa"),
-        ("fa", lambda d, t, b: _adv_gate_step(d, t, "fa", p_on if d != "cpu" else p_off, b), adv,
+        ("fa", lambda d, t, b, q: _adv_gate_step(d, t, "fa", q, b), adv,
          f"{n_videos} videos x 3 views x 16 x {side}^2 + {n_pairs} VISPR pairs"),
-        ("fb/ft", lambda d, t, b: _adv_gate_step(d, t, "fbft", p_on if d != "cpu" else p_off, b), adv,
+        ("fb/ft", lambda d, t, b, q: _adv_gate_step(d, t, "fbft", q, b), adv,
          f"{n_videos} videos x 3 views x 16 x {side}^2 + {n_pairs} VISPR pairs"),
     )
     f64 = torch.float64
     for name, run, batches, what in cases:
         t0 = time.perf_counter()
-        ref = run("cpu", f64, batches[0])
-        card64 = _step_against(ref, run(device, f64, batches[0]))
-        card32 = _step_against(ref, run(device, torch.float32, batches[0]))
-        control = _step_against(ref, run(device, torch.float32, batches[1]))
+        ref = run("cpu", f64, batches[0], params["off"])
+        with counted({}) as on_calls:
+            got64 = run(device, f64, batches[0], params["on"])
+        card64 = _step_against(ref, got64)
+        card32 = _step_against(ref, run(device, torch.float32, batches[0], params["on"]))
+        control = _step_against(ref, run(device, torch.float32, batches[1], params["on"]))
         log(f"[privacy] {name} step ({what}) against the CPU's float64 step (same weights, batch "
             f"and draw; TF32 off; card remat on, CPU off): card float64 {show_step(card64)}; card float32 "
             f"{show_step(card32)} (limits: loss {TRAIN_LOSS_RTOL}, gradients {TRAIN_GRAD_RTOL}, statistics "
             f"{TRAIN_STATS_RTOL}, zero gradients {TRAIN_NULL_GRAD}); control, the card's float32 step "
             f"on another batch: {show_step(control)}; {time.perf_counter() - t0:.1f}s | {card}")
-        if not (card64["loss"] <= TRAIN_LOSS_RTOL and card64["stats"][0] <= TRAIN_STATS_RTOL
-                and card64["null"][1] <= TRAIN_NULL_GRAD and card64["grad"][0] <= TRAIN_GRAD_RTOL):
-            raise AssertionError(f"the card's float64 {name} step disagrees with the CPU's")
+        checks = [("float64", card64)]
+        for remat, key, n in ADV_FORM_GATES.get(name, ()):
+            t0 = time.perf_counter()
+            if remat == "on":
+                form, calls = got64, on_calls
+            else:
+                with counted({}) as calls:
+                    form = run(device, f64, batches[0], params[remat])
+            with module_train_forms(), counted({}) as module_calls:
+                module = run(device, f64, batches[0], params[remat])
+            what = f"the card's float64 {name} step under remat {remat!r}"
+            check_train_form(calls, key, "train form", what, n=n)
+            check_train_form(module_calls, key, "module form", what)
+            against_cpu, against_module = _step_against(ref, form), _step_against(module, form)
+            log(f"[privacy] {name} step, train forms, card float64 under remat {remat!r}: against the "
+                f"CPU's float64 step (off) {show_step(against_cpu)}; against the card's float64 module "
+                f"step under {remat!r} {show_step(against_module)}; calls {json.dumps(calls)}, module "
+                f"step's {json.dumps(module_calls)}; {time.perf_counter() - t0:.1f}s | {card}")
+            checks += [(f"float64 {remat!r}", against_cpu), (f"float64 {remat!r} module-form", against_module)]
+        for label, r in checks:
+            if not (r["loss"] <= TRAIN_LOSS_RTOL and r["stats"][0] <= TRAIN_STATS_RTOL
+                    and r["null"][1] <= TRAIN_NULL_GRAD and r["grad"][0] <= TRAIN_GRAD_RTOL):
+                raise AssertionError(f"the card's {label} {name} step disagrees with its reference")
         if not card32["loss"] <= TRAIN_LOSS_RTOL:
             raise AssertionError(f"the card's float32 {name} step's loss disagrees with the CPU's")
         if not (control["loss"] > TRAIN_LOSS_RTOL and control["grad"][0] > TRAIN_GRAD_RTOL
@@ -2044,9 +2132,10 @@ def _step_line(tag: str, what: str, ms: list, items: float, unit: str, device, c
 
 def privacy_steps(device, card: str) -> None:
     """The full-width bf16 steps timed: the privacy step at PrivacyParams' defaults
-    (32 images of 224^2 through the bf16 UNet++ fa), then the fa step and the fb/ft
-    step at AnonymizationParams' defaults under each ADV_TIMED configuration, with
-    peak memory and a device profile."""
+    (32 images of 224^2 through the bf16 UNet++ fa), then the fa step and the fb/ft step
+    at AnonymizationParams' defaults under each remat of ADV_TIMED, each with the train
+    forms and with the module forms in turns (``_ab``, peak memory beside each), and the
+    train-form steps under the first by kernel."""
     import torch
 
     from ted_spad_tpu_torch.config.params import AnonymizationParams, PrivacyParams
@@ -2081,20 +2170,29 @@ def privacy_steps(device, card: str) -> None:
     gen = torch.Generator(device=device).manual_seed(0)
     opts = [make_optimizer(m.parameters(), p.opt_type, lr, p.weight_decay)
             for m, lr in ((fa, p.learning_rate_fa), (fb, p.learning_rate_fb), (ft, p.learning_rate_ft))]
-    for remat, b in ADV_TIMED:
+    b = p.batch_size
+
+    def run(step):
+        return step(v1, v2, clips, labels)
+
+    for remat in ADV_TIMED:
         q = p.replace(remat=remat)
-        resolved = anon._resolve_remat(q, clips[:b].shape, v1.shape)
-        steps = (("fa", anon.make_fa_step(fa, fb, ft, opts[0], q, device=device)),
-                 ("fb/ft", anon.make_fbft_step(fa, fb, ft, opts[1], opts[2], q, generator=gen, device=device)))
-        for name, step in steps:
-            torch.cuda.reset_peak_memory_stats(device)
-            ms = _timed_steps(lambda: step(v1, v2, clips[:b], labels[:b]), ADV_TIMED_STEPS)
-            _step_line("adversarial", f"{name} step (remat {remat!r} -> {resolved!r}, {b} videos x 3 views "
-                       f"x {p.num_frames} x {p.reso_h}^2 + {p.batch_size_vispr} VISPR pairs, "
-                       f"{p.compute_dtype} autocast)", ms, b, "videos", device, card)
-            if (remat, b) == ADV_TIMED[0]:
-                log(f"[adversarial] where an {name} step's time goes:")
-                profile_step(lambda: step(v1, v2, clips[:b], labels[:b]), steps=1)
+        resolved = anon._resolve_remat(q, clips.shape, v1.shape)
+        what = (f"(remat {remat!r} -> {resolved!r}, {b} videos x 3 views x {p.num_frames} x "
+                f"{p.reso_h}^2 + {p.batch_size_vispr} VISPR pairs, {p.compute_dtype} autocast)")
+        makes = [("fa", "fast_unetpp_train_apply",
+                  lambda q=q: anon.make_fa_step(fa, fb, ft, opts[0], q, device=device)),
+                 ("fb/ft", "s2d_stem_conv",
+                  lambda q=q: anon.make_fbft_step(fa, fb, ft, opts[1], opts[2], q, generator=gen,
+                                                  device=device))]
+        for name, key, make in makes:
+            _ab("adversarial", f"{name} step {what}", device, make, run, key, b, "videos", card)
+            if remat == ADV_TIMED[0]:
+                log(f"[adversarial] where an {name} step's time goes (train form, remat {remat!r}):")
+                step = make()
+                profile_step(lambda: run(step), steps=1)
+                del step
+                torch.cuda.empty_cache()
     del fa, fb, ft, opts, v1, v2, clips
     torch.cuda.empty_cache()
 

@@ -12,6 +12,7 @@ numbers PERF.md quotes from them can be taken again:
     python -m ted_spad_tpu_torch.chip_probes int8ab PARENT   # int8 step: PARENT vs this tree
     python -m ted_spad_tpu_torch.chip_probes fastforms   # the eval fast forms' pieces, timed
     python -m ted_spad_tpu_torch.chip_probes stepab PARENT   # UNet++ serving step: PARENT vs this tree
+    python -m ted_spad_tpu_torch.chip_probes trainab   # training steps: train forms vs module forms
     python -m ted_spad_tpu_torch.chip_probes gain   # the UNet's outc gain vs the gates
     python -m ted_spad_tpu_torch.chip_probes mgfn   # where MGFN's card-vs-CPU step error sits
 
@@ -75,6 +76,18 @@ archive`` of the parent commit unpacked under ``build/``) and of this tree in tu
 parent / change / change / parent, each turn a process of its own (``stepturn``): step
 time (CUDA events), device time per step, busy share and top kernels from the profiler,
 and the change's features against the parent's (error over the spread between clips).
+
+``trainab``: the training steps at the stages' defaults, bf16 under autocast, with the
+train fast forms (ops/fast_unetpp.py's ``fast_unetpp_train_apply``, ops/fast_i3d.py's
+``make_fast_ft_train_forward``) and with the module forms (``module_train_forms``) in
+TRAINAB_TURNS (train / module / module / train, twice) after one discarded turn
+(``train_ab``), each turn its step built anew, two warm-up steps and TRAINAB_STEPS timed
+(CUDA events), then one step profiled, and checked to have run its form (``counted``):
+the fa pretraining step (UNet++, 32 x 224^2), the action step (I3Res50 with its head, 16
+videos x 3 views of 16 x 224^2, FrozenBN) and the adversarial fa and fb/ft steps (8
+videos x 3 views + 12 VISPR pairs) under remat "auto", "blocks" and "off". Prints each
+turn's steps, peak memory, device time per step and busy share, then per step the
+median of each form over its turns beside the spread between its turns.
 
 ``gain``: the random-init UNet's sigmoid output sits near 0.5, so the bf16 ft's own
 rounding can swamp the differences between clips. For outc gains 1, 4, 8 and 16 it
@@ -1603,8 +1616,9 @@ def k4(device) -> None:
 
 def device_profile(fn, steps: int = 3) -> dict:
     """Device time by kernel over ``steps`` calls of ``fn`` (torch.profiler, after one
-    warm-up call): {"device_ms", "wall_ms", "busy", "kernels": [(name, ms)]}, per call,
-    the kernels sorted by time."""
+    warm-up call): {"device_ms", "wall_ms", "busy", "kernels": [(name, ms)], "launches"},
+    per call, the kernels sorted by time; ``launches`` counts the device-side events
+    (kernels and copies) of one call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1617,12 +1631,14 @@ def device_profile(fn, steps: int = 3) -> dict:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # Device-side events only (kernels, copies): a CPU op's device time repeats its kernels'.
-    kernels = sorted(((e.key, e.self_device_time_total / steps / 1e3) for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA
-                      and e.self_device_time_total > 0), key=lambda kv: -kv[1])
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    kernels = sorted(((e.key, e.self_device_time_total / steps / 1e3) for e in events),
+                     key=lambda kv: -kv[1])
     device_ms = sum(ms for _, ms in kernels)
     return {"device_ms": device_ms, "wall_ms": wall_us / steps / 1e3,
-            "busy": device_ms * steps * 1e3 / wall_us, "kernels": kernels}
+            "busy": device_ms * steps * 1e3 / wall_us, "kernels": kernels,
+            "launches": sum(e.count for e in events) / steps}
 
 
 INT8_AB_URIS = [f"synthetic://n=320,h=240,w=320,seed={600 + i}" for i in range(4)]
@@ -1846,13 +1862,258 @@ def stepab(device, parent: str) -> None:
           flush=True)
 
 
+@contextlib.contextmanager
+def module_train_forms():
+    """The module side of the train-form A/B: inside the block the training stages run
+    their models' train forwards through the modules (``make_fast_fa_apply`` as the
+    stages call it runs the module when ``train`` is set and its eval form otherwise;
+    ``make_fast_ft_train_forward`` gives ``fast_i3d.module_train_forward``). A stage's
+    step built inside the block keeps the module forms."""
+    from ted_spad_tpu_torch.ops import fast_i3d, fast_unetpp
+    from ted_spad_tpu_torch.stages import action_training, anonymization_training, fa_pretraining
+
+    def fa_apply(fa):
+        fast = fast_unetpp.make_fast_fa_apply(fa)
+
+        def apply(frames, train=False, **kw):
+            return fa(frames, train=True, **kw) if train else fast(frames, **kw)
+
+        apply.supports_s2d = fast.supports_s2d
+        return apply
+
+    patches = [(fa_pretraining, "make_fast_fa_apply", fa_apply),
+               (anonymization_training, "make_fast_fa_apply", fa_apply),
+               (anonymization_training, "make_fast_ft_train_forward", fast_i3d.module_train_forward),
+               (action_training, "make_fast_ft_train_forward", fast_i3d.module_train_forward)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, fn in patches:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+# The calls counted around the training steps (``counted``): the fa's train form, the
+# I3Res50 train form's s2d stem conv, the eval form's folded s2d stem, and the fused
+# cuDNN conv + ReLU calls, which have no backward: none of those may run while grad mode
+# is on.
+COUNTED_CALLS = (("ted_spad_tpu_torch.ops.fast_unetpp", "fast_unetpp_train_apply"),
+                 ("ted_spad_tpu_torch.ops.fast_i3d", "s2d_stem_conv"),
+                 ("ted_spad_tpu_torch.ops.fast_i3d", "s2d_stem"),
+                 ("torch", "cudnn_convolution_relu"),
+                 ("torch", "cudnn_convolution_add_relu"))
+FUSED_CALLS = ("cudnn_convolution_relu", "cudnn_convolution_add_relu")
+
+
+@contextlib.contextmanager
+def counted(calls: dict):
+    """Count the calls of each of COUNTED_CALLS inside the block into ``calls``, keyed
+    ``name`` or ``name (grad)`` by whether grad mode was on."""
+    import importlib
+
+    import torch
+
+    saved = []
+    for mod_name, name in COUNTED_CALLS:
+        mod = importlib.import_module(mod_name)
+        real = getattr(mod, name)
+
+        def counting(*a, _name=name, _real=real, **k):
+            key = f"{_name} (grad)" if torch.is_grad_enabled() else _name
+            calls[key] = calls.get(key, 0) + 1
+            return _real(*a, **k)
+
+        saved.append((mod, name, real))
+        setattr(mod, name, counting)
+    try:
+        yield calls
+    finally:
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+
+
+def fused_under_grad(calls: dict) -> int:
+    return sum(calls.get(f"{n} (grad)", 0) for n in FUSED_CALLS)
+
+
+def check_train_form(calls: dict, key: str, form: str, what: str, n: int | None = None) -> None:
+    """A step's counted calls (``counted``): the train form called ``key`` under grad
+    ``n`` times (at least once where ``n`` is None), the module form never, and neither
+    reached a fused cuDNN call under grad."""
+    got = calls.get(f"{key} (grad)", 0)
+    want = 0 if form == "module form" else n
+    if got == 0 if want is None else got != want:
+        raise AssertionError(f"{what}, {form}: {key} under grad {got} times (expected "
+                             f"{'at least 1' if want is None else want})")
+    if fused_under_grad(calls):
+        raise AssertionError(f"{what}, {form}: a fused cuDNN call (no backward) ran under grad: "
+                             f"{calls}")
+
+
+TRAINAB_STEPS = 4
+TRAINAB_TURNS = ("train form", "module form", "module form", "train form") * 2
+
+
+def train_steps(device) -> dict:
+    """{name: (make_step, run, key)} of ``trainab``'s steps: ``make_step()`` builds the
+    stage's step (under ``module_train_forms`` it keeps the module forms), ``run(step)``
+    runs one on fixed seeded inputs, ``key`` is the call its train form makes under grad
+    (``check_train_form``)."""
+    import numpy as np
+    import torch
+
+    from ted_spad_tpu_torch.config.params import (
+        ActionParams, AnonymizationParams, ReconstructionParams,
+    )
+    from ted_spad_tpu_torch.data.images import sample_image_augment_params
+    from ted_spad_tpu_torch.models import load_fa_model, load_fb_model, load_ft_model
+    from ted_spad_tpu_torch.ops.augment import sample_augment_params
+    from ted_spad_tpu_torch.stages import action_training, fa_pretraining
+    from ted_spad_tpu_torch.stages import anonymization_training as anon
+    from ted_spad_tpu_torch.stages.common import make_optimizer
+
+    rng = np.random.default_rng(0)
+    kw = dict(seed=0, dtype="float32", device=device)
+    rp, ap, p = ReconstructionParams(), ActionParams(temporal_loss="trip"), AnonymizationParams()
+    fa = load_fa_model(rp.arch_fa, **kw).requires_grad_(True)
+    images = torch.from_numpy(rng.integers(0, 256, (rp.batch_size, 256, 256, 3), dtype=np.uint8)).to(device)
+    image_draw = sample_image_augment_params(rng, rp.batch_size, 256, rp.reso_h, rp.reso_w)
+    ft = load_ft_model(ap.arch, num_classes=ap.num_classes, dropout_rate=ap.ft_dropout or None,
+                       **kw).requires_grad_(True)
+    gen = torch.Generator(device=device).manual_seed(0)
+    b = ap.batch_size
+    clips = torch.from_numpy(rng.integers(0, 256, (b, 3, ap.num_frames, 240, 320, 3), dtype=np.uint8)).to(device)
+    labels = rng.integers(0, ap.num_classes, b)
+    clip_draw = sample_augment_params(rng, b * 3, 240, 320, ap.reso_h, ap.reso_w)
+    fa_key, ft_key = "fast_unetpp_train_apply", "s2d_stem_conv"
+    steps = {
+        "fa pretraining step (UNet++, 32 x 224^2)": (
+            lambda: fa_pretraining.make_train_step(
+                fa, make_optimizer(fa.parameters(), "adam", rp.learning_rate), (rp.reso_h, rp.reso_w),
+                compute_dtype=rp.compute_dtype, device=device),
+            lambda step: step(images, image_draw), fa_key),
+        "action step (I3Res50 + head, 16 videos x 3 views of 16 x 224^2, FrozenBN)": (
+            lambda: action_training.make_train_step(
+                ft, make_optimizer(ft.parameters(), ap.opt_type, ap.learning_rate, ap.weight_decay,
+                                   ap.momentum), ap, generator=gen, device=device),
+            lambda step: step(clips, labels, clip_draw), ft_key),
+    }
+    adv_fa = load_fa_model(p.arch_fa, **kw).requires_grad_(True)
+    fb = load_fb_model(ssl=True, **kw).requires_grad_(True)
+    adv_ft = load_ft_model(p.arch_ft, num_classes=p.num_classes, **kw).requires_grad_(True)
+    g = torch.Generator(device=device).manual_seed(1)
+    side = (p.reso_h, p.reso_w, 3)
+    v1, v2 = (torch.rand((p.batch_size_vispr,) + side, generator=g, device=device) for _ in range(2))
+    adv_clips = torch.rand((p.batch_size, 3, p.num_frames) + side, generator=g, device=device)
+    adv_labels = torch.from_numpy(rng.integers(0, p.num_classes, p.batch_size)).to(device)
+    opts = [make_optimizer(m.parameters(), p.opt_type, lr, p.weight_decay)
+            for m, lr in ((adv_fa, p.learning_rate_fa), (fb, p.learning_rate_fb), (adv_ft, p.learning_rate_ft))]
+
+    def adv(step):
+        return step(v1, v2, adv_clips, adv_labels)
+
+    for remat in ("auto", "blocks", "off"):
+        q = p.replace(remat=remat)
+        steps[f"adversarial fa step (8 videos x 3 views + 12 pairs, remat {remat!r})"] = (
+            lambda q=q: anon.make_fa_step(adv_fa, fb, adv_ft, opts[0], q, device=device), adv, fa_key)
+        steps[f"adversarial fb/ft step (8 videos x 3 views + 12 pairs, remat {remat!r})"] = (
+            lambda q=q: anon.make_fbft_step(adv_fa, fb, adv_ft, opts[1], opts[2], q, generator=gen,
+                                            device=device), adv, ft_key)
+    return steps
+
+
+def train_turn(device, make_step, run, n: int = TRAINAB_STEPS, warmup: int = 1,
+               profile: bool = True) -> dict:
+    """One turn of ``train_ab``: the step built, ``warmup`` steps, ``n`` steps timed
+    (CUDA events), then with ``profile`` one step profiled: {"ms": [...], "peak_mib", and
+    with ``profile`` "device_ms", "busy", "launches"}."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats(device)
+    step = make_step()
+    for _ in range(warmup):
+        run(step)
+    times = []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        run(step)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    out = {"ms": times, "peak_mib": torch.cuda.max_memory_allocated(device) / 2**20}
+    if profile:
+        prof = device_profile(lambda: run(step), steps=1)
+        out.update(device_ms=prof["device_ms"], busy=prof["busy"], launches=prof["launches"])
+    return out
+
+
+def train_ab(device, make_step, run, key: str, what: str, turns=TRAINAB_TURNS,
+             n: int = TRAINAB_STEPS, warmup: int = 2, profile: bool = True) -> dict:
+    """One step with the train forms against the module forms: a discarded turn of
+    ``turns[0]`` (the first turn on a step pays the process's first work on it), then
+    each of ``turns`` (``train_turn``), the module form's inside ``module_train_forms``,
+    each counted (``counted``) and checked (``check_train_form``: the train form called
+    ``key`` under grad, the module form did not, no fused cuDNN call under grad).
+    {form: [train_turn's reading with its "calls"]}."""
+    import torch
+
+    out = {"train form": [], "module form": []}
+    for i, form in enumerate((turns[0],) + tuple(turns)):
+        with module_train_forms() if form == "module form" else contextlib.nullcontext(), \
+                counted({}) as calls:
+            r = train_turn(device, make_step, run, n, warmup, profile=profile and i > 0)
+        check_train_form(calls, key, form, what)
+        torch.cuda.empty_cache()
+        if i:
+            out[form].append(dict(r, calls=calls))
+    return out
+
+
+def ab_summary(ab: dict) -> str:
+    """``train_ab``'s readings in one line: each form's median step over its turns, the
+    turns' medians, peak memory (and device time and busy share where profiled), the
+    ratio of the medians."""
+    import statistics
+
+    parts, medians = [], {}
+    for form, rs in ab.items():
+        medians[form] = statistics.median(x for r in rs for x in r["ms"])
+        turns = " / ".join(f"{statistics.median(r['ms']):.3f}" for r in rs)
+        device = (f", device {statistics.mean(r['device_ms'] for r in rs):.3f} ms/step, busy "
+                  f"{statistics.mean(r['busy'] for r in rs):.3f}" if "device_ms" in rs[0] else "")
+        parts.append(f"{form} median {medians[form]:.3f} ms (turns' medians {turns}), peak "
+                     f"{max(r['peak_mib'] for r in rs):.1f} MiB{device}")
+    parts.append(f"module / train form {medians['module form'] / medians['train form']:.3f}")
+    return "; ".join(parts)
+
+
+def trainab(device) -> None:
+    """See the module docstring."""
+    import subprocess
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"[trainab] {card}", flush=True)
+    for name, (make_step, run, key) in train_steps(device).items():
+        ab = train_ab(device, make_step, run, key, name)
+        for form, rs in ab.items():
+            for r in rs:
+                print(f"[trainab] {name}, {form}: steps {[round(x, 3) for x in r['ms']]} ms, peak "
+                      f"{r['peak_mib']:.1f} MiB, device {r['device_ms']:.3f} ms/step, busy "
+                      f"{r['busy']:.3f}, {r['launches']:.0f} device events a step", flush=True)
+        print(f"[trainab] {name}: {ab_summary(ab)}", flush=True)
+
+
 def main() -> int:
     import torch
 
     probes = {"k1": k1, "k2": k2, "k3": k3, "k4": k4, "k4class": k4class, "gain": gain, "mgfn": mgfn,
               "int8ab": int8ab, "int8step": int8_step_turn, "k3ab": k3ab, "k3turn": k3_turn,
               "k2ab": k2ab, "k2turn": k2_turn, "fastforms": fastforms, "stepab": stepab,
-              "stepturn": step_turn}
+              "stepturn": step_turn, "trainab": trainab}
     takes_arg = ("int8ab", "int8step", "k3turn", "stepab", "stepturn")
     n_args = len(sys.argv) - 2
     if (len(sys.argv) < 2 or sys.argv[1] not in probes

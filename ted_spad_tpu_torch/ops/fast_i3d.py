@@ -13,6 +13,10 @@ runs through the module from ``features_from_stem``.
 ``WrapperI3D``; any other model, train mode and odd frame sides run the module. With
 ``input_s2d`` the clips arrive already in the s2d layout (the UNet++ fast path's
 ``emit_s2d`` head writes it), so no relayout sits between the two models.
+``make_fast_ft_train_forward`` is the train form: the s2d stem conv, the re-binning
+inside the autograd graph, then the stem's BatchNorm as the module runs it in train
+mode (the batch's statistics, or FrozenBN's running ones) and the module from
+``forward_from_stem`` in train mode.
 
 Layouts: frames NHWC, clips (B, C, T, H, W) in ``channels_last_3d`` memory. The s2d
 channel order is (py, px, c)-major, as in the JAX package.
@@ -25,7 +29,7 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
-from ted_spad_tpu_torch.models.layers import checkpoint
+from ted_spad_tpu_torch.models.layers import batch_norm, checkpoint
 from ted_spad_tpu_torch.ops.fold import FoldCache, compute_dtype, fused_relu_ok
 from ted_spad_tpu_torch.utils.device import at_least_f32
 
@@ -60,11 +64,12 @@ def depth_to_space_2x2(x: torch.Tensor, channel_dim: int = -1) -> torch.Tensor:
     return y if channel_dim in (-1, x.dim() - 1) else y.movedim(-1, channel_dim)
 
 
-def _s2d_taps(k: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def _s2d_taps(k: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(coarse tap, parity, fine tap) of each of the k fine taps of a stride-2 window
     centred on tap k // 2: fine offset o = j - k // 2 lands at floor(o / 2) + 2, parity
-    o mod 2."""
-    j = torch.arange(k)
+    o mod 2. Made on ``device``: index tensors copied from the host would wait for the
+    device's queue on every train-mode call."""
+    j = torch.arange(k, device=device)
     o = j - k // 2
     return torch.div(o, 2, rounding_mode="floor") + 2, o % 2, j
 
@@ -74,7 +79,7 @@ def stem_s2d_kernel(w: torch.Tensor) -> torch.Tensor:
     the s2d input; input channel block (qy, qx, c) matches ``space_to_depth_2x2``."""
     kt, kh, kw, cin, cout = w.shape
     assert (kh, kw, cin) == (7, 7, 3), w.shape
-    a, q, j = _s2d_taps(7)
+    a, q, j = _s2d_taps(7, w.device)
     ay, ax = a[:, None].expand(7, 7), a[None, :].expand(7, 7)
     qq = (q[:, None] * 2 + q[None, :])
     jy, jx = j[:, None].expand(7, 7), j[None, :].expand(7, 7)
@@ -86,30 +91,42 @@ def stem_s2d_kernel(w: torch.Tensor) -> torch.Tensor:
 _CACHE = FoldCache()
 
 
-def _stem_weights(stem, dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
-    """The stem's s2d kernel with its eval BatchNorm folded in (in float32, float64 for a
-    float64 module), (Cout, 16, 5, 4, 4) in ``dtype`` (input channels beyond 12 are
-    zero), and the folded bias in ``dtype``."""
+def _stem_weights(stem, dtype: torch.dtype,
+                  fold_bn: bool = True) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The stem's s2d kernel, (Cout, 16, 5, 4, 4) in ``dtype`` (input channels beyond 12
+    are zero), with its eval BatchNorm folded in (in float32, float64 for a float64
+    module) and the folded bias in ``dtype``; without ``fold_bn`` the conv's own kernel
+    and no bias."""
     bn, wide = stem.bn, at_least_f32
-    scale = wide(bn.weight) / torch.sqrt(wide(bn.running_var) + bn.eps)
-    bias = wide(bn.bias) - wide(bn.running_mean) * scale
-    ws = stem_s2d_kernel(wide(stem.conv.weight).permute(2, 3, 4, 1, 0)) * scale
+    ws = stem_s2d_kernel(wide(stem.conv.weight).permute(2, 3, 4, 1, 0))
+    bias = None
+    if fold_bn:
+        scale = wide(bn.weight) / torch.sqrt(wide(bn.running_var) + bn.eps)
+        bias = (wide(bn.bias) - wide(bn.running_mean) * scale).to(dtype)
+        ws = ws * scale
     ws = F.pad(ws, (0, 0, 0, _STEM_CIN - ws.shape[-2]))
     wt = ws.permute(4, 3, 0, 1, 2).to(dtype).contiguous(memory_format=torch.channels_last_3d)
-    return wt, bias.to(dtype)
+    return wt, bias
 
 
-def s2d_stem(stem, xs: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """The stem (conv, eval BatchNorm, ReLU) on s2d clips (B, 12, T, H/2, W/2) ->
-    (B, Cout, T/2, H/2, W/2), ``channels_last_3d``: a stride-(2, 1, 1) conv with pads
-    (2, 2), (2, 1), (2, 1) (the fine (3, 3) pads on the coarse grid). The pads and the
-    zero channels up to 16 are written into one buffer, so the conv runs unpadded."""
-    wt, bias = _CACHE.get(stem, ("s2d_stem", dtype, xs.device),
-                          lambda: _stem_weights(stem, dtype))
+def _stem_buffer(xs: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """s2d clips (B, 12, T, H/2, W/2) in one zeroed ``channels_last_3d`` buffer with the
+    stem's pads, (2, 2), (2, 1), (2, 1) (the fine (3, 3) pads on the coarse grid), and
+    the zero channels up to 16 around them, so the stem conv runs unpadded."""
     b, c, t, h, w = xs.shape
     buf = torch.empty((b, _STEM_CIN, t + 4, h + 3, w + 3), dtype=dtype, device=xs.device,
                       memory_format=torch.channels_last_3d).zero_()
     buf[:, :c, 2:t + 2, 2:h + 2, 2:w + 2] = xs
+    return buf
+
+
+def s2d_stem(stem, xs: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The stem (conv, eval BatchNorm, ReLU) on s2d clips (B, 12, T, H/2, W/2) ->
+    (B, Cout, T/2, H/2, W/2), ``channels_last_3d``: a stride-(2, 1, 1) conv over
+    ``_stem_buffer`` with the BatchNorm folded into its weights and bias."""
+    wt, bias = _CACHE.get(stem, ("s2d_stem", dtype, xs.device),
+                          lambda: _stem_weights(stem, dtype))
+    buf = _stem_buffer(xs, dtype)
     if fused_relu_ok(buf, wt):
         return torch.cudnn_convolution_relu(buf, wt, bias, (2, 1, 1), (0, 0, 0), (1, 1, 1), 1)
     return F.relu_(F.conv3d(buf, wt, bias, stride=(2, 1, 1)))
@@ -161,3 +178,56 @@ def make_fast_ft_forward(ft) -> Callable:
         return ft(x, train=train, **kw)
 
     return _make_fast(ft, lambda y, **kw: ft.forward_from_stem(y, **kw), module_apply)
+
+
+def s2d_stem_conv(stem, xs: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The stem's conv alone (no BatchNorm, no ReLU) on s2d clips, as ``s2d_stem`` runs
+    it; the re-binned kernel is made inside the autograd graph, so the gradient reaches
+    the (Cout, 3, 5, 7, 7) weight."""
+    wt, _ = _stem_weights(stem, dtype, fold_bn=False)
+    return F.conv3d(_stem_buffer(xs, dtype), wt, stride=(2, 1, 1))
+
+
+def module_train_forward(ft) -> Callable:
+    """``fwd(clips, generator=None, frozen_bn=False, remat_blocks=False) -> (logits, emb)``
+    through the module's own train forward (``make_fast_ft_train_forward``'s fallback)."""
+    def fwd(x, generator=None, frozen_bn=False, remat_blocks=False):
+        kw = {"frozen_bn": True} if frozen_bn else {}
+        return ft(x, train=True, generator=generator, remat_blocks=remat_blocks, **kw)
+
+    return fwd
+
+
+def make_fast_ft_train_forward(ft) -> Callable:
+    """``fwd(clips, generator=None, frozen_bn=False, remat_blocks=False) -> (logits,
+    emb)`` == the module's ``forward(clips, train=True, ...)`` on (B, 3, T, H, W) clips,
+    the stem computed s2d: its conv (``s2d_stem_conv``), then the module's train-mode
+    BatchNorm (``layers.batch_norm``): with ``frozen_bn=False`` the batch's statistics,
+    the stem's running ones moved once, in place; with ``frozen_bn=True`` (FrozenBN) the
+    running statistics as an affine, left as they are, its weight and bias still
+    trained; then ReLU and ``forward_from_stem`` in train mode with ``generator``
+    (dropout) and ``remat_blocks``, under which the stem is one more checkpointed
+    piece. Any model but ``WrapperI3D``, and odd frame sides, run the module's own
+    train forward."""
+    from ted_spad_tpu_torch.models.i3res50 import WrapperI3D
+
+    module_apply = module_train_forward(ft)
+    if not isinstance(ft, WrapperI3D):
+        return module_apply
+    stem = ft.i3d.stem
+
+    def fwd(x: torch.Tensor, generator=None, frozen_bn: bool = False, remat_blocks: bool = False):
+        if x.shape[-1] % 2 or x.shape[-2] % 2:
+            return module_apply(x, generator, frozen_bn, remat_blocks)
+        dtype = compute_dtype(ft, x.device)
+
+        def stem_fn(xs):
+            y = batch_norm(stem.bn, s2d_stem_conv(stem, xs, dtype), train=True, frozen=frozen_bn)
+            return F.relu(y, inplace=True)
+
+        xs = space_to_depth_2x2(x.to(dtype), channel_dim=1)
+        y = checkpoint(stem_fn, xs) if remat_blocks else stem_fn(xs)
+        return ft.forward_from_stem(y, train=True, frozen_bn=frozen_bn, generator=generator,
+                                    remat_blocks=remat_blocks)
+
+    return fwd

@@ -1,5 +1,5 @@
-"""The UNet++ eval fast path (counterpart of ted_spad_tpu/ops/fast_unetpp.py): exact
-re-formulations of the module's eval forward over the unchanged
+"""The UNet++ fast paths (counterpart of ted_spad_tpu/ops/fast_unetpp.py): exact
+re-formulations of the module's eval and train forwards over the unchanged
 ``models.unet.UNetPlusPlus``, shared with the int8 serving mode (ops/quant_unetpp.py).
 
 The identity everywhere here: ``conv3x3(nearest_up2(x), W)`` equals one conv of the
@@ -20,18 +20,27 @@ writes the output in the 2x2 space-to-depth layout the I3Res50 s2d stem reads
 (ops/fast_i3d.py). Folded weights are made from the module's current parameters and
 kept only until any of them changes (``fold.FoldCache``).
 
+``fast_unetpp_train_apply`` / ``fast_encoder_train_apply``: the train forward, the same
+convolutions with BatchNorm on the batch's statistics (``layers.flax_batch_norm``, which
+moves the running statistics in place), every kernel transform inside the autograd
+graph so the gradients reach the module's own weights; nothing is folded or cached.
+Under ``remat_blocks`` each of ``TRAIN_REMAT_SAVE_NAMES`` is checkpointed on its own.
+``make_fast_fa_apply`` routes train calls there as the JAX package does.
+
 Layout: activations NHWC (NCHW views of ``channels_last`` memory at the entry points),
 kernels HWIO in float32 until they are laid out for a conv.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ted_spad_tpu_torch.models.layers import checkpoint, flax_batch_norm
 from ted_spad_tpu_torch.ops.fast_i3d import depth_to_space_2x2, space_to_depth_2x2, stem_s2d_kernel
 from ted_spad_tpu_torch.ops.fold import FoldCache, compute_dtype, fused_relu_ok
 from ted_spad_tpu_torch.utils.device import at_least_f32
@@ -56,10 +65,21 @@ _DF = _D[::-1].copy()
 _R18_ENC_LAYERS = (("layer1", 2, 1), ("layer2", 2, 2), ("layer3", 2, 2))
 
 
+@functools.lru_cache(maxsize=None)
+def _up2_mixing(device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """``_DF`` on ``device`` in ``dtype``, copied there once: a copy from host memory
+    waits for the device's queue, which a train step would otherwise do per block. Made
+    outside inference mode, so that autograd may save it even when an inference-mode
+    call made it first."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_DF).to(device, dtype)
+
+
 def up2_dilated_kernel(w: torch.Tensor) -> torch.Tensor:
     """(3, 3, Cin, Cout) -> (4, 4, Cin, Cout) kernel K with
-    ``conv(x, K, lhs_dilation=2, padding=2) == conv3x3_SAME(nearest_up2(x))``."""
-    d = torch.from_numpy(_DF).to(w.device, w.dtype)
+    ``conv(x, K, lhs_dilation=2, padding=2) == conv3x3_SAME(nearest_up2(x))``, as the JAX
+    package's einsum forms it (the int8 mode's weight codes match JAX's bit for bit)."""
+    d = _up2_mixing(w.device, w.dtype)
     return torch.einsum("ae,bf,efio->abio", d, d, w)
 
 
@@ -105,6 +125,21 @@ def conv_nhwc(x: torch.Tensor, w: torch.Tensor, strides, padding, dtype: torch.d
     y = conv(F.pad(xt, pad_list), wt, stride=tuple(strides)) if sym is None else \
         conv(xt, wt, stride=tuple(strides), padding=sym)
     return y.movedim(1, -1)
+
+
+def _conv_wpack(x: torch.Tensor, w: torch.Tensor, r: int, dtype: torch.dtype) -> torch.Tensor:
+    """The SAME conv3x3 of NHWC ``x`` with ``r`` consecutive output columns packed into
+    channels: a (3, 2 + r, Cin, r * Cout) kernel at stride (1, r), (2 + r) / 3 times the
+    multiply-adds for r times the output channels. Needs W % r == 0. Off every
+    production path, as in the JAX package, where it was a TPU lane-width form that lost
+    inside the decoder; kept with its test until a card shows it pays."""
+    cout = w.shape[-1]
+    wp = w.new_zeros((3, 2 + r, w.shape[2], r, cout))
+    for j in range(r):
+        wp[:, j:j + 3, :, j, :] += w
+    y = conv_nhwc(x, wp.reshape(3, 2 + r, w.shape[2], r * cout), (1, r), ((1, 1), (1, r)), dtype)
+    n, h, wr, _ = y.shape
+    return y.reshape(n, h, wr * r, cout)
 
 
 def _up2_layout(w44: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -230,16 +265,17 @@ def _decoder_schedule(model, f: list, dtype: torch.dtype, block, conv=None):
     def sk(site, x):
         return conv(site, x, lambda: skip_kernel(model, site))
 
+    # The batched outputs are split, not sliced: a split's backward is one concatenation
+    # of the parts' gradients, where each slice's would zero a buffer of the whole.
     x_0_0 = block("x_0_0", f[0], sk("sk_f1", f[1]))
-    f2c = sk("sk_f2", f[2])  # 64 + 128
-    f3c = sk("sk_f3", f[3])  # 64 * 3
-    x_1_1 = block("x_1_1", f[1], f2c[..., :64])
-    x_2_2 = block("x_2_2", f[2], f3c[..., :64])
-    x22c = sk("sk_x22", x_2_2)  # 64 + 64
-    x_0_1 = block("x_0_1", x_0_0, sk("sk_x11", x_1_1) + f2c[..., 64:192])
-    x_1_2 = block("x_1_2", x_1_1, x22c[..., :64] + f3c[..., 64:128])
-    x_0_2 = block("x_0_2", x_0_1,
-                  sk("sk_x12", x_1_2) + x22c[..., 64:128] + f3c[..., 128:192])
+    f2_11, f2_01 = sk("sk_f2", f[2]).split((64, 128), dim=-1)
+    f3_22, f3_12, f3_02 = sk("sk_f3", f[3]).split(64, dim=-1)
+    x_1_1 = block("x_1_1", f[1], f2_11)
+    x_2_2 = block("x_2_2", f[2], f3_22)
+    x22_12, x22_02 = sk("sk_x22", x_2_2).split(64, dim=-1)
+    x_0_1 = block("x_0_1", x_0_0, sk("sk_x11", x_1_1) + f2_01)
+    x_1_2 = block("x_1_2", x_1_1, x22_12 + f3_12)
+    x_0_2 = block("x_0_2", x_0_1, sk("sk_x12", x_1_2) + x22_02 + f3_02)
     return block("x_0_3", x_0_2, None)
 
 
@@ -499,6 +535,149 @@ def fast_unetpp_apply(model, frames: torch.Tensor, *, encoder_apply: Callable | 
     return _unetpp_from_folded(frames, wts, dtype, encoder_apply, emit_s2d, stem_mode)
 
 
+# ---------------------------------------------------------------------------
+# The train forward: BatchNorm on the batch's statistics
+# ---------------------------------------------------------------------------
+
+# The pieces the train forward checkpoints one by one under ``remat_blocks``
+# (``layers.checkpoint``), under the JAX package's names for them: the four encoder
+# features (f0 the deepest, layer3's; f3 the stem's) and the seven decoder blocks. Their
+# outputs stay resident and only their insides are recomputed in the backward, as under
+# the JAX package's ``save_only_these_names`` policy over these names.
+TRAIN_REMAT_SAVE_NAMES = (
+    "fa_enc_f0",
+    "fa_enc_f1",
+    "fa_enc_f2",
+    "fa_enc_f3",
+    "fa_blk_x_0_0",
+    "fa_blk_x_1_1",
+    "fa_blk_x_2_2",
+    "fa_blk_x_0_1",
+    "fa_blk_x_1_2",
+    "fa_blk_x_0_2",
+    "fa_blk_x_0_3",
+)
+
+
+def _piece(name: str, remat_blocks: bool, fn: Callable, *args: torch.Tensor) -> torch.Tensor:
+    """``fn(*args)``, the train forward's piece ``name`` (one of
+    ``TRAIN_REMAT_SAVE_NAMES``), checkpointed on its own under ``remat_blocks``."""
+    assert name in TRAIN_REMAT_SAVE_NAMES, name
+    return checkpoint(fn, *args) if remat_blocks else fn(*args)
+
+
+def _convbn_train(y: torch.Tensor, convbn, relu: bool = True) -> torch.Tensor:
+    """A ConvBN's train-mode BatchNorm (then ReLU) on its conv's NHWC output ``y``:
+    ``layers.flax_batch_norm``, the batch's statistics in float32 (float64 stays
+    float64), the running ones moved in place; the output in ``y``'s dtype."""
+    out = flax_batch_norm(convbn.bn, y.movedim(-1, 1))
+    # ReLU in place before the NHWC view is taken: in place on a view, autograd would
+    # record the view's replay and rebase ops for it.
+    return (F.relu(out, inplace=True) if relu else out).movedim(1, -1)
+
+
+def _module_conv(x: torch.Tensor, conv: torch.nn.Conv2d, dtype: torch.dtype, stride: int = 1,
+                 padding: int = 1) -> torch.Tensor:
+    """A conv module's own weight and bias on NHWC ``x`` in ``dtype``: the parameter goes
+    to the conv as it is, so autocast casts it once per autocast region (its cast cache
+    holds leaf tensors only), as it does for the module."""
+    y = F.conv2d(x.to(dtype).movedim(-1, 1), conv.weight, conv.bias, stride, padding)
+    return y.movedim(1, -1)
+
+
+def _basic_block_train(x: torch.Tensor, blk, stride: int, dtype: torch.dtype) -> torch.Tensor:
+    """torchvision BasicBlock's train forward on NHWC ``x``: conv1 + BN + ReLU, conv2 +
+    BN, the residual (the input, or the 1x1 downsample + BN) added, ReLU."""
+    y = _convbn_train(_module_conv(x, blk.conv1.conv, dtype, stride), blk.conv1)
+    y = _convbn_train(_module_conv(y, blk.conv2.conv, dtype), blk.conv2, relu=False)
+    r = x
+    if blk.downsample is not None:
+        r = _convbn_train(_module_conv(x, blk.downsample.conv, dtype, stride, 0), blk.downsample,
+                          relu=False)
+    return F.relu(y + r, inplace=True)
+
+
+def fast_encoder_train_apply(encoder, frames: torch.Tensor, dtype: torch.dtype,
+                             stem_mode: str = "plain", remat_blocks: bool = False) -> list:
+    """Train forward of the ResNet-18 encoder (inline) on NHWC frames: the stage features
+    [stem (/2, 64), layer1 (/4, 64), layer2 (/8, 128), layer3 (/16, 256)], NHWC, == the
+    module's train-mode feature list without its input, its BN running statistics moved
+    as the module's. Both stem modes' kernels are made from the (64, 3, 7, 7) weight
+    inside the graph, so its gradient is the module's. ``remat_blocks`` checkpoints the
+    stem and each stage on its own (the maxpool inside layer1's piece)."""
+    def stem(x):
+        y = _module_conv(x, encoder.stem.conv, dtype, 2, 3) if stem_mode == "plain" else \
+            _stem_conv(encoder.stem, x, dtype, mode=stem_mode)
+        return _convbn_train(y, encoder.stem)
+
+    def stage(x, lname, nblocks, stride):
+        if lname == "layer1":
+            x = _resnet_maxpool(x)
+        for i in range(nblocks):
+            x = _basic_block_train(x, getattr(encoder, f"{lname}_{i}"), stride if i == 0 else 1,
+                                   dtype)
+        return x
+
+    feats = [_piece("fa_enc_f3", remat_blocks, stem, frames)]
+    for k, (lname, nblocks, stride) in enumerate(_R18_ENC_LAYERS):
+        feats.append(_piece(f"fa_enc_f{2 - k}", remat_blocks,
+                            lambda x, a=(lname, nblocks, stride): stage(x, *a), feats[-1]))
+    return feats
+
+
+def fast_unetpp_train_apply(model, frames: torch.Tensor, *,
+                            encoder_apply: Callable | None = None,
+                            remat_blocks: bool = False) -> torch.Tensor:
+    """Train forward of the UNetPlusPlus on NHWC frames -> (N, H, W, 3) float32, the
+    module's ``forward(train=True)`` in the fast form: the up2 convs as transposed
+    convs, the skip convs batched along Cout (``_decoder_schedule``), no upsampled
+    tensor or concatenation; BatchNorm on the batch's statistics, the running ones
+    moved in place once. The result equals the module's in real arithmetic (the block's
+    conv1 summed as up2 conv + skip convs rather than one conv of the concatenation).
+    ``encoder_apply``: None (the inline encoder, ``fast_encoder_train_apply``), else a
+    callable (NHWC frames) -> the module encoder's train-mode NHWC features, its input
+    at index 0. Convolutions run in the module's compute dtype (``fold.compute_dtype``).
+    ``remat_blocks``: each of ``TRAIN_REMAT_SAVE_NAMES`` checkpointed on its own."""
+    dtype = compute_dtype(model, frames.device)
+    in_h, in_w = frames.shape[-3], frames.shape[-2]
+    if encoder_apply is None:
+        feats = fast_encoder_train_apply(model.encoder, frames, dtype, remat_blocks=remat_blocks)
+    else:
+        feats = [t.to(dtype) for t in encoder_apply(frames)[1:]]
+
+    # Each block's conv1 kernel split once along its input channels, into its up2 part
+    # (key 0) and the parts its skip convs read (key: their first channel): the split's
+    # backward is one concatenation into the weight's gradient, where a slice each would
+    # zero and add buffers of the whole weight.
+    parts = {}
+    for name in _DEC_BLOCKS:
+        w1 = kernel(getattr(model, name).conv1.conv)
+        bounds = [0] + sorted(lo for (n, _), (lo, _) in _PARTS.items() if n == name) + [w1.shape[2]]
+        sizes = [hi - lo for lo, hi in zip(bounds, bounds[1:])]
+        parts.update({(name, lo): p for lo, p in zip(bounds, w1.split(sizes, dim=2))})
+
+    def skip_conv(site, x, w):
+        ks = [parts[(name, lo)] for name, lo, _ in _SKIP_SITES[site]]
+        k = ks[0] if len(ks) == 1 else torch.cat(ks, dim=-1)
+        return conv_nhwc(x, k, (1, 1), ((1, 1), (1, 1)), dtype)
+
+    def block(name, xin, skip_sum):
+        blk = getattr(model, name)
+
+        def run(x, skip=None):
+            y = up2_conv(x, up2_dilated_kernel(parts[(name, 0)]), dtype)
+            if skip is not None:
+                y = _pad_to(y, skip.shape) + skip
+            y = _convbn_train(y, blk.conv1)
+            return _convbn_train(_module_conv(y, blk.conv2.conv, dtype), blk.conv2)
+
+        args = (xin,) if skip_sum is None else (xin, skip_sum)
+        return _piece("fa_blk_" + name, remat_blocks, run, *args)
+
+    x_0_3 = _decoder_schedule(model, feats[::-1], dtype, block, conv=skip_conv)
+    return _module_conv(_pad_to(x_0_3, (in_h, in_w, 0)), model.head, dtype).float()
+
+
 def decoder_channels(model) -> tuple[int, ...]:
     """A UNet++'s decoder widths, x_0_0's to x_0_3's."""
     return tuple(getattr(model, n).conv2.conv.out_channels
@@ -513,9 +692,12 @@ def make_fast_fa_apply(fa) -> Callable:
 
     - a fa that is not a UNetPlusPlus, or whose decoder is not (256, 128, 64, 32), runs
       the module (``kw`` passed on, e.g. a UNet's ``use_kernel``); ``emit_s2d`` raises;
-    - a non-standard encoder runs the module encoder inside the fused decoder;
-    - sides 16 does not divide and ``train=True`` run the module, followed with
-      ``emit_s2d`` by ``space_to_depth_2x2`` of its output in the compute dtype.
+    - ``train=True`` runs the train form (``fast_unetpp_train_apply``; ``kw`` may hold
+      ``remat_blocks``), with any other keyword or ``emit_s2d`` the module;
+    - a non-standard encoder runs the module encoder inside the fused decoder, in the
+      train form in train mode;
+    - sides 16 does not divide run the module; where the module runs for a call with
+      ``emit_s2d``, ``space_to_depth_2x2`` of its output in the compute dtype follows.
 
     ``apply.supports_s2d``: whether ``emit_s2d`` feeds a 3-channel s2d stem."""
     from ted_spad_tpu_torch.models.unet import UNetPlusPlus
@@ -531,17 +713,24 @@ def make_fast_fa_apply(fa) -> Callable:
 
     inline = encoder_layout_standard(fa.encoder)
 
-    def encoder_apply(frames):
-        feats = fa.encoder(frames.movedim(-1, 1).to(fa.head.weight.dtype))
+    def encoder_apply(frames, **kw):
+        feats = fa.encoder(frames.movedim(-1, 1).to(fa.head.weight.dtype), **kw)
         return [t.movedim(1, -1) for t in feats]
 
     def apply(frames, train=False, emit_s2d=False, **kw):
         h, w = frames.shape[-2], frames.shape[-1]
-        if train or h % 16 or w % 16:
+        if h % 16 or w % 16 or (train and (emit_s2d or set(kw) - {"remat_blocks"})):
             out = fa(frames, train=True, **kw) if train else fa(frames, **kw)
             if emit_s2d:
                 out = space_to_depth_2x2(out.to(compute_dtype(fa, out.device)), channel_dim=1)
             return out
+        if train:
+            blocks = kw.get("remat_blocks", False)
+            enc = None if inline else functools.partial(encoder_apply, train=True,
+                                                        remat_blocks=blocks)
+            out = fast_unetpp_train_apply(fa, frames.movedim(1, -1), encoder_apply=enc,
+                                          remat_blocks=blocks)
+            return out.movedim(-1, 1)
         out = fast_unetpp_apply(fa, frames.movedim(1, -1),
                                 encoder_apply=None if inline else encoder_apply,
                                 emit_s2d=emit_s2d)

@@ -12,8 +12,8 @@ train_classifier :189 -- and train_anonymized_action.py).
   anchor / same-frames positive / shifted negative; 'con': NT-Xent of two views);
   backward and the optimizer. Every ft family trains: I3Res50 (``largei3d``; its
   128-d MLP embeddings feed the temporal loss, FrozenBN backbone, train_action.py:
-  39-41), InceptionI3d (``i3d``, its 1024-d feature, BN momentum 0.99, the logits'
-  dropout), R3D-18 (``r3d_18``, 512-d) and MViTv2-S (``mvitv2``, 768-d, no BN or
+  39-41; its stem as the s2d conv of ``make_fast_ft_train_forward``), InceptionI3d
+  (``i3d``, its 1024-d feature, BN momentum 0.99, the logits' dropout), R3D-18 (``r3d_18``, 512-d) and MViTv2-S (``mvitv2``, 768-d, no BN or
   dropout); dropout draws from an explicit generator. Convolutions and matmuls run
   in ``compute_dtype`` under autocast over float32 parameters.
 - Validation: modes x cropping factors x mirror, softmax averaged per video, each
@@ -47,7 +47,7 @@ from ted_spad_tpu_torch.models import load_fa_model, load_ft_model
 from ted_spad_tpu_torch.ops.augment import (
     AugmentParams, augment_batch, center_crop_resize, five_crop_corners, resize_frames,
 )
-from ted_spad_tpu_torch.ops.fast_i3d import make_fast_ft_forward
+from ted_spad_tpu_torch.ops.fast_i3d import make_fast_ft_forward, make_fast_ft_train_forward
 from ted_spad_tpu_torch.ops.fast_unetpp import make_fast_fa_apply
 from ted_spad_tpu_torch.ops.losses import (
     cross_entropy_loss, l2_normalize, nt_xent_loss, supcon_loss, triplet_margin_loss,
@@ -104,8 +104,9 @@ def make_train_step(ft: torch.nn.Module, optimizer: torch.optim.Optimizer, p: Ac
     one-process step over it; an unsharded one takes the whole batch on every rank."""
     device = module_device(ft, device)
     # FrozenBN for the largei3d ft alone (train_action.py:39-41); the other families
-    # take no such argument.
-    frozen = {"frozen_bn": True} if p.arch == "largei3d" else {}
+    # take no such argument. An I3Res50 runs its train form (the s2d stem).
+    frozen_bn = p.arch == "largei3d"
+    ft_train = make_fast_ft_train_forward(ft)
     aug_dtype = augment_dtype(ft)
 
     def train_step(clips_u8, labels, aug: AugmentParams, sharded: bool = True) -> torch.Tensor:
@@ -124,7 +125,7 @@ def make_train_step(ft: torch.nn.Module, optimizer: torch.optim.Optimizer, p: Ac
                 x = _apply_fa_frames(fa, x)
         optimizer.zero_grad(set_to_none=True)
         with autocast(device, p.compute_dtype), active(dp):
-            logits, emb = ft(x.permute(0, 4, 1, 2, 3), train=True, generator=generator, **frozen)
+            logits, emb = ft_train(x.permute(0, 4, 1, 2, 3), generator=generator, frozen_bn=frozen_bn)
         logits, emb = logits.reshape(b, v, -1)[:, 0], emb.reshape(b, v, -1)
         if dp is not None:
             logits, emb, labels = dp.gather_rows(logits), dp.gather_rows(emb), dp.gather_rows(labels)

@@ -63,7 +63,7 @@ from ted_spad_tpu_torch.data.videos import ClipBatch, ClipDataset
 from ted_spad_tpu_torch.models import load_fa_model, load_fb_model, load_ft_model
 from ted_spad_tpu_torch.models.layers import checkpoint
 from ted_spad_tpu_torch.ops.augment import augment_batch, center_crop_resize
-from ted_spad_tpu_torch.ops.fast_i3d import make_fast_ft_forward
+from ted_spad_tpu_torch.ops.fast_i3d import make_fast_ft_forward, make_fast_ft_train_forward
 from ted_spad_tpu_torch.ops.fast_unetpp import make_fast_fa_apply
 from ted_spad_tpu_torch.ops.losses import (
     cross_entropy_loss, l2_normalize, nt_xent_loss, supcon_loss, triplet_margin_loss,
@@ -108,8 +108,9 @@ def _anon_frames(fa: torch.nn.Module, video: torch.Tensor, train: bool,
     """The fa over every frame of (..., h, w, 3) -> the same shape, float32. ``train``
     uses and moves BN's batch statistics; ``quirk`` (clips (B, V, T, h, w, 3) only)
     feeds it the reference's scrambled view of the views concatenated on T
-    (train_anonymizer.py:86-98) and reads its output back. In eval mode the UNet++ runs
-    its fused eval form (``make_fast_fa_apply``); train mode runs the module."""
+    (train_anonymizer.py:86-98) and reads its output back. The UNet++ runs its fast
+    form (``make_fast_fa_apply``): the fused eval form, or in train mode the train form,
+    whose blocks ``remat="blocks"`` checkpoints one by one."""
     lead = video.shape[:-3]
     scramble = quirk and video.dim() == 6
     if scramble:
@@ -136,20 +137,22 @@ def _ft_losses(ft: torch.nn.Module, anon_clips: torch.Tensor, labels: torch.Tens
                parts: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
     """(classification + weighted triplet loss, triplet loss) of the ft over the
     anonymized (B, 3, T, h, w, 3) views in one batched forward (train_anonymizer.py:
-    99-116). ``train``: BN's batch statistics and dropout from ``generator``; in eval
-    mode (the frozen ft of the fa step) an I3Res50 runs its s2d stem
-    (``make_fast_ft_forward``), through which the gradient reaches the clips. With
+    99-116). ``train``: BN's batch statistics and dropout from ``generator``, an
+    I3Res50 through its train form (``make_fast_ft_train_forward``: the s2d stem, its
+    BN on the batch's statistics); in eval mode (the frozen ft of the fa step) an
+    I3Res50 runs its s2d stem (``make_fast_ft_forward``), through which the gradient
+    reaches the clips. With
     ``mesh`` the rows are this rank's (in ``parts`` microbatches) and the losses the
     global batch's."""
     b, v = anon_clips.shape[:2]
     x = anon_clips.reshape((b * v,) + anon_clips.shape[2:]).permute(0, 4, 1, 2, 3)
     blocks = remat == "blocks"
 
-    ft_forward = make_fast_ft_forward(ft)
+    ft_forward = make_fast_ft_train_forward(ft) if train else make_fast_ft_forward(ft)
 
     def run(t: torch.Tensor):
         if train:
-            return ft(t, train=True, generator=generator, remat_blocks=blocks)
+            return ft_forward(t, generator=generator, remat_blocks=blocks)
         return ft_forward(t, remat_blocks=blocks)
 
     gens = (generator,) if train and generator is not None else ()

@@ -4,8 +4,9 @@ fa_pretraining/train_reconstruction.py: train_epoch :26, validation_epoch :61,
 train_classifier :95).
 
 - A train step: the host's augmentation draw applied on the card (ops/augment.py),
-  the fa forward in train mode (flax BatchNorm semantics; a UNet's DoubleConvs run
-  unfolded, not through kernel K2), the L1 loss (:111) against the augmented input,
+  the fa forward in train mode (flax BatchNorm semantics; the UNet++ through its train
+  fast form, ``make_fast_fa_apply``; a UNet's DoubleConvs run unfolded, not through
+  kernel K2), the L1 loss (:111) against the augmented input,
   backward and Adam (lr 1e-3, no weight decay). Convolutions and matmuls run in
   ``compute_dtype`` under autocast; the parameters and the optimizer stay float32.
 - Per-epoch LR: warmup, then a scheduled drop after non-improving epochs
@@ -53,18 +54,20 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                     out_hw: tuple[int, int], *, compute_dtype: str | None = "bfloat16",
                     device: str | torch.device = "cuda") -> Callable:
     """``train_step(images_u8 (B, S, S, 3), aug: AugmentParams) -> loss`` (a device
-    scalar): augment, fa forward in train mode, L1 to the augmented input, backward,
-    optimizer step. After the step each parameter's ``.grad`` holds its gradient."""
+    scalar): augment, fa forward in train mode (the UNet++ through its train fast
+    form, ``make_fast_fa_apply``), L1 to the augmented input, backward, optimizer step.
+    After the step each parameter's ``.grad`` holds its gradient."""
     device = module_device(model, device)
     out_h, out_w = out_hw
     aug_dtype = augment_dtype(model)
+    fa_apply = make_fast_fa_apply(model)
 
     def train_step(images_u8, aug: AugmentParams) -> torch.Tensor:
         images = torch.as_tensor(images_u8).to(device, non_blocking=True)
         x = augment_batch(images[:, None], aug, out_h, out_w, aug_dtype)[:, 0].permute(0, 3, 1, 2)
         optimizer.zero_grad(set_to_none=True)
         with autocast(device, compute_dtype):
-            recon = model(x, train=True)
+            recon = fa_apply(x, train=True)
         loss = l1_loss(recon, x)
         loss.backward()
         zero_missing_grads(optimizer)

@@ -138,7 +138,10 @@ def test_fast_forward_matches_jax_and_module(i3res50, input_s2d):
 
 def test_fallbacks_run_the_module(i3res50):
     """Odd frame sides and train mode run the module (an s2d input undone first); any
-    model but WrapperI3D gets the module's own call, without supports_s2d."""
+    model but WrapperI3D gets the module's own call, without supports_s2d. Train mode's
+    own form, make_fast_ft_train_forward, routes as the JAX package's: the s2d stem
+    conv at even sides (each FrozenBN value; output within 2e-4 of the module's train forward in
+    float64, the statistics moved alike), the module at odd sides and for any other model."""
     _, _, ft = i3res50
     stems = []
     real = fast_i3d.s2d_stem
@@ -172,6 +175,28 @@ def test_fallbacks_run_the_module(i3res50):
             np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=k)
         assert stems == []
 
+        convs = []
+        real_conv = fast_i3d.s2d_stem_conv
+        mp.setattr(fast_i3d, "s2d_stem_conv", lambda *a: convs.append(1) or real_conv(*a))
+        for frozen in (True, False):
+            for clip, fast in ((x.double(), True), (odd.double(), False)):
+                # float64: the MLP head's train-mode BN over two embeddings flips the
+                # sign of an output wherever they differ by rounding
+                mod, ours = copy.deepcopy(ft).double(), copy.deepcopy(ft).double()
+                with torch.no_grad():
+                    ref = mod(clip, train=True, frozen_bn=frozen,
+                              generator=torch.Generator().manual_seed(4))
+                    got = fast_i3d.make_fast_ft_train_forward(ours)(
+                        clip, frozen_bn=frozen, generator=torch.Generator().manual_seed(4))
+                assert (stems, convs) == (([], [1]) if fast else ([], []))
+                stems.clear()
+                convs.clear()
+                check = assert_close if fast else np.testing.assert_array_equal
+                for a, b in zip(got, ref):
+                    check(a.numpy(), b.numpy())
+                for a, b in zip(mod.state_dict().values(), ours.state_dict().values()):
+                    check(b.numpy(), a.numpy())
+
     r3d = load_ft_model("r3d_18", dtype="float32", device="cpu")
     assert not isinstance(r3d, WrapperI3D)
     extract = fast_i3d.make_fast_ft_extract(r3d)
@@ -182,6 +207,12 @@ def test_fallbacks_run_the_module(i3res50):
         np.testing.assert_array_equal(extract(x).numpy(), r3d.extract_features(x).numpy())
         for a, b in zip(forward(x), r3d(x)):
             np.testing.assert_array_equal(a.numpy(), b.numpy())
+    mod = copy.deepcopy(r3d)
+    with torch.no_grad():
+        got = fast_i3d.make_fast_ft_train_forward(r3d)(x, generator=torch.Generator().manual_seed(5))
+        ref = mod(x, train=True, generator=torch.Generator().manual_seed(5))
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
 def test_gradient_reaches_the_clips_and_weights_follow(i3res50):

@@ -194,17 +194,35 @@ def test_make_fast_fa_apply_routes_like_jax(unetpp):
 
 
 def test_train_mode_runs_the_module(unetpp):
-    """train=True runs the module (BN batch statistics, running ones moved), with
-    emit_s2d followed by the s2d relayout."""
+    """train=True routes as the JAX package's make_fast_fa_apply: at sides 16 divides
+    the train form (``fast_unetpp_train_apply``: BN batch statistics, the running ones
+    moved as the module moves them, output within 2e-4 of the module's); with emit_s2d,
+    or at sides 16 does not divide, the module, exactly (emit_s2d followed by the s2d
+    relayout)."""
     _, _, fa = unetpp
-    x = nchw(frames(3, 32, 3))
-    mod, ours = copy.deepcopy(fa), copy.deepcopy(fa)
-    with torch.no_grad():
-        ref = mod(x, train=True)
-        got = fast_unetpp.make_fast_fa_apply(ours)(x, train=True, emit_s2d=True)
-    np.testing.assert_array_equal(got.numpy(), fast_i3d.space_to_depth_2x2(ref, 1).numpy())
-    for (k, a), b in zip(mod.state_dict().items(), ours.state_dict().values()):
-        np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=k)
+    calls = []
+    real = fast_unetpp.fast_unetpp_train_apply
+
+    def spy(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    for side, emit in ((32, False), (32, True), (40, False)):
+        x = nchw(frames(3, side, 3))
+        mod, ours = copy.deepcopy(fa), copy.deepcopy(fa)
+        with torch.no_grad(), pytest.MonkeyPatch.context() as mp:
+            mp.setattr(fast_unetpp, "fast_unetpp_train_apply", spy)
+            ref = mod(x, train=True)
+            got = fast_unetpp.make_fast_fa_apply(ours)(x, train=True, emit_s2d=emit)
+        fast = side % 16 == 0 and not emit
+        assert calls == ([1] if fast else []), (side, emit)
+        calls.clear()
+        if emit:
+            ref = fast_i3d.space_to_depth_2x2(ref, 1)
+        check = assert_close if fast else np.testing.assert_array_equal
+        check(got.numpy(), ref.numpy())
+        for (k, a), b in zip(mod.state_dict().items(), ours.state_dict().values()):
+            check(b.numpy(), a.numpy())
 
 
 def test_non_standard_models_fall_back_like_jax():
