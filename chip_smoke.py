@@ -164,7 +164,15 @@ Phases, each fatal on failure:
      version at every shape the run gave it; the report's keys and finite values, each
      stage's wall time); validate_adversarial --scale reference for one epoch of each
      (the cMAPs, the remat "auto" resolved to, stage times, peak memory); profile_stage
-     extraction (its trace naming K1 and cuDNN's convolutions) and mgfn.
+     extraction (its trace naming K1 and cuDNN's convolutions) and mgfn;
+ 18. checkpoints and fixtures: the adversarial stage's full checkpoint (fa, fb, ft and
+     their Adam states after one step at AnonymizationParams' defaults) saved through the
+     background msgpack writer and the DCP backend (utils/checkpoint.py), each save's
+     caller-blocking and landed ms and bytes on disk, the fb/ft step (remat "auto") timed
+     with no write and while each write runs, each file reloaded onto the card bit-equal
+     to what was saved (the payload after more steps the control); synth_scene_frames'
+     ms per frame at the fixture set's three sizes on the card's host, and whether the
+     native encoder loads there (a reading). It launches no kernel.
 
 Prints the kernel table as one JSON line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero, printing no result,
@@ -174,6 +182,7 @@ without a CUDA card or outside a checkout of the repository.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -345,6 +354,11 @@ PARITY_REPORT_KEYS = {"mode", "cmap_raw", "cmap_anon", "cmap_delta_pct", "cmap_d
                       "auc_raw", "auc_anon", "auc_delta_pts", "auc_delta_target_pts",
                       "extraction_clips_per_sec", "seeds_converted"}
 VALIDATION_ARGS = ["--scale", "reference", "--epochs", "1", "--attack_epochs", "1"]
+
+# Phase 18 (checkpoints and fixtures).
+CKPT_STEPS = 3  # fb/ft steps timed with no write and during each write
+FIXTURE_SIZES = ((320, 240), (640, 480), (854, 480))
+FIXTURE_FRAMES = 10
 
 
 T0 = time.perf_counter()
@@ -1717,11 +1731,13 @@ def training_gate(device, card: str) -> None:
             raise AssertionError(f"the {name} step gate does not tell another batch apart")
 
 
-def _timed_steps(step, n: int) -> list[float]:
-    """ms of each of ``n`` steps after one warm-up step, from CUDA events."""
+def _timed_steps(step, n: int, warmup: bool = True) -> list[float]:
+    """ms of each of ``n`` steps (after one warm-up step with ``warmup``), from CUDA
+    events."""
     import torch
 
-    step()
+    if warmup:
+        step()
     times = []
     for _ in range(n):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -3534,6 +3550,176 @@ def workflow_phase(device, workdir: str, card: str) -> dict:
     return launches
 
 
+def _leaves(tree, prefix=()):
+    """(path, leaf) of a checkpoint tree in both formats' terms: dict keys, and list and
+    tuple positions, as strings (msgpack keeps sequences as dicts of positions)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, prefix + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, prefix + (str(i),))
+    else:
+        yield prefix, tree
+
+
+def _reload_mismatches(loaded, ref: dict, device) -> list:
+    """The paths at which a reloaded checkpoint differs from ``ref`` (a host snapshot of
+    what was saved): missing or extra leaves, arrays not bit-equal on the card (dtype
+    and shape included), other leaves not equal."""
+    import numpy as np
+    import torch
+
+    got, want = dict(_leaves(loaded)), dict(_leaves(ref))
+    bad = sorted(set(got) ^ set(want))
+    for path in sorted(set(got) & set(want)):
+        a, b = got[path], want[path]
+        if isinstance(b, (np.ndarray, torch.Tensor)):
+            a, b = (torch.as_tensor(np.array(x) if isinstance(x, np.ndarray) else x).to(device)
+                    for x in (a, b))
+            same = a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+        else:
+            same = type(a) is type(b) and a == b
+        if not same:
+            bad.append(path)
+    return bad
+
+
+def _fixture_readings(workdir: str, card: str) -> None:
+    """The benchmark fixtures on this machine's host: ``synth_scene_frames`` in ms per
+    frame at each size of FIXTURE_SIZES, and whether the native encoder loads (the
+    loader's first error line where it does not, as phase 1 prints the decoder's;
+    where it does, ms per frame to encode the 320x240 frames)."""
+    from ted_spad_tpu_torch.data import video_reader
+    from ted_spad_tpu_torch.utils.bench_videos import synth_scene_frames
+
+    rates = {}
+    for w, h in FIXTURE_SIZES:
+        t0 = time.perf_counter()
+        frames = synth_scene_frames(0, w, h, 0, FIXTURE_FRAMES)
+        rates[f"{w}x{h}"] = round((time.perf_counter() - t0) * 1e3 / FIXTURE_FRAMES, 3)
+        if (w, h) == FIXTURE_SIZES[0]:
+            first = frames
+    try:
+        t0 = time.perf_counter()
+        video_reader.write_mp4(os.path.join(workdir, "fixture.mp4"), first)
+        encoder = (f"the native encoder loads: {(time.perf_counter() - t0) * 1e3 / FIXTURE_FRAMES:.3f} "
+                   f"ms/frame at {FIXTURE_SIZES[0][0]}x{FIXTURE_SIZES[0][1]} (x264, first call included)")
+    except (RuntimeError, OSError) as e:
+        lines = str(e).splitlines() or [repr(e)]
+        encoder = ("the native encoder does not load (a reading, not a failure): "
+                   + next((ln for ln in lines if "error" in ln), lines[-1]).strip())
+    log(f"[fixtures] synth_scene_frames ms/frame {json.dumps(rates)} ({FIXTURE_FRAMES} frames each, "
+        f"this machine's host); {encoder} | {card}")
+
+
+def checkpoint_phase(device, workdir: str, card: str) -> dict:
+    """Phase 18: the adversarial stage's full checkpoint (``model_{E}_full.ckpt``: fa, fb
+    and ft as flax trees, their Adam states after one step, the epoch) at
+    AnonymizationParams' defaults, saved through the background msgpack writer and
+    through the DCP backend: each save's blocking and landed ms and its bytes on disk,
+    the fb/ft step (remat "auto") timed with no write and while each write runs, each
+    file reloaded onto the card bit-equal to what was saved (a payload one step later
+    the control), then the benchmark fixtures' readings. Returns the kernels' launch
+    counts (none: the UNet++ fa runs no hand kernel)."""
+    import shutil
+
+    import torch
+    import torch.distributed.checkpoint  # noqa: F401 -- imported before any save is timed
+
+    from ted_spad_tpu_torch.chip_probes import adversarial_setup
+    from ted_spad_tpu_torch.stages import anonymization_training as anon
+    from ted_spad_tpu_torch.stages.common import make_optimizer
+    from ted_spad_tpu_torch.utils import checkpoint
+    from ted_spad_tpu_torch.utils.jax_weights import state_dict_to_flax
+
+    t0 = time.perf_counter()
+    zero_launch_counts()
+    p, models, inputs = adversarial_setup(device)
+    fa, fb, ft = models["fa"], models["fb"], models["ft"]
+    opts = {k: make_optimizer(models[k].parameters(), p.opt_type, lr, p.weight_decay)
+            for k, lr in (("fa", p.learning_rate_fa), ("fb", p.learning_rate_fb), ("ft", p.learning_rate_ft))}
+    fa_step = anon.make_fa_step(fa, fb, ft, opts["fa"], p, device=device)
+    fbft_step = anon.make_fbft_step(fa, fb, ft, opts["fb"], opts["ft"], p,
+                                    generator=torch.Generator(device=device).manual_seed(0), device=device)
+    fa_step(*inputs)  # every optimizer has its Adam state after one step
+    fbft_step(*inputs)
+    del fa_step
+
+    def fbft():
+        fbft_step(*inputs)
+
+    def payload() -> dict:
+        """The stage's payload (stages/anonymization_training.py, every 3rd epoch)."""
+        return {**{f"{k}_model_state_dict": state_dict_to_flax(m) for k, m in models.items()},
+                "epoch": 1, **{f"opt_{k}": anon._optimizer_tree(o) for k, o in opts.items()}}
+
+    ms = {"no write": _timed_steps(fbft, CKPT_STEPS, warmup=False)}
+    # The payload holds the optimizers' own state tensors, as the stage's does: what a
+    # save writes is what they hold when it is called.
+    state = payload()
+    ref = checkpoint.snapshot(state)
+    mb = sum(v.nbytes for _, v in _leaves(ref) if hasattr(v, "nbytes")) / 1e6
+    ckpt_dir = os.path.join(workdir, "checkpoints")
+    backends = {"msgpack": (checkpoint.AsyncCheckpointWriter(), "model_1_full.ckpt"),
+                "dcp": (checkpoint.dcp_checkpointer(), "model_1_full.dcp")}
+    saves = {}
+    for during in (False, True):
+        for name, (writer, fname) in backends.items():
+            path = os.path.join(ckpt_dir, ("again_" if during else "") + fname)
+            save = writer.save if name == "msgpack" else functools.partial(checkpoint.save_checkpoint_dcp, writer)
+            land = writer.flush if name == "msgpack" else writer.wait
+            torch.cuda.synchronize(device)
+            t1 = time.perf_counter()
+            save(path, state)
+            blocking = (time.perf_counter() - t1) * 1e3
+            if during:  # the fb/ft step timed while the write runs
+                ms[f"during {name} write"] = _timed_steps(fbft, CKPT_STEPS, warmup=False)
+                stepped = (time.perf_counter() - t1) * 1e3
+            land()
+            landed = (time.perf_counter() - t1) * 1e3
+            if during:
+                saves[name].update(blocking_ms_again=round(blocking, 3), steps_done_ms=round(stepped, 3),
+                                   landed_ms_again=round(landed, 3))
+            else:
+                size = (os.path.getsize(path) if os.path.isfile(path) else
+                        sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)))
+                saves[name] = {"path": path, "blocking_ms": round(blocking, 3),
+                               "landed_ms": round(landed, 3), "mb_on_disk": round(size / 1e6, 3)}
+    log(f"[checkpoint] the adversarial stage's full checkpoint at AnonymizationParams' defaults "
+        f"(fa, fb, ft flax trees, their Adam states after one step, the epoch): {mb:.1f} MB of arrays; "
+        + "; ".join(f"{name}: caller blocked {r['blocking_ms']:.3f} ms, landed after {r['landed_ms']:.3f} ms, "
+                    f"{r['mb_on_disk']:.3f} MB on disk" for name, r in saves.items()) + f" | {card}")
+    for name, r in saves.items():
+        log(f"[checkpoint] {name} saved again with the fb/ft step running: caller blocked "
+            f"{r['blocking_ms_again']:.3f} ms, {CKPT_STEPS} steps done after {r['steps_done_ms']:.3f} ms, "
+            f"landed after {r['landed_ms_again']:.3f} ms | {card}")
+    log(f"[checkpoint] fb/ft step (remat {p.remat!r}, {p.batch_size} videos x 3 views x {p.num_frames} x "
+        f"{p.reso_h}^2 + {p.batch_size_vispr} VISPR pairs, {p.compute_dtype}) ms: "
+        + "; ".join(f"{k} {json.dumps([round(x, 3) for x in v])} (mean {sum(v) / len(v):.3f})"
+                    for k, v in ms.items()) + f" | {card}")
+
+    later = checkpoint.snapshot(payload())  # the payload after the timed steps: the control
+    reloaded = {"msgpack": checkpoint.load_checkpoint(saves["msgpack"]["path"]),
+                "dcp": checkpoint.load_checkpoint_dcp(backends["dcp"][0], saves["dcp"]["path"], device=device)}
+    for name, tree in reloaded.items():
+        bad, control = _reload_mismatches(tree, ref, device), _reload_mismatches(tree, later, device)
+        log(f"[checkpoint] {name} reloaded onto the card: {len(dict(_leaves(ref)))} leaves, "
+            f"{len(bad)} differ from what was saved; against the payload after {2 * CKPT_STEPS} more "
+            f"fb/ft steps (the control) {len(control)} differ")
+        if bad:
+            raise AssertionError(f"the {name} checkpoint does not reload bit-equal: {bad[:5]}")
+        if not control:
+            raise AssertionError(f"the {name} reload gate does not tell the later payload apart")
+    del fbft_step, fa, fb, ft, models, opts, inputs, reloaded
+    shutil.rmtree(os.path.join(workdir, "checkpoints"), ignore_errors=True)
+    torch.cuda.empty_cache()
+    got = launch_counts()
+    _fixture_readings(workdir, card)
+    log(f"[checkpoint] phase time {time.perf_counter() - t0:.1f}s")
+    return got
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3595,6 +3781,9 @@ def main() -> int:
         launches["ft families"] = ft_families_phase(device, workdir, card)
         launches.update(dp_phase(device, workdir, card))
         launches.update(workflow_phase(device, workdir, card))
+        launches["checkpoints"] = checkpoint_phase(device, workdir, card)
+        if any(launches["checkpoints"].values()):
+            raise AssertionError(f"the checkpoint phase launched a kernel: {launches['checkpoints']}")
     # Each kernel's launches on its own main path (K1: the default UNet++ path, K2: the
     # plain-UNet path, K3: the YUV path, K4: the int8 path), and on every path driven.
     for k, name, path in ((k1, "K1 preprocess", "unet++"), (k2, "K2 double_conv", "unet"),

@@ -15,6 +15,7 @@ numbers PERF.md quotes from them can be taken again:
     python -m ted_spad_tpu_torch.chip_probes trainab   # training steps: train forms vs module forms
     python -m ted_spad_tpu_torch.chip_probes gain   # the UNet's outc gain vs the gates
     python -m ted_spad_tpu_torch.chip_probes mgfn   # where MGFN's card-vs-CPU step error sits
+    python -m ted_spad_tpu_torch.chip_probes repeat   # the adversarial steps run twice, compared
 
 ``k1``: builds K1 and prints each instantiation's registers and spills, holds it
 against its plain version (float32 matmuls, TF32 off) at K1_CASES and over the crops
@@ -93,6 +94,16 @@ median of each form over its turns beside the spread between its turns.
 rounding can swamp the differences between clips. For outc gains 1, 4, 8 and 16 it
 prints the fa output's spread and both fidelity readings of chip_smoke.py (features
 and fa output, bf16 kernel path against the f32 plain path, with their controls).
+
+``repeat``: the adversarial fa step and fb/ft step at AnonymizationParams' defaults
+(bf16, remat "auto", 8 videos x 3 views + 12 VISPR pairs, seeded models and inputs),
+each run twice from the same saved state, batch and dropout draw (``repeat_run``):
+whether the losses are equal, which parameters and buffers are bit-equal after the
+step, and the first module whose output, or whose output's gradient, differs between
+the runs (forward and tensor hooks recording an exact digest of each, ``recorded``).
+Then the same in a process of its own (``repeatdet``) with CUBLAS_WORKSPACE_CONFIG
+=:4096:8 and ``torch.use_deterministic_algorithms(True, warn_only=True)``: every op
+that has no deterministic form, and the two runs compared again.
 
 ``mgfn``: one MGFN train step (UCF preset, dropout 0, 16 + 16 synthetic videos pooled
 as the stage pools them) from the same weights on the card, under cuDNN's default
@@ -2107,13 +2118,223 @@ def trainab(device) -> None:
         print(f"[trainab] {name}: {ab_summary(ab)}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# repeat: is the adversarial step repeatable on the card?
+# ---------------------------------------------------------------------------
+
+REPEAT_SEED = 1
+
+
+def _bits(t):
+    """An exact digest of a tensor's bits: the int64 sum of its elements read as
+    integers of their width (order-free, so two equal tensors give equal digests
+    whatever the reduction's order; two different ones almost surely differ). A device
+    scalar, so recording one does not wait for the device."""
+    import torch
+
+    t = t.detach()
+    if t.is_floating_point():
+        t = t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+    return t.sum(dtype=torch.int64)
+
+
+@contextlib.contextmanager
+def recorded(models: dict):
+    """Record, in call order, the bit digest of every floating-point output of every
+    module of ``models`` ({name: module}) that runs its forward (forward hooks: a
+    remat recompute records again), and of the gradient reaching each such output in
+    the backward (tensor hooks on the outputs). Yields (forward, backward), lists of
+    (module, output index, digest)."""
+    import torch
+
+    forward, backward, handles = [], [], []
+
+    def hook(name):
+        def grad_hook(i):
+            def record_grad(g):
+                backward.append((name, i, _bits(g)))
+            return record_grad
+
+        def record(module, inputs, out):
+            outs = out if isinstance(out, (tuple, list)) else (out,)
+            for i, t in enumerate(outs):
+                if isinstance(t, torch.Tensor) and t.is_floating_point():
+                    forward.append((name, i, _bits(t)))
+                    if t.requires_grad:
+                        t.register_hook(grad_hook(i))
+        return record
+
+    for tag, root in models.items():
+        for name, module in root.named_modules():
+            handles.append(module.register_forward_hook(hook(f"{tag}.{name}" if name else tag)))
+    try:
+        yield forward, backward
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def repeat_run(models: dict, saved: dict, make_step, run) -> dict:
+    """One run of a step from the saved state: each model's ``load_state_dict`` of
+    ``saved``, a fresh step (``make_step()``: its optimizers new), ``run(step)`` with
+    every module recorded (``recorded``). {"loss", "forward", "backward", "state"}: the
+    losses, the records with their digests read, and every parameter and buffer after
+    the step (clones)."""
+    import torch
+
+    for name, m in models.items():
+        m.load_state_dict(saved[name])
+        for q in m.parameters():
+            q.grad = None
+    step = make_step()
+    with recorded(models) as (forward, backward):
+        loss = run(step)
+    state = {f"{name}.{k}": v.detach().clone() for name, m in models.items()
+             for k, v in m.state_dict().items()}
+    return {"loss": torch.as_tensor(loss).detach().float().cpu().tolist(),
+            "forward": [(n, i, int(d)) for n, i, d in forward],
+            "backward": [(n, i, int(d)) for n, i, d in backward], "state": state}
+
+
+def repeat_compare(a: dict, b: dict) -> dict:
+    """Two ``repeat_run`` readings: the losses' equality, the state entries bit-equal
+    and differing, and the first forward and backward record that differs (its
+    position, module and output index), or None."""
+    import torch
+
+    equal = [k for k in a["state"] if torch.equal(a["state"][k], b["state"][k])]
+
+    def first(x, y):
+        if [r[:2] for r in x] != [r[:2] for r in y]:
+            return {"calls differ": True, "a": len(x), "b": len(y)}
+        for i, (rx, ry) in enumerate(zip(x, y)):
+            if rx[2] != ry[2]:
+                return {"at": i, "of": len(x), "module": rx[0], "output": rx[1]}
+        return None
+
+    return {"loss_equal": a["loss"] == b["loss"], "equal": len(equal), "entries": len(a["state"]),
+            "differing": [k for k in a["state"] if k not in set(equal)],
+            "first_forward": first(a["forward"], b["forward"]),
+            "first_backward": first(a["backward"], b["backward"])}
+
+
+def repeat_steps(device, p, models: dict, inputs: tuple, seed: int = REPEAT_SEED) -> dict:
+    """{name: (make_step, run)} of the adversarial fa step and fb/ft step over
+    ``models`` ({"fa", "fb", "ft"}) and ``inputs`` (vispr1, vispr2, clips, labels), each
+    step with new Adam optimizers and the fb/ft step's dropout generator seeded anew."""
+    import torch
+
+    from ted_spad_tpu_torch.stages import anonymization_training as anon
+    from ted_spad_tpu_torch.stages.common import make_optimizer
+
+    fa, fb, ft = models["fa"], models["fb"], models["ft"]
+
+    def opt(m, lr):
+        return make_optimizer(m.parameters(), p.opt_type, lr, p.weight_decay)
+
+    def run(step):
+        return step(*inputs)
+
+    return {
+        "fa step": (lambda: anon.make_fa_step(fa, fb, ft, opt(fa, p.learning_rate_fa), p, device=device),
+                    run),
+        "fb/ft step": (lambda: anon.make_fbft_step(
+            fa, fb, ft, opt(fb, p.learning_rate_fb), opt(ft, p.learning_rate_ft), p,
+            generator=torch.Generator(device=device).manual_seed(seed), device=device), run),
+    }
+
+
+def repeat_report(name: str, c: dict, tag: str = "repeat") -> str:
+    """One line of ``repeat_compare``'s reading."""
+    diff = c["differing"]
+    return (f"[{tag}] {name}: losses {'equal' if c['loss_equal'] else 'differ'}; "
+            f"{c['equal']} of {c['entries']} parameters and buffers bit-equal after the step"
+            + (f" (differing, first 6 of {len(diff)}: {', '.join(diff[:6])})" if diff else "")
+            + f"; first module output that differs: {c['first_forward']}; first gradient at a "
+              f"module output that differs: {c['first_backward']}")
+
+
+def adversarial_setup(device):
+    """(params, models, inputs): AnonymizationParams' defaults (bf16, remat "auto"),
+    the seeded full-width fa, fb and ft requiring grad, seeded inputs on the card."""
+    import numpy as np
+    import torch
+
+    from ted_spad_tpu_torch.config.params import AnonymizationParams
+    from ted_spad_tpu_torch.models import load_fa_model, load_fb_model, load_ft_model
+
+    p = AnonymizationParams()
+    kw = dict(seed=0, dtype="float32", device=device)
+    models = {"fa": load_fa_model(p.arch_fa, **kw).requires_grad_(True),
+              "fb": load_fb_model(ssl=True, **kw).requires_grad_(True),
+              "ft": load_ft_model(p.arch_ft, num_classes=p.num_classes, **kw).requires_grad_(True)}
+    g = torch.Generator(device=device).manual_seed(REPEAT_SEED)
+    side = (p.reso_h, p.reso_w, 3)
+    v1, v2 = (torch.rand((p.batch_size_vispr,) + side, generator=g, device=device) for _ in range(2))
+    clips = torch.rand((p.batch_size, 3, p.num_frames) + side, generator=g, device=device)
+    labels = torch.from_numpy(np.random.default_rng(REPEAT_SEED).integers(0, p.num_classes, p.batch_size))
+    return p, models, (v1, v2, clips, labels.to(device))
+
+
+def _repeat_all(device, tag: str) -> None:
+    """Each step of ``repeat_steps`` run twice from the same saved state (``repeat_run``)
+    and compared (``repeat_report``)."""
+    import torch
+
+    p, models, inputs = adversarial_setup(device)
+    saved = {k: {n: v.detach().clone() for n, v in m.state_dict().items()} for k, m in models.items()}
+    for name, (make_step, run) in repeat_steps(device, p, models, inputs).items():
+        a, b = (repeat_run(models, saved, make_step, run) for _ in range(2))
+        print(repeat_report(name, repeat_compare(a, b), tag), flush=True)
+        del a, b
+        torch.cuda.empty_cache()
+
+
+def repeat(device) -> None:
+    """See the module docstring."""
+    import os
+    import subprocess
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"[repeat] {card}", flush=True)
+    _repeat_all(device, "repeat")
+    # Deterministic algorithms need cuBLAS's workspace set before its first handle: a
+    # process of its own.
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    proc = subprocess.run([sys.executable, "-m", "ted_spad_tpu_torch.chip_probes", "repeatdet"],
+                          env=env, timeout=1200)
+    if proc.returncode != 0:
+        raise RuntimeError(f"repeatdet exited with {proc.returncode}")
+
+
+def repeat_deterministic(device) -> None:
+    """``repeat``'s runs under ``torch.use_deterministic_algorithms(True, warn_only=True)``
+    (CUBLAS_WORKSPACE_CONFIG set by ``repeat``): every op that warns for lack of a
+    deterministic form, then the two runs compared."""
+    import os
+    import warnings
+
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        _repeat_all(device, "repeat, deterministic")
+    ops = sorted({str(w.message).splitlines()[0] for w in caught
+                  if "deterministic" in str(w.message)})
+    print(f"[repeat, deterministic] CUBLAS_WORKSPACE_CONFIG={os.environ.get('CUBLAS_WORKSPACE_CONFIG')}; "
+          f"ops without a deterministic form ({len(ops)}): {ops}", flush=True)
+
+
 def main() -> int:
     import torch
 
     probes = {"k1": k1, "k2": k2, "k3": k3, "k4": k4, "k4class": k4class, "gain": gain, "mgfn": mgfn,
               "int8ab": int8ab, "int8step": int8_step_turn, "k3ab": k3ab, "k3turn": k3_turn,
               "k2ab": k2ab, "k2turn": k2_turn, "fastforms": fastforms, "stepab": stepab,
-              "stepturn": step_turn, "trainab": trainab}
+              "stepturn": step_turn, "trainab": trainab, "repeat": repeat,
+              "repeatdet": repeat_deterministic}
     takes_arg = ("int8ab", "int8step", "k3turn", "stepab", "stepturn")
     n_args = len(sys.argv) - 2
     if (len(sys.argv) < 2 or sys.argv[1] not in probes

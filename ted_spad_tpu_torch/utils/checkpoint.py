@@ -198,3 +198,202 @@ class BestCheckpointer:
 def save_temp(directory: str, name: str, payload: Mapping[str, Any]) -> str:
     """Rolling per-epoch checkpoint ``{name}_temp.ckpt``, written in the background."""
     return async_writer().save(os.path.join(directory, f"{name}_temp.ckpt"), payload)
+
+
+# ---------------------------------------------------------------------------
+# The asynchronous backend over torch.distributed.checkpoint (DCP): the counterpart
+# of the JAX package's orbax backend. A checkpoint is a directory (DCP's ``.metadata``
+# and one ``.distcp`` file per writing rank). The msgpack format above stays the
+# canonical artifact; no stage calls this backend, as no stage of the JAX package
+# calls orbax's.
+# ---------------------------------------------------------------------------
+
+
+class DcpCheckpointer:
+    """Non-blocking saves over ``torch.distributed.checkpoint.async_save``.
+
+    ``save`` returns once the payload is copied to host memory (DCP's stager copies
+    every tensor on the caller, so a later ``optimizer.step()`` cannot reach what is
+    written); the write runs on DCP's thread into ``<path>.tmp-<n>``, and a worker of
+    this object then moves it to ``path``, replacing a checkpoint there (orbax's
+    ``force=True``), in the order the saves were made. ``wait`` drains the pending saves
+    and re-raises the first error (orbax's ``wait_until_finished``).
+
+    Under a process group every rank calls ``save``, ``wait`` and ``load`` in the same
+    order (the temporary names are counted, not drawn); DCP's planner writes a tensor
+    that every rank holds once, and rank 0 moves the directory. DCP coordinates over a
+    group that runs on the CPU: the default group if its backend includes gloo, else a
+    gloo group made here (so every rank must create the checkpointer). With no group
+    it works in one process."""
+
+    def __init__(self):
+        import concurrent.futures
+        import torch.distributed as dist
+
+        self._group = None
+        if dist.is_available() and dist.is_initialized() and "gloo" not in str(dist.get_backend()):
+            self._group = dist.new_group(backend="gloo")
+        self._worker = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+        self._pending: list = []
+        self._count = 0
+
+    @staticmethod
+    def _distributed() -> bool:
+        import torch.distributed as dist
+
+        return dist.is_available() and dist.is_initialized()
+
+    def save(self, path: str, payload: Mapping[str, Any]) -> str:
+        import torch.distributed.checkpoint as dcp
+
+        path = os.path.abspath(path)
+        tmp = f"{path}.tmp-{self._count}"
+        self._count += 1
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        writes = dcp.async_save(_dcp_tree(dict(payload)),
+                                storage_writer=dcp.FileSystemWriter(tmp),
+                                process_group=self._group)
+        self._pending.append(self._worker.submit(self._land, writes, tmp, path))
+        return path
+
+    def _land(self, writes, tmp: str, path: str) -> None:
+        import shutil
+
+        writer = not self._distributed() or multihost.is_writer()
+        try:
+            writes.result()
+        except BaseException:  # a failed save leaves no partial directory; re-raised
+            if writer:
+                shutil.rmtree(tmp, ignore_errors=True)
+            raise
+        if writer:
+            old = f"{tmp}.old"
+            if os.path.exists(path):
+                os.replace(path, old)
+            os.replace(tmp, path)
+            shutil.rmtree(old, ignore_errors=True)
+
+    def wait(self) -> None:
+        import torch.distributed as dist
+        from torch.distributed.checkpoint import CheckpointException  # a BaseException
+
+        pending, self._pending = self._pending, []
+        error = None
+        for job in pending:
+            try:
+                job.result()
+            except (Exception, CheckpointException) as e:  # noqa: BLE001 -- the first is re-raised below
+                error = error or e
+        if self._distributed():
+            dist.barrier(group=self._group)  # rank 0 has moved every directory
+        if error is not None:
+            raise error
+
+    def load(self, path: str, template: Any | None = None,
+             device: str | torch.device = "cpu") -> Any:
+        import torch.distributed.checkpoint as dcp
+
+        path = os.path.abspath(path)
+        reader = dcp.FileSystemReader(path)
+        if template is not None:
+            target = _dcp_target(template)
+            dcp.load(target, storage_reader=reader, process_group=self._group)
+            return _dcp_like(template, target)
+        metadata = reader.read_metadata()
+        flat = {}
+        for key, meta in metadata.state_dict_metadata.items():
+            flat[key] = (torch.empty(tuple(meta.size), dtype=meta.properties.dtype, device=device)
+                         if hasattr(meta, "size") else None)
+        dcp.load(flat, storage_reader=dcp.FileSystemReader(path), process_group=self._group)
+        return _dcp_unflatten(flat, metadata.planner_data)
+
+
+def _dcp_tree(tree: Any) -> Any:
+    """``tree`` with numpy arrays as tensors sharing their memory (DCP's stager copies
+    them on the caller) and tuples kept as leaves."""
+    if isinstance(tree, Mapping):
+        return {k: _dcp_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_dcp_tree(v) for v in tree]
+    if isinstance(tree, np.ndarray):  # ascontiguousarray would make a 0-d array 1-d
+        return torch.from_numpy(tree if tree.flags.c_contiguous else tree.copy(order="C"))
+    return tree
+
+
+def _dcp_target(template: Any) -> Any:
+    """A fresh tree of ``template``'s structure for ``dcp.load`` to fill: tensors
+    empty on the template's device and in its dtype, numpy arrays as CPU tensors,
+    every other leaf a copy (DCP replaces it)."""
+    if isinstance(template, Mapping):
+        return {k: _dcp_target(v) for k, v in template.items()}
+    if isinstance(template, list):
+        return [_dcp_target(v) for v in template]
+    if isinstance(template, torch.Tensor):
+        return torch.empty_like(template)
+    if isinstance(template, np.ndarray):
+        return torch.empty(template.shape, dtype=torch.from_numpy(np.empty(0, template.dtype)).dtype)
+    return template
+
+
+def _dcp_like(template: Any, loaded: Any) -> Any:
+    """``loaded`` with the template's numpy leaves back as numpy arrays."""
+    if isinstance(template, Mapping):
+        return {k: _dcp_like(v, loaded[k]) for k, v in template.items()}
+    if isinstance(template, list):
+        return [_dcp_like(v, x) for v, x in zip(template, loaded)]
+    if isinstance(template, np.ndarray):
+        return loaded.numpy()
+    return loaded
+
+
+def _dcp_unflatten(flat: dict, paths: Mapping[str, tuple]) -> dict:
+    """The nested dicts and lists that DCP's planner flattened into ``flat`` (its
+    ``planner_data`` maps each key to its path: strings for dict keys, ints for list
+    positions)."""
+    root: dict = {}
+    for key, value in flat.items():
+        path = paths[key]
+        node: Any = root
+        for part, nxt in zip(path[:-1], path[1:]):
+            child = [] if isinstance(nxt, int) else {}
+            if isinstance(node, list):
+                while len(node) <= part:
+                    node.append(None)
+                node[part] = node[part] if node[part] is not None else child
+                node = node[part]
+            else:
+                node = node.setdefault(part, child)
+        if isinstance(node, list):
+            while len(node) <= path[-1]:
+                node.append(None)
+        node[path[-1]] = value
+    return root
+
+
+def dcp_checkpointer() -> DcpCheckpointer:
+    """An asynchronous checkpointer over DCP (counterpart of the JAX package's
+    ``orbax_checkpointer``). DCP ships with torch, so unlike orbax's there is no
+    ``None`` for a missing library; under a process group every rank creates it."""
+    return DcpCheckpointer()
+
+
+def save_checkpoint_dcp(checkpointer: DcpCheckpointer, path: str, payload: Mapping[str, Any]) -> str:
+    """Non-blocking save of a dict of named trees as the DCP directory ``path``
+    (counterpart of ``save_checkpoint_orbax``): tensors, numpy arrays (written as
+    tensors), ints, floats and optimizer ``state_dict()``s; ``checkpointer.wait()``
+    drains it. Returns ``path``."""
+    return checkpointer.save(path, payload)
+
+
+def load_checkpoint_dcp(checkpointer: DcpCheckpointer, path: str, template: Any | None = None,
+                        device: str | torch.device = "cpu") -> Any:
+    """The dict saved at ``path`` (counterpart of ``load_checkpoint_orbax``).
+
+    With a ``template`` (orbax's ``StandardRestore(template)``) the result has its
+    structure: tensors in its tensors' dtypes and on their devices, numpy arrays where
+    it holds numpy arrays, int keys where it has them; the template is not changed.
+    Without one the structure comes from the checkpoint's metadata: tensors (numpy
+    arrays saved as tensors) on ``device``, dict keys as strings (an optimizer's
+    ``state`` keys included, as in the msgpack format), other leaves as saved."""
+    checkpointer.wait()  # read-after-write in one process: land pending saves first
+    return checkpointer.load(path, template, device)

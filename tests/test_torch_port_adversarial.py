@@ -110,6 +110,17 @@ def _dev(tree):
     return jax.tree_util.tree_map(jnp.asarray, copy.deepcopy(tree))
 
 
+def _repeated(step):
+    """``step()``'s result, after checking that a second call gives the same bits: JAX's
+    adversarial steps repeat exactly on the CPU (tests/test_torch_port_repeat.py holds
+    the port's; on the card the port's do not, ROADMAP Queue 3)."""
+    first = step()
+    again = step()
+    a, b = (jax.tree_util.tree_leaves(jax.tree_util.tree_map(np.asarray, r)) for r in (first, again))
+    assert len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
+    return first
+
+
 FA_CASES = {
     "ce": dict(),
     "con_quirk": dict(loss="con", quirk_compat=True),
@@ -137,9 +148,13 @@ def test_fa_step_matches_jax(case):
         (fa, fb, ft), (fa_tree, fb_tree, ft_tree), (jfa, jfb, jft) = _models(dtype="float64")
         opt = _with_grads(jax_make_optimizer(p.opt_type, p.learning_rate_fa, p.weight_decay))
         jstep = jax_anon.make_fa_step(jfa, jfb, jft, opt, jp, accum_steps=p.accum_steps)
-        state = _dev(fa_tree)
-        new, (_, jgrads), *jlosses = jstep(state, opt.init(state["params"]), _dev(fb_tree), _dev(ft_tree),
-                                           jax.random.PRNGKey(0), *map(jnp.asarray, (v1, v2, clips, labels)))
+
+        def jax_step():
+            state = _dev(fa_tree)  # donated by the step
+            return jstep(state, opt.init(state["params"]), _dev(fb_tree), _dev(ft_tree),
+                         jax.random.PRNGKey(0), *map(jnp.asarray, (v1, v2, clips, labels)))
+
+        new, (_, jgrads), *jlosses = _repeated(jax_step)
         new = jax.tree_util.tree_map(np.asarray, new)
     fb_stats, ft_stats = flat(state_dict_to_flax(fb)["batch_stats"]), flat(state_dict_to_flax(ft)["batch_stats"])
 
@@ -174,10 +189,13 @@ def test_fbft_step_matches_jax(case):
         opt_fb = _with_grads(jax_make_optimizer(p.opt_type, p.learning_rate_fb, p.weight_decay))
         opt_ft = _with_grads(jax_make_optimizer(p.opt_type, p.learning_rate_ft, p.weight_decay))
         jstep = jax_anon.make_fbft_step(jfa, jfb, jft, opt_fb, opt_ft, jp)
-        fbs, fts = _dev(fb_tree), _dev(ft_tree)
-        new_fb, new_ft, (_, g_fb), (_, g_ft), *jlosses = jstep(
-            _dev(fa_tree), fbs, fts, opt_fb.init(fbs["params"]), opt_ft.init(fts["params"]),
-            jax.random.PRNGKey(0), *map(jnp.asarray, (v1, v2, clips, labels)))
+
+        def jax_step():
+            fbs, fts = _dev(fb_tree), _dev(ft_tree)  # donated by the step
+            return jstep(_dev(fa_tree), fbs, fts, opt_fb.init(fbs["params"]), opt_ft.init(fts["params"]),
+                         jax.random.PRNGKey(0), *map(jnp.asarray, (v1, v2, clips, labels)))
+
+        new_fb, new_ft, (_, g_fb), (_, g_ft), *jlosses = _repeated(jax_step)
         new_fb, new_ft = (jax.tree_util.tree_map(np.asarray, t) for t in (new_fb, new_ft))
         g_fb, g_ft, jlosses = (jax.tree_util.tree_map(np.asarray, t) for t in (g_fb, g_ft, jlosses))
 

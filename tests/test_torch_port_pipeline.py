@@ -4,7 +4,9 @@
 ``run_pipeline``, ``validate_adversarial --scale tiny`` and ``run_parity --dry-run
 --tiny`` end to end with ``--device cpu``: finite summaries, each checkpoint a stage
 writes read by the stage after it, the report's keys JAX's, ``ABNORMAL_SPLIT``
-restored, and the refusals with JAX's messages. torch on one thread."""
+restored, and the refusals with JAX's messages; and each chain's calls against the JAX
+script's, ``run_parity``'s real-data branch included (miniature UCF101, VISPR and
+UCF-Crime inputs written under tmp_path). torch on one thread."""
 
 from __future__ import annotations
 
@@ -31,10 +33,12 @@ from ted_spad_tpu.utils.model_size import model_size_report as jax_model_size_re
 from ted_spad_tpu_torch import (
     convert_weights, profile_stage, run_parity, run_pipeline, validate_adversarial,
 )
+from ted_spad_tpu_torch.data import video_reader as port_video_reader
 from ted_spad_tpu_torch.data.images import SyntheticImageSource
 from ted_spad_tpu_torch.data.videos import synthetic_crime_fixture
 from ted_spad_tpu_torch.models import load_fa_model, load_ft_model
 from ted_spad_tpu_torch.utils.logging import profile_trace
+from ted_spad_tpu_torch.utils import reference_layout
 from ted_spad_tpu_torch.utils.model_size import model_size_report, param_count, tree_bytes
 
 torch.set_num_threads(1)
@@ -291,7 +295,6 @@ def _stub_stages(monkeypatch, jax: bool, save: str) -> list:
     import ted_spad_tpu_torch.stages.feature_extraction as p_extract
     import ted_spad_tpu_torch.stages.privacy_training as p_privacy
     import ted_spad_tpu_torch.utils.torch_convert as p_convert
-    from ted_spad_tpu_torch.utils import reference_layout
 
     calls: list = []
     rename = {"fa_variables": "fa", "ft_variables": "ft", "fa_model": "fa"}
@@ -326,7 +329,8 @@ def _stub_stages(monkeypatch, jax: bool, save: str) -> list:
         os.makedirs(out_dir, exist_ok=True)
         saved, clips = {}, 0
         for i, uri in enumerate(uris):
-            n = int(uri.split("n=")[1].split(",")[0])
+            n = (int(uri.split("n=")[1].split(",")[0]) if uri.startswith("synthetic://")
+                 else len(port_video_reader.VideoReader(uri)))
             rows = len(p_extract.video_clip_starts(n, p.num_frames, p.clip_stride, p.clip_step))
             saved[uri] = os.path.join(out_dir, f"{i}.npy")
             np.save(saved[uri], np.zeros((rows, 2), np.float32))
@@ -437,6 +441,100 @@ def test_run_parity_hands_each_stage_what_jax_does(monkeypatch, tmp_path, tiny, 
     assert anon["saved_model_fa"] == "<save>/parity_recon/model_best.ckpt"
     assert anon["saved_model_ft"] == "<save>/parity_action/model_best.ckpt"
     assert port_calls[10][2]["fa"] == port_calls[12][2]["fa"] == "<parity_anon.fa>"
+
+
+def _real_data(root) -> dict:
+    """Miniature real-data inputs of ``run_parity``: two-line UCF101 lists over tiny mp4s
+    written with the port's encoder, VISPR jpgs with their labels pickles, UCF101 frame
+    jpgs, seed files, UCF-Crime train and test trees whose normal directories
+    (Testing_Normal_Videos_Anomaly, Training-Normal-Videos) a sorted glob puts between
+    the crime categories, and a gt ``.npy`` for each choice of test videos (32 frames a
+    clip of the extraction's defaults). Returns the CLI's arguments by name."""
+    import pickle
+
+    from PIL import Image
+
+    rng = np.random.default_rng(5)
+
+    def video(rel: str, frames: int) -> str:
+        path = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        return port_video_reader.write_mp4(path, rng.integers(0, 256, (frames, 32, 32, 3), np.uint8))
+
+    def jpgs(folder: str, names: list[str]) -> None:
+        os.makedirs(os.path.join(root, folder), exist_ok=True)
+        for name in names:
+            Image.fromarray(rng.integers(0, 256, (40, 48, 3), np.uint8)).save(
+                os.path.join(root, folder, f"{name}.jpg"))
+
+    for rel in ("ApplyEyeMakeup/v_ApplyEyeMakeup_g01_c01.mp4", "Archery/v_Archery_g01_c01.mp4",
+                "ApplyEyeMakeup/v_ApplyEyeMakeup_g08_c01.mp4", "Archery/v_Archery_g08_c02.mp4"):
+        video(os.path.join("ucf101", "videos", rel), 8)
+    for name, rels in (("trainlist01.txt", ["ApplyEyeMakeup/v_ApplyEyeMakeup_g08_c01.mp4 1",
+                                            "Archery/v_Archery_g08_c02.mp4 2"]),
+                       ("testlist01.txt", ["ApplyEyeMakeup/v_ApplyEyeMakeup_g01_c01.mp4",
+                                           "Archery/v_Archery_g01_c01.mp4"])):
+        (root / "ucf101" / name).write_text("\n".join(rels) + "\n")
+    os.makedirs(root / "vispr_labels")
+    for split, names in (("train", [f"2017_{i:08d}" for i in range(5)]),
+                         ("test", [f"2017_{i:08d}" for i in range(10, 13)])):
+        jpgs(f"vispr_{split}", names)
+        with open(root / "vispr_labels" / f"{split}_labels.pkl", "wb") as f:
+            pickle.dump({n: (rng.random(7) < 0.4).astype(np.float32) for n in names}, f)
+    jpgs(os.path.join("ucf101_frames", "v_Archery_g01_c01"), ["f001", "f002"])
+    os.makedirs(root / "seeds")
+    for name in reference_layout.SEED_FILES.values():
+        (root / "seeds" / name).write_bytes(b"seed")
+    # 72 frames give two clips of 16 at stride 2, step 32; 40 frames one.
+    clips = {}
+    for rel, frames in (("Train/Abuse/Abuse001_x264.mp4", 72),
+                        ("Train/Testing_Normal_Videos_Anomaly/Normal_Videos_001_x264.mp4", 40),
+                        ("Train/Training-Normal-Videos/Normal_Videos_002_x264.mp4", 72),
+                        ("Train/Vandalism/Vandalism001_x264.mp4", 40),
+                        ("Test/Burglary/Burglary001_x264.mp4", 72),
+                        ("Test/Testing_Normal_Videos_Anomaly/Normal_Videos_003_x264.mp4", 40)):
+        clips[rel] = 2 if frames == 72 else 1
+        video(os.path.join("crime", rel), frames)
+    for name, n in (("gt-test.npy", sum(c for r, c in clips.items() if r.startswith("Test"))),
+                    ("gt-train.npy", sum(c for r, c in clips.items() if r.startswith("Train")))):
+        np.save(root / name, (rng.random(32 * n) < 0.3).astype(np.float32))
+    return {"seeds_dir": root / "seeds", "ucf101_train_list": root / "ucf101" / "trainlist01.txt",
+            "ucf101_val_list": root / "ucf101" / "testlist01.txt",
+            "ucf101_videos": root / "ucf101" / "videos", "ucf101_frames": root / "ucf101_frames",
+            "vispr_train": root / "vispr_train", "vispr_test": root / "vispr_test",
+            "vispr_labels": root / "vispr_labels", "crime_glob": root / "crime" / "Train" / "*" / "*.mp4",
+            "crime_test_glob": root / "crime" / "Test" / "*" / "*.mp4"}
+
+
+@pytest.mark.parametrize("test_glob", [True, False])
+def test_run_parity_real_data_hands_each_stage_what_jax_does(monkeypatch, tmp_path, test_glob):
+    if not port_video_reader.native_available():
+        pytest.skip("FFmpeg's libraries do not build here")
+    inputs = _real_data(tmp_path / "data")
+    if not test_glob:
+        del inputs["crime_test_glob"]
+    inputs["crime_gt"] = tmp_path / "data" / ("gt-test.npy" if test_glob else "gt-train.npy")
+    argv = [x for k, v in inputs.items() for x in (f"--{k}", str(v))] + ["--num_workers", "2"]
+    jax_calls, port_calls = _both(monkeypatch, tmp_path, "run_parity", argv,
+                                  lambda a: run_parity.main(argv + a))
+    assert [c[0] for c in port_calls] == (
+        ["convert", "save seed"] * 3 + ["action", "recon", "anon", "privacy", "privacy", "extract",
+                                        "extract", "mgfn", "mgfn lists", "mgfn", "mgfn lists"])
+    for ours, ref in zip(port_calls, jax_calls, strict=True):
+        assert ours == ref
+    # Abnormal first, then the normal directories; the split counts the abnormal ones.
+    crime = [os.path.relpath(u, tmp_path / "data" / "crime") for u in port_calls[11][1][1]]
+    train = ["Train/Abuse/Abuse001_x264.mp4", "Train/Vandalism/Vandalism001_x264.mp4",
+             "Train/Testing_Normal_Videos_Anomaly/Normal_Videos_001_x264.mp4",
+             "Train/Training-Normal-Videos/Normal_Videos_002_x264.mp4"]
+    test = ["Test/Burglary/Burglary001_x264.mp4",
+            "Test/Testing_Normal_Videos_Anomaly/Normal_Videos_003_x264.mp4"] if test_glob else train
+    assert crime == train + (test if test_glob else [])
+    assert port_calls[14][3] == jax_calls[14][3] == 2
+    orders = [open(tmp_path / side / "parity_crime_order.txt").read() for side in ("jax", "port")]
+    assert orders[0] == orders[1] == "\n".join(str(tmp_path / "data" / "crime" / t) for t in test) + "\n"
+    recon = port_calls[7][2]["train_source"]
+    assert recon[:2] == ["ReconstructionSource", 7]  # five VISPR jpgs and two frames
 
 
 @pytest.mark.parametrize("scale", ["tiny", "reference"])
