@@ -5,9 +5,9 @@
 
 Phases, each fatal on failure:
   1. build the port's CUDA kernels (csrc/preprocess.cu: K1, csrc/doubleconv.cu: K2,
-     csrc/preprocess_yuv.cu: K3, csrc/int8conv.cu: K4) with nvcc, one process per
-     source, started together, and the port's decoder (csrc/videodec.cpp) with g++
-     beside them: where it does not build or load (no FFmpeg), the compiler's first
+     csrc/preprocess_yuv.cu: K3, csrc/int8conv.cu: K4, csrc/maxpool3d.cu: K5,
+     csrc/upsample_bilinear.cu: K6) with nvcc, one process per source, started together,
+     and the port's decoder (csrc/videodec.cpp) with g++ beside them: where it does not build or load (no FFmpeg), the compiler's first
      error line or the loader's message is printed as a reading, not a failure;
   2. hold K1 against its plain PyTorch version on the card (chip_probes.K1_CASES: the
      serving shape, a ragged one, 480x856, 1080x1920, an unaligned base address and
@@ -172,7 +172,22 @@ Phases, each fatal on failure:
      with no write and while each write runs, each file reloaded onto the card bit-equal
      to what was saved (the payload after more steps the control); synth_scene_frames'
      ms per frame at the fixture set's three sizes on the card's host, and whether the
-     native encoder loads there (a reading). It launches no kernel.
+     native encoder loads there (a reading). It launches no serving kernel;
+ 19. repeatability: every training step of chip_probes.repeat_groups at full width (the
+     adversarial fa and fb/ft steps at AnonymizationParams' defaults; the I3Res50 action
+     step at ActionParams'; fa pretraining with the UNet++ and with the plain UNet; the
+     adversarial steps with InceptionI3d and with MViTv2-S at phase 15's sizes; the
+     plain-UNet fa's adversarial step at phase 13's driver batch; the privacy step; the
+     MGFN step), each run twice from one saved state, batch and dropout draw and once on
+     its control (one input value moved by one level), in the stage's compute dtype under
+     the default settings: losses equal and every parameter and buffer bit-equal after
+     the step, the control differing; K5 (the 3D max-pool backward) launched on every
+     step that pools in 3D and K6 (the bilinear upsample's backward) on every step that
+     trains the plain UNet, neither elsewhere, K1-K4 never; K5 and K6 bit-equal to their
+     plain versions at every call the steps made, at its full shape, and at chip_probes'
+     K5_CASES / K6_CASES (float64, ragged shapes, planted ties, MViT's padding, both
+     memory formats) and on the timed operands; each timed beside its bound, its plain version and torch's own atomic backward. Every
+     serving phase above must launch neither K5 nor K6.
 
 Prints the kernel table as one JSON line, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero, printing no result,
@@ -372,14 +387,15 @@ def phase_build() -> tuple[dict, dict]:
     """nvcc for every kernel source at once (one process each), and g++ for the port's
     decoder beside them, then each kernel's ptxas lines: registers, spills, shared
     memory. Returns K1's and K2's registers and spills by instantiation, and fails if a
-    K2 one spills (K3's and K4's are logged). The decoder is a reading: where it does
+    K2, K5 or K6 one spills (K3's and K4's are logged). The decoder is a reading: where it does
     not build, its compiler's first error line is printed."""
     from concurrent.futures import ThreadPoolExecutor
 
     from ted_spad_tpu_torch.chip_probes import k1_register_report, k2_register_report
     from ted_spad_tpu_torch.utils import cuda_build
+    from ted_spad_tpu_torch.utils.cuda_build import ptxas_report
 
-    names = ("preprocess", "doubleconv", "preprocess_yuv", "int8conv")
+    names = ("preprocess", "doubleconv", "preprocess_yuv", "int8conv", "maxpool3d", "upsample_bilinear")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names) + 1) as pool:
         decoder = pool.submit(decoder_build)
@@ -392,6 +408,9 @@ def phase_build() -> tuple[dict, dict]:
         log(f"[build] csrc/{name}.cu built in {seconds:.2f}s")
     log(f"[build] all kernels built in {time.perf_counter() - t0:.2f}s")
     out = dict(zip(names, results))
+    for name in ("maxpool3d", "upsample_bilinear"):
+        if any(r["spill_stores"] or r["spill_loads"] for r in ptxas_report(out[name][1]).values()):
+            raise AssertionError(f"csrc/{name}.cu spills registers")
     return k1_register_report(out["preprocess"][1], log), k2_register_report(out["doubleconv"][1], log)
 
 
@@ -556,11 +575,24 @@ def profile_step(fn, steps: int) -> None:
 def _kernel_wrappers() -> dict:
     from ted_spad_tpu_torch.ops.doubleconv import fused_double_conv
     from ted_spad_tpu_torch.ops.int8conv import int8_conv
+    from ted_spad_tpu_torch.ops.maxpool3d import max_pool3d_backward
     from ted_spad_tpu_torch.ops.preprocess import fused_preprocess
+    from ted_spad_tpu_torch.ops.upsample import upsample_bilinear_backward
     from ted_spad_tpu_torch.ops.yuv import fused_preprocess_yuv
 
     return {"K1 preprocess": fused_preprocess, "K2 double_conv": fused_double_conv,
-            "K3 preprocess_yuv": fused_preprocess_yuv, "K4 int8_conv": int8_conv}
+            "K3 preprocess_yuv": fused_preprocess_yuv, "K4 int8_conv": int8_conv,
+            "K5 maxpool3d_backward": max_pool3d_backward,
+            "K6 upsample_bilinear_backward": upsample_bilinear_backward}
+
+
+# The kernels of the forward passes; K5 and K6 run in the training steps' backward passes.
+SERVING_KERNELS = ("K1 preprocess", "K2 double_conv", "K3 preprocess_yuv", "K4 int8_conv")
+
+
+def serving_counts(counts: dict) -> dict:
+    """K1-K4's launches of a launch count (``launch_counts``)."""
+    return {k: v for k, v in counts.items() if k in SERVING_KERNELS}
 
 
 def launch_counts() -> dict:
@@ -573,8 +605,9 @@ def zero_launch_counts() -> None:
 
 
 def expected(K1: int = 0, K2: int = 0, K3: int = 0, K4: int = 0) -> dict:  # noqa: N803
-    """Launch counts of the four kernels, the ones not given 0."""
-    return dict(zip(_kernel_wrappers(), (K1, K2, K3, K4)))
+    """Launch counts of the six kernels on a serving path: K1-K4 as given, K5 and K6
+    (training's backward kernels) 0."""
+    return {name: dict(zip(SERVING_KERNELS, (K1, K2, K3, K4))).get(name, 0) for name in _kernel_wrappers()}
 
 
 def first_batch(uris: list, p, device, decode_mode: str = "rgb"):
@@ -2302,9 +2335,11 @@ def privacy_drivers(device, workdir: str, card: str) -> tuple[dict, dict]:
     if not (all(len(v) == 1 for v in h.values()) and np.isfinite([v[0] for v in h.values()]).all()):
         raise AssertionError(f"train_anonymizer history out of range: {h}")
     # 9 per eval fa forward: 2 fb/ft steps x 3 (two VISPR views, the clips), the
-    # preview grid, one validation batch.
-    if adv != expected(K2=9 * 8):
+    # preview grid, one validation batch; the fa steps' backward passes run K5 and K6.
+    if serving_counts(adv) != serving_counts(expected(K2=9 * 8)):
         raise AssertionError(f"expected K2 x72 on the adversarial path: {adv}")
+    if not (adv["K5 maxpool3d_backward"] > 0 and adv["K6 upsample_bilinear_backward"] > 0):
+        raise AssertionError(f"the plain-UNet fa steps ran without K5 or K6: {adv}")
     path = res["best_path"]
     fa32 = load_fa_model("unet", saved_model_file=path, dtype="float32", device=device)
     ft32 = load_ft_model(saved_model_file=path, dtype="float32", device=device)
@@ -2863,8 +2898,9 @@ def ft_families_phase(device, workdir: str, card: str) -> dict:
         ft_family_steps(device, family, inputs, card)
     del inputs
     launches = ft_family_drivers(device, workdir, card)
-    if any(launches.values()):
-        raise AssertionError(f"the ft families' drivers launched a kernel: {launches}")
+    if any(serving_counts(launches).values()) or launches["K5 maxpool3d_backward"] <= 0:
+        raise AssertionError(f"the ft families' drivers launched a serving kernel, or the InceptionI3d's "
+                             f"training steps ran without K5: {launches}")
     log(f"[ft] phase time {time.perf_counter() - t0:.1f}s")
     return launches
 
@@ -3467,7 +3503,7 @@ def parity_dry_run(device, workdir: str, card: str) -> dict:
     numbers = [v for v in report.values() if isinstance(v, float)]
     if not (len(numbers) == 9 and np.isfinite(numbers).all() and report["seeds_converted"] == ["fa", "fb", "ft"]):
         raise AssertionError(f"parity report out of range: {report}")
-    if got != want:
+    if serving_counts(got) != serving_counts(want):
         raise AssertionError(f"parity dry run launches {got}, predicted {want}")
     worst = check_kernel_calls(device, seen, "parity")
     log(f"[parity] K1 at {len(seen['K1'])} and K2 at {len(seen['K2'])} distinct shapes of the run "
@@ -3502,8 +3538,10 @@ def reference_validation(device, workdir: str, card: str) -> dict:
     if not (all(0.0 <= c <= 1.0 for c in cmaps)
             and all(np.isfinite(v).all() for h in histories for v in h.values() if len(v))):
         raise AssertionError(f"reference-scale validation out of range: cMAPs {cmaps}")
-    if any(got.values()):
-        raise AssertionError(f"the UNet++ validation launched a kernel: {got}")
+    if any(serving_counts(got).values()):
+        raise AssertionError(f"the UNet++ validation launched a serving kernel: {got}")
+    if got["K5 maxpool3d_backward"] <= 0:
+        raise AssertionError(f"the I3Res50's training steps ran without K5: {got}")
     return got
 
 
@@ -3720,6 +3758,71 @@ def checkpoint_phase(device, workdir: str, card: str) -> dict:
     return got
 
 
+# K5's and K6's main paths: phase 19's adversarial fa step at AnonymizationParams' defaults
+# and its plain-UNet fa pretraining step.
+K5_MAIN_PATH = "repeat: adversarial (UNet++, ResNet50SSL, I3Res50) fa step"
+K6_MAIN_PATH = "repeat: fa pretraining (UNet) fa pretraining step"
+
+
+def repeat_phase(device, card: str) -> tuple[dict, dict, dict]:
+    """Phase 19: every training step of chip_probes.repeat_groups at full width, each
+    run twice from one saved state, batch and dropout draw and once on its control (one
+    input value moved by one level), in the stage's compute dtype under the default
+    settings: the losses equal and every parameter and buffer bit-equal after the step,
+    the control telling them apart, K5 launched on each step that pools in 3D and K6 on
+    each that trains the plain UNet (none elsewhere; K1-K4 none); K5 and K6 against their
+    plain versions at every call the steps made (recorded by wrapping the wrappers;
+    checked at the recorded shape), at chip_probes.K5_CASES / K6_CASES and on the timed
+    operands; each timed beside its bound, its plain version and torch's atomic backward. Returns (K5's and
+    K6's kernel entries, {path: launch counts over the case's three runs})."""
+    import torch
+
+    from ted_spad_tpu_torch.chip_probes import (
+        check_recorded, k5_check, k5_timing, k6_check, k6_timing, recorded_backward_calls,
+        repeat_case, repeat_gate, repeat_groups, repeat_line,
+    )
+
+    t0 = time.perf_counter()
+    seen, launches, failed = {}, {}, []
+    with recorded_backward_calls(seen):
+        for group, build, want_k5, want_k6 in repeat_groups(device):
+            models, cases = build()
+            for name, (make_step, run, control) in cases.items():
+                zero_launch_counts()
+                r = repeat_case(models, make_step, run, control)
+                got = launch_counts()
+                path = f"repeat: {group} {name}"
+                launches[path] = got
+                log(repeat_line(group, name, r) + f" | {card}")
+                ok, differs = repeat_gate(r)
+                # K5 / K6 in every run of a step that has their op, in no run of one that has not.
+                launched = all(min(runs) > 0 if want else max(runs) == 0
+                               for runs, want in zip(zip(*r["launches"]), (want_k5, want_k6)))
+                if not (ok and differs and launched and not any(serving_counts(got).values())):
+                    failed.append(f"{path}: gate {ok}, control differs {differs}, launches {got}")
+            del models, cases
+            torch.cuda.empty_cache()
+    log(f"[repeat] {len(launches)} steps in {time.perf_counter() - t0:.1f}s; K5 and K6 saw "
+        f"{len(seen)} distinct calls")
+    if failed:
+        raise AssertionError("phase 19: " + "; ".join(failed))
+    checks = check_recorded(device, seen, log)
+    for key, more in (("K5", k5_check(device, log)), ("K6", k6_check(device, log))):
+        checks[key] = (checks[key][0] + more[0], max(checks[key][1], more[1]))
+    entries = {}
+    for key, timing, name, source, replaces in (
+            ("K5", k5_timing, "K5 maxpool3d_backward", "ted_spad_tpu_torch/csrc/maxpool3d.cu",
+             "ted_spad_tpu/models/layers.py:98"),
+            ("K6", k6_timing, "K6 upsample_bilinear_backward", "ted_spad_tpu_torch/csrc/upsample_bilinear.cu",
+             "ted_spad_tpu/models/layers.py:109")):
+        t = timing(device, log)
+        entries[key] = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "max_abs_err": checks[key][1], "checks": checks[key][0], "timed_shape": t["shape"],
+                        **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+    log(f"[repeat] phase time {time.perf_counter() - t0:.1f}s")
+    return entries["K5"], entries["K6"], launches
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3773,8 +3876,10 @@ def main() -> int:
         k4, launches["int8"] = int8_path(device, workdir, fa, card)
         del fa
         launches["training"] = training_phase(device, workdir, card)
-        if any(launches["training"].values()):
-            raise AssertionError(f"the training path launched a kernel: {launches['training']}")
+        training = launches["training"]
+        if any(serving_counts(training).values()) or training["K5 maxpool3d_backward"] <= 0:
+            raise AssertionError(f"the training path launched a serving kernel, or its I3Res50 steps ran "
+                                 f"without K5: {training}")
         launches["privacy"], launches["adversarial"] = privacy_phase(device, workdir, card)
         k2_f32, vis_launches = visualization_phase(device, workdir, card)
         launches.update(vis_launches)
@@ -3782,12 +3887,17 @@ def main() -> int:
         launches.update(dp_phase(device, workdir, card))
         launches.update(workflow_phase(device, workdir, card))
         launches["checkpoints"] = checkpoint_phase(device, workdir, card)
-        if any(launches["checkpoints"].values()):
-            raise AssertionError(f"the checkpoint phase launched a kernel: {launches['checkpoints']}")
+        if any(serving_counts(launches["checkpoints"]).values()):
+            raise AssertionError(f"the checkpoint phase launched a serving kernel: {launches['checkpoints']}")
+        k5, k6, repeat_launches = repeat_phase(device, card)
+        launches.update(repeat_launches)
     # Each kernel's launches on its own main path (K1: the default UNet++ path, K2: the
-    # plain-UNet path, K3: the YUV path, K4: the int8 path), and on every path driven.
+    # plain-UNet path, K3: the YUV path, K4: the int8 path, K5 and K6: their phase 19
+    # steps, each over the step's three runs), and on every path driven.
     for k, name, path in ((k1, "K1 preprocess", "unet++"), (k2, "K2 double_conv", "unet"),
-                          (k3, "K3 preprocess_yuv", "yuv"), (k4, "K4 int8_conv", "int8")):
+                          (k3, "K3 preprocess_yuv", "yuv"), (k4, "K4 int8_conv", "int8"),
+                          (k5, "K5 maxpool3d_backward", K5_MAIN_PATH),
+                          (k6, "K6 upsample_bilinear_backward", K6_MAIN_PATH)):
         k["launches"] = launches[path][name]
         k["launches_by_path"] = {where: counts[name] for where, counts in launches.items()}
     k1["ten_crop"] = ten_crop
@@ -3795,7 +3905,7 @@ def main() -> int:
                                                    if k.startswith("f32")}}
 
     log(f"[card] command time {time.perf_counter() - T0:.1f}s")
-    log(json.dumps({"kernels": [k1, k2, k3, k4]}))
+    log(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6]}))
     log(f"[card] {card}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

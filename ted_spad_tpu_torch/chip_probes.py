@@ -15,7 +15,11 @@ numbers PERF.md quotes from them can be taken again:
     python -m ted_spad_tpu_torch.chip_probes trainab   # training steps: train forms vs module forms
     python -m ted_spad_tpu_torch.chip_probes gain   # the UNet's outc gain vs the gates
     python -m ted_spad_tpu_torch.chip_probes mgfn   # where MGFN's card-vs-CPU step error sits
-    python -m ted_spad_tpu_torch.chip_probes repeat   # the adversarial steps run twice, compared
+    python -m ted_spad_tpu_torch.chip_probes k5     # kernel K5 (3D max-pool backward) alone
+    python -m ted_spad_tpu_torch.chip_probes k6     # kernel K6 (bilinear upsample backward) alone
+    python -m ted_spad_tpu_torch.chip_probes repeat   # every training step run twice, compared
+    python -m ted_spad_tpu_torch.chip_probes repairab   # training steps with and without the cuDNN repair
+    python -m ted_spad_tpu_torch.chip_probes validaterepeat [atomic]   # validate_adversarial twice, one seed
 
 ``k1``: builds K1 and prints each instantiation's registers and spills, holds it
 against its plain version (float32 matmuls, TF32 off) at K1_CASES and over the crops
@@ -95,15 +99,36 @@ rounding can swamp the differences between clips. For outc gains 1, 4, 8 and 16 
 prints the fa output's spread and both fidelity readings of chip_smoke.py (features
 and fa output, bf16 kernel path against the f32 plain path, with their controls).
 
-``repeat``: the adversarial fa step and fb/ft step at AnonymizationParams' defaults
-(bf16, remat "auto", 8 videos x 3 views + 12 VISPR pairs, seeded models and inputs),
-each run twice from the same saved state, batch and dropout draw (``repeat_run``):
-whether the losses are equal, which parameters and buffers are bit-equal after the
-step, and the first module whose output, or whose output's gradient, differs between
-the runs (forward and tensor hooks recording an exact digest of each, ``recorded``).
-Then the same in a process of its own (``repeatdet``) with CUBLAS_WORKSPACE_CONFIG
-=:4096:8 and ``torch.use_deterministic_algorithms(True, warn_only=True)``: every op
-that has no deterministic form, and the two runs compared again.
+``k5``: builds K5 (csrc/maxpool3d.cu) and prints its registers and spills (failing on
+a spill), holds it bit for bit against its plain version at K5_CASES in float32, bf16
+and float64, NCDHW and channels_last_3d, with planted ties and without, then times it at
+the adversarial step's stem pool (K5_TIMED) beside its byte bound, the plain version and
+torch's own atomic backward. ``k6``: the same for K6 (csrc/upsample_bilinear.cu) at
+K6_CASES in float32 and float64, NCHW and channels_last, timed at the UNet's largest
+upsample on the fa pretraining batch (K6_TIMED).
+
+``repeat``: every training step of ``repeat_groups`` at full width (the adversarial fa
+and fb/ft steps at AnonymizationParams' defaults; the I3Res50 action step; fa
+pretraining with the UNet++ and with the plain UNet; the adversarial steps with
+InceptionI3d and MViTv2-S; the plain-UNet fa's adversarial step; the privacy step; the
+MGFN step), each run twice from the same saved state, batch and dropout draw and once
+with one input value moved by one level (``repeat_case``), under the default settings
+and without the stages' deterministic cuDNN scope (``without_cudnn_repair``): whether
+the losses are equal, which parameters and buffers are bit-equal after the step, the
+first module whose output, or whose output's gradient, differs between the runs
+(forward and tensor hooks recording an exact digest of each, ``recorded``), and K5's
+and K6's launches. Then the default runs in a process of its own (``repeatdet``) with
+CUBLAS_WORKSPACE_CONFIG=:4096:8 and ``torch.use_deterministic_algorithms(True,
+warn_only=True)``: every op torch still flags as having no deterministic form.
+
+``repairab``: each of those steps with the deterministic cuDNN scope and without it, in
+alternating turns (repaired / unrepaired / unrepaired / repaired) after a discarded one,
+TRAINAB_STEPS timed steps a turn (CUDA events): the medians and the repair's cost.
+
+``validaterepeat``: ``validate_adversarial --scale reference`` cut to one adversarial
+and one attack epoch, twice from one seed: both cMAPs, every history and the trained
+fa compared bit for bit. ``validaterepeat atomic``: the same with the pools and the
+upsample on torch's atomic backwards, as the port ran before K5 and K6.
 
 ``mgfn``: one MGFN train step (UCF preset, dropout 0, 16 + 16 synthetic videos pooled
 as the stage pools them) from the same weights on the card, under cuDNN's default
@@ -2119,6 +2144,295 @@ def trainab(device) -> None:
 
 
 # ---------------------------------------------------------------------------
+# k5, k6: the deterministic backward kernels of the training paths
+# ---------------------------------------------------------------------------
+
+# Checks beside the shapes a training run records: (name, input (B, C, D, H, W), window,
+# strides, padding). Each runs in float32, bf16 and float64, NCDHW and channels_last_3d,
+# with planted ties (small integers: most windows hold several maxima) and without.
+K5_CASES = (
+    ("ragged", (3, 5, 7, 9, 11), (2, 3, 3), (2, 2, 2), (0, 0, 0)),
+    ("ragged stride 1", (2, 3, 6, 7, 5), (3, 3, 3), (1, 1, 1), (0, 0, 0)),
+    ("MViT skip padding", (2, 4, 3, 9, 7), (1, 3, 3), (1, 2, 2), (0, 1, 1)),
+    ("padded on every axis", (1, 3, 5, 6, 7), (3, 3, 3), (2, 2, 2), (1, 1, 1)),
+    ("I3Res50 stem, 2 clips", (2, 64, 8, 112, 112), (2, 3, 3), (2, 2, 2), (0, 0, 0)),
+)
+# The adversarial steps' stem pool at AnonymizationParams' defaults (8 videos x 3 views,
+# 16 x 224^2 -> the stem's 64 x 8 x 112^2), bf16, channels_last_3d as the ft runs it.
+K5_TIMED = ((24, 64, 8, 112, 112), (2, 3, 3), (2, 2, 2), (0, 0, 0))
+# (name, input (N, C, H, W)), each in float32 and float64, NCHW and channels_last.
+K6_CASES = (("ragged", (2, 3, 5, 7)), ("one pixel", (1, 4, 1, 1)), ("one row", (2, 3, 1, 9)),
+            ("odd", (1, 16, 13, 17)), ("UNet up1, 2 frames", (2, 512, 14, 14)))
+# The UNet's largest upsample (up4: 64 channels, 112^2 -> 224^2) on the fa pretraining
+# batch of 32 frames, float32, channels_last as the UNet runs it.
+K6_TIMED = (32, 64, 112, 112)
+
+
+def k5_operands(device, shape, window, strides, padding, dtype, channels_last: bool, ties: bool,
+                seed: int = 0, grad_stride=None):
+    """(grad_out, indices) of a max pool over a seeded input of ``shape`` in ``dtype``:
+    small integers with ``ties``, else normal values; grad_out normal values, laid out
+    as the pool's output or with ``grad_stride``."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randint(-2, 3, shape, generator=g, device=device) if ties
+         else torch.randn(shape, generator=g, device=device)).to(dtype)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last_3d)
+    out, indices = F.max_pool3d(x, window, strides, padding, return_indices=True)
+    values = torch.randn(out.shape, generator=g, device=device).to(dtype)
+    grad = (torch.empty_like(out) if grad_stride is None
+            else torch.empty_strided(out.shape, grad_stride, dtype=dtype, device=device))
+    return grad.copy_(values), indices
+
+
+def _bit_error(got, ref, fmt) -> float:
+    """max |got - ref|, 0.0 exactly where the two are bit-equal; raises where ``got`` is
+    not in the layout ``fmt``."""
+    import torch
+
+    if not got.is_contiguous(memory_format=fmt):
+        raise AssertionError(f"the kernel's gradient is not in {fmt}: strides {got.stride()}")
+    return 0.0 if torch.equal(got, ref) else float((got.double() - ref.double()).abs().max())
+
+
+def k5_error(grad, indices, shape, window, strides, padding, channels_last: bool) -> float:
+    """K5 against its plain version on these operands (``_bit_error``)."""
+    import torch
+
+    from ted_spad_tpu_torch.ops.maxpool3d import max_pool3d_backward, max_pool3d_backward_reference
+
+    got = max_pool3d_backward(grad, indices, shape, window, strides, padding, channels_last)
+    ref = max_pool3d_backward_reference(grad, indices, shape, window, strides, padding, channels_last)
+    return _bit_error(got, ref, torch.channels_last_3d if channels_last else torch.contiguous_format)
+
+
+def k6_operands(device, shape, dtype, channels_last: bool, seed: int = 0, grad_stride=None):
+    """grad_out of the x2 upsample of ``shape``: seeded normal values in ``dtype``,
+    NCHW, channels_last, or laid out with ``grad_stride``."""
+    import torch
+
+    n, c, h, w = shape
+    out = (n, c, 2 * h, 2 * w)
+    values = torch.randn(out, generator=torch.Generator(device=device).manual_seed(seed), device=device)
+    if grad_stride is not None:
+        grad = torch.empty_strided(out, grad_stride, dtype=dtype, device=device)
+    else:
+        grad = torch.empty(out, dtype=dtype, device=device,
+                           memory_format=torch.channels_last if channels_last else torch.contiguous_format)
+    return grad.copy_(values)
+
+
+def k6_error(grad, shape, channels_last: bool) -> float:
+    """K6 against its plain version on these operands (``_bit_error``)."""
+    import torch
+
+    from ted_spad_tpu_torch.ops.upsample import (
+        upsample_bilinear_backward, upsample_bilinear_backward_reference,
+    )
+
+    got = upsample_bilinear_backward(grad, shape, channels_last)
+    ref = upsample_bilinear_backward_reference(grad, shape, channels_last)
+    return _bit_error(got, ref, torch.channels_last if channels_last else torch.contiguous_format)
+
+
+def k5_check(device, log=print) -> tuple[int, float]:
+    """K5 bit-equal to its plain version at every K5_CASES shape, dtype, layout and tie
+    pattern; raises on the first that is not. Returns (checks, worst max |error|)."""
+    import torch
+
+    n, worst = 0, 0.0
+    for i, (name, shape, window, strides, padding) in enumerate(K5_CASES):
+        for dtype in (torch.float32, torch.bfloat16, torch.float64):
+            for cl in (False, True):
+                for ties in (True, False):
+                    ops = k5_operands(device, shape, window, strides, padding, dtype, cl, ties, seed=i)
+                    err = k5_error(*ops, shape, window, strides, padding, cl)
+                    if err != 0.0:
+                        raise AssertionError(f"K5 differs from its plain version at {name} {shape} "
+                                             f"{dtype} channels_last={cl} ties={ties}: {err}")
+                    n, worst = n + 1, max(worst, err)
+    log(f"[K5] bit-equal to its plain version at {n} checks: {len(K5_CASES)} shapes "
+        f"({', '.join(c[0] for c in K5_CASES)}) x float32 / bf16 / float64 x NCDHW / channels_last_3d "
+        f"x planted ties / none")
+    return n, worst
+
+
+def k6_check(device, log=print) -> tuple[int, float]:
+    """K6 bit-equal to its plain version at every K6_CASES shape, dtype and layout;
+    raises on the first that is not. Returns (checks, worst max |error|)."""
+    import torch
+
+    n, worst = 0, 0.0
+    for i, (name, shape) in enumerate(K6_CASES):
+        for dtype in (torch.float32, torch.float64):
+            for cl in (False, True):
+                err = k6_error(k6_operands(device, shape, dtype, cl, seed=i), shape, cl)
+                if err != 0.0:
+                    raise AssertionError(f"K6 differs from its plain version at {name} {shape} {dtype} "
+                                         f"channels_last={cl}: {err}")
+                n, worst = n + 1, max(worst, err)
+    log(f"[K6] bit-equal to its plain version at {n} checks: {len(K6_CASES)} shapes "
+        f"({', '.join(c[0] for c in K6_CASES)}) x float32 / float64 x NCHW / channels_last")
+    return n, worst
+
+
+@contextlib.contextmanager
+def recorded_backward_calls(seen: dict):
+    """Record every call of K5's and K6's wrappers inside the block into ``seen``
+    ({key: calls}; key ("K5", input shape, window, strides, padding, dtype name,
+    channels_last, grad_out's strides) or ("K6", input shape, dtype name, channels_last,
+    grad_out's strides)). The recording wrappers take the wrappers'
+    names in their modules, so their launch counts go on as before."""
+    from ted_spad_tpu_torch.ops import maxpool3d, upsample
+
+    real5, real6 = maxpool3d.max_pool3d_backward, upsample.upsample_bilinear_backward
+
+    def k5(grad_out, indices, input_shape, window, strides, padding=(0, 0, 0), channels_last=False):
+        key = ("K5", tuple(input_shape), tuple(window), tuple(strides), tuple(padding),
+               str(grad_out.dtype).replace("torch.", ""), bool(channels_last), tuple(grad_out.stride()))
+        seen[key] = seen.get(key, 0) + 1
+        return real5(grad_out, indices, input_shape, window, strides, padding, channels_last)
+
+    def k6(grad_out, input_shape, channels_last=False):
+        key = ("K6", tuple(input_shape), str(grad_out.dtype).replace("torch.", ""),
+               bool(channels_last), tuple(grad_out.stride()))
+        seen[key] = seen.get(key, 0) + 1
+        return real6(grad_out, input_shape, channels_last)
+
+    # The real wrappers count through their module names: the counts move with them.
+    k5.launches, k6.launches = real5.launches, real6.launches
+    maxpool3d.max_pool3d_backward, upsample.upsample_bilinear_backward = k5, k6
+    try:
+        yield seen
+    finally:
+        real5.launches, real6.launches = k5.launches, k6.launches
+        maxpool3d.max_pool3d_backward, upsample.upsample_bilinear_backward = real5, real6
+
+
+def check_recorded(device, seen: dict, log=print) -> dict:
+    """K5 and K6 against their plain versions at every recorded call
+    (``recorded_backward_calls``): its shape, dtype, layout and grad_out's strides as
+    recorded, so the grid-stride loop (a thread takes several elements past 132 x 16 x 64
+    blocks of 256) runs as on the training path; raises on the first that is not
+    bit-equal. Returns {"K5": (checks, worst max |error|), "K6": likewise}."""
+    import torch
+
+    n, worst = {"K5": 0, "K6": 0}, {"K5": 0.0, "K6": 0.0}
+    for i, key in enumerate(sorted(seen, key=str)):
+        if key[0] == "K5":
+            _, shape, window, strides, padding, dtype, cl, stride = key
+            for ties in (True, False):
+                ops = k5_operands(device, shape, window, strides, padding, getattr(torch, dtype), cl, ties,
+                                  seed=i, grad_stride=stride)
+                err = k5_error(*ops, shape, window, strides, padding, cl)
+                if err != 0.0:
+                    raise AssertionError(f"K5 differs from its plain version at the recorded call {key}: "
+                                         f"{err}")
+        else:
+            _, shape, dtype, cl, stride = key
+            err = k6_error(k6_operands(device, shape, getattr(torch, dtype), cl, seed=i, grad_stride=stride),
+                           shape, cl)
+            if err != 0.0:
+                raise AssertionError(f"K6 differs from its plain version at the recorded call {key}: {err}")
+        n[key[0]] += 1
+        worst[key[0]] = max(worst[key[0]], err)
+        log(f"[{key[0]}] recorded call {key[1:]} ({seen[key]} calls): bit-equal to its plain version")
+    return {k: (n[k], worst[k]) for k in n}
+
+
+def k5_timing(device, log=print) -> dict:
+    """K5 at K5_TIMED (bf16, channels_last_3d), held bit-equal to its plain version on the
+    timed operands (raises where not), beside its byte bound, its plain version and
+    torch's own atomic backward (the library yardstick, which the port never calls)."""
+    import math
+
+    import torch
+
+    from ted_spad_tpu_torch.ops.maxpool3d import max_pool3d_backward, max_pool3d_backward_reference
+
+    shape, window, strides, padding = K5_TIMED
+    grad, idx = k5_operands(device, shape, window, strides, padding, torch.bfloat16, True, ties=False)
+    x = torch.empty(shape, dtype=torch.bfloat16, device=device, memory_format=torch.channels_last_3d)
+    args = (grad, idx, shape, window, strides, padding, True)
+    if k5_error(*args) != 0.0:
+        raise AssertionError(f"K5 differs from its plain version at K5_TIMED {shape}: {k5_error(*args)}")
+    ms = time_ms(lambda: max_pool3d_backward(*args), reps=10, inner=4)
+    plain_ms = time_ms(lambda: max_pool3d_backward_reference(*args), reps=3, inner=1)
+    library_ms = time_ms(lambda: torch.ops.aten.max_pool3d_with_indices_backward(
+        grad, x, window, strides, padding, (1, 1, 1), False, idx), reps=10, inner=4)
+    moved = grad.numel() * 2 + idx.numel() * 8 + math.prod(shape) * 2
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    log(f"[K5] stem pool {shape} {window}/{strides} bf16 channels_last_3d: kernel {ms:.4f} ms "
+        f"({moved / ms * 1e-6:.1f} GB/s), plain {plain_ms:.4f} ms, torch's atomic backward "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes: {moved / 1e6:.1f} MB), {ms / bound_ms:.2f}x "
+        f"the bound")
+    return {"shape": list(shape), "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes"}
+
+
+def k6_timing(device, log=print) -> dict:
+    """K6 at K6_TIMED (float32, channels_last), held bit-equal to its plain version on the
+    timed operands (raises where not), beside its byte bound, its plain version and
+    torch's own atomic backward (the library yardstick, which the port never calls)."""
+    import math
+
+    import torch
+
+    from ted_spad_tpu_torch.ops.upsample import (
+        upsample_bilinear_backward, upsample_bilinear_backward_reference,
+    )
+
+    shape = K6_TIMED
+    grad = k6_operands(device, shape, torch.float32, True)
+    if k6_error(grad, shape, True) != 0.0:
+        raise AssertionError(f"K6 differs from its plain version at K6_TIMED {shape}: {k6_error(grad, shape, True)}")
+    ms = time_ms(lambda: upsample_bilinear_backward(grad, shape, True), reps=10, inner=4)
+    plain_ms = time_ms(lambda: upsample_bilinear_backward_reference(grad, shape, True), reps=3, inner=1)
+    library_ms = time_ms(lambda: torch.ops.aten.upsample_bilinear2d_backward(
+        grad, list(grad.shape[2:]), list(shape), True, None, None), reps=10, inner=4)
+    moved = (grad.numel() + math.prod(shape)) * 4
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    log(f"[K6] UNet up4 {shape} x2 float32 channels_last: kernel {ms:.4f} ms ({moved / ms * 1e-6:.1f} GB/s), "
+        f"plain {plain_ms:.4f} ms, torch's atomic backward {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"(bytes: {moved / 1e6:.1f} MB), {ms / bound_ms:.2f}x the bound")
+    return {"shape": list(shape), "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes"}
+
+
+def backward_register_report(name: str, log=print) -> dict[str, dict[str, int]]:
+    """Build ``csrc/<name>.cu`` and print each instantiation's registers and spills;
+    raises where one spills."""
+    from ted_spad_tpu_torch.utils.cuda_build import build, ptxas_report
+
+    seconds, out = build(name)
+    report = ptxas_report(out)
+    for kernel, r in report.items():
+        log(f"[build] {name}: {kernel}: {r['registers']} registers, spills {r['spill_stores']} / "
+            f"{r['spill_loads']} bytes")
+        if r["spill_stores"] or r["spill_loads"]:
+            raise AssertionError(f"{name}: {kernel} spills")
+    log(f"[build] csrc/{name}.cu built in {seconds:.2f}s")
+    return report
+
+
+def k5(device) -> None:
+    """See the module docstring."""
+    backward_register_report("maxpool3d")
+    k5_check(device)
+    k5_timing(device)
+
+
+def k6(device) -> None:
+    """See the module docstring."""
+    backward_register_report("upsample_bilinear")
+    k6_check(device)
+    k6_timing(device)
+
+
+# ---------------------------------------------------------------------------
 # repeat: is the adversarial step repeatable on the card?
 # ---------------------------------------------------------------------------
 
@@ -2276,17 +2590,256 @@ def adversarial_setup(device):
     return p, models, (v1, v2, clips, labels.to(device))
 
 
-def _repeat_all(device, tag: str) -> None:
-    """Each step of ``repeat_steps`` run twice from the same saved state (``repeat_run``)
-    and compared (``repeat_report``)."""
+def moved(inputs: tuple, k: int) -> tuple:
+    """``inputs`` with ``inputs[k]`` copied and one value moved by one level (1 for
+    uint8, 1/255 else): the first row's value at the middle of its last two spatial axes,
+    channel 0, so that no crop leaves it out. The repeat gate's control."""
+    import numpy as np
     import torch
 
-    p, models, inputs = adversarial_setup(device)
+    x = inputs[k]
+    x = x.clone() if isinstance(x, torch.Tensor) else np.array(x, copy=True)
+    at = (0,) * (x.ndim - 3) + (x.shape[-3] // 2, x.shape[-2] // 2, 0)
+    if x.dtype in (np.uint8, torch.uint8):
+        x[at] = x[at] + 1 if int(x[at]) < 255 else x[at] - 1
+    else:
+        x[at] = x[at] + 1 / 255
+    return inputs[:k] + (x,) + inputs[k + 1:]
+
+
+def action_repeat_steps(device, p, ft, inputs: tuple, seed: int = REPEAT_SEED) -> dict:
+    """{"action step": (make_step, run)}: the action training step over ``ft`` (a new
+    optimizer, the dropout generator seeded anew) on ``inputs`` (clips, labels, draw)."""
+    import torch
+
+    from ted_spad_tpu_torch.stages import action_training
+    from ted_spad_tpu_torch.stages.common import make_optimizer
+
+    return {"action step": (
+        lambda: action_training.make_train_step(
+            ft, make_optimizer(ft.parameters(), p.opt_type, p.learning_rate, p.weight_decay, p.momentum),
+            p, generator=torch.Generator(device=device).manual_seed(seed), device=device),
+        lambda step: step(*inputs))}
+
+
+def fa_pretraining_repeat_steps(device, rp, fa, inputs: tuple) -> dict:
+    """{"fa pretraining step": (make_step, run)} over ``fa`` on ``inputs`` (images,
+    draw)."""
+    from ted_spad_tpu_torch.stages import fa_pretraining
+    from ted_spad_tpu_torch.stages.common import make_optimizer
+
+    return {"fa pretraining step": (
+        lambda: fa_pretraining.make_train_step(fa, make_optimizer(fa.parameters(), "adam", rp.learning_rate),
+                                               (rp.reso_h, rp.reso_w), compute_dtype=rp.compute_dtype,
+                                               device=device),
+        lambda step: step(*inputs))}
+
+
+def privacy_repeat_steps(device, pp, fb, fa, inputs: tuple) -> dict:
+    """{"privacy step": (make_step, run)}: the privacy attacker's step over ``fb``
+    through the frozen ``fa`` on ``inputs`` (images, labels, draw)."""
+    from ted_spad_tpu_torch.stages.common import make_optimizer
+    from ted_spad_tpu_torch.stages.privacy_training import make_steps
+
+    return {"privacy step": (
+        lambda: make_steps(fb, fa, make_optimizer(fb.parameters(), "adam", pp.learning_rate),
+                           (pp.reso_h, pp.reso_w), compute_dtype=pp.compute_dtype, device=device)[0],
+        lambda step: step(*inputs))}
+
+
+def mgfn_repeat_steps(device, p, model, inputs: tuple, seed: int = REPEAT_SEED) -> dict:
+    """{"MGFN step": (make_step, run)}: the MGFN train step (a new Adam, the dropout
+    generator seeded anew) on ``inputs`` (nfeat, nlabel, afeat, alabel)."""
+    import torch
+
+    from ted_spad_tpu_torch.stages import anomaly_detection
+
+    return {"MGFN step": (
+        lambda: anomaly_detection.make_train_step(
+            model, anomaly_detection.make_optimizer(model, p), p,
+            generator=torch.Generator(device=device).manual_seed(seed), device=device),
+        lambda step: step(*inputs))}
+
+
+def with_control(steps_of, inputs: tuple, k: int) -> dict:
+    """{name: (make_step, run, control)}: ``steps_of(inputs)``'s steps, each with the
+    run on ``moved(inputs, k)`` beside it."""
+    steps, control = steps_of(inputs), steps_of(moved(inputs, k))
+    return {name: (make, run, control[name][1]) for name, (make, run) in steps.items()}
+
+
+def _k5k6_launches() -> tuple[int, int]:
+    from ted_spad_tpu_torch.ops.maxpool3d import max_pool3d_backward
+    from ted_spad_tpu_torch.ops.upsample import upsample_bilinear_backward
+
+    return max_pool3d_backward.launches, upsample_bilinear_backward.launches
+
+
+def repeat_case(models: dict, make_step, run, control) -> dict:
+    """A step run twice from one saved state, batch and draw and once on the control's
+    inputs (``repeat_run``): {"same": the two runs compared, "control": the first run
+    against the control's (``repeat_compare``), "launches": K5's and K6's launches in
+    each run, "records": the first run's forward and backward records, "seconds"}. The
+    models hold the control's state afterwards."""
     saved = {k: {n: v.detach().clone() for n, v in m.state_dict().items()} for k, m in models.items()}
-    for name, (make_step, run) in repeat_steps(device, p, models, inputs).items():
-        a, b = (repeat_run(models, saved, make_step, run) for _ in range(2))
-        print(repeat_report(name, repeat_compare(a, b), tag), flush=True)
-        del a, b
+    t0 = time.perf_counter()
+    runs, launches = [], []
+    for fn in (run, run, control):
+        before = _k5k6_launches()
+        runs.append(repeat_run(models, saved, make_step, fn))
+        launches.append(tuple(b - a for a, b in zip(before, _k5k6_launches())))
+    return {"same": repeat_compare(runs[0], runs[1]), "control": repeat_compare(runs[0], runs[2]),
+            "launches": launches, "records": (len(runs[0]["forward"]), len(runs[0]["backward"])),
+            "seconds": time.perf_counter() - t0}
+
+
+def repeat_gate(r: dict) -> tuple[bool, bool]:
+    """(the step repeated: losses equal and every parameter and buffer bit-equal; the
+    control differs in what that compares)."""
+    def same(c):
+        return c["loss_equal"] and c["equal"] == c["entries"]
+
+    return same(r["same"]), not same(r["control"])
+
+
+def repeat_groups(device) -> list:
+    """Phase 19's steps at full width, in groups that share models: [(group, build)],
+    ``build()`` -> (models {tag: module}, {name: (make_step, run, control)}, K5 and K6
+    expected: (bool, bool)) for each step of the group. Inputs are seeded; each group is
+    built when its turn comes, so one group's models are on the card at a time."""
+    import numpy as np
+    import torch
+
+    from ted_spad_tpu_torch.config.params import (
+        ActionParams, AnonymizationParams, MGFNParams, PrivacyParams, ReconstructionParams,
+    )
+    from ted_spad_tpu_torch.data.images import SyntheticImageSource, sample_image_augment_params
+    from ted_spad_tpu_torch.models import load_fa_model, load_fb_model, load_ft_model
+    from ted_spad_tpu_torch.ops.augment import sample_augment_params
+
+    kw = dict(seed=0, dtype="float32", device=device)
+
+    def adversarial(arch_fa="unet++", arch_ft="largei3d", cut=None, steps=("fa step", "fb/ft step")):
+        def build():
+            p = AnonymizationParams(arch_fa=arch_fa, arch_ft=arch_ft)
+            if cut:  # (videos, VISPR pairs)
+                p = p.replace(batch_size=cut[0], batch_size_vispr=cut[1])
+            models = {"fa": load_fa_model(arch_fa, **kw).requires_grad_(True),
+                      "fb": load_fb_model(ssl=True, **kw).requires_grad_(True),
+                      "ft": load_ft_model(arch_ft, num_classes=p.num_classes,
+                                          clip_shape=(p.num_frames, p.reso_h, p.reso_w),
+                                          **kw).requires_grad_(True)}
+            g = torch.Generator(device=device).manual_seed(REPEAT_SEED)
+            side = (p.reso_h, p.reso_w, 3)
+            v1, v2 = (torch.rand((p.batch_size_vispr,) + side, generator=g, device=device) for _ in range(2))
+            clips = torch.rand((p.batch_size, 3, p.num_frames) + side, generator=g, device=device)
+            labels = torch.from_numpy(np.random.default_rng(REPEAT_SEED).integers(0, p.num_classes,
+                                                                                   p.batch_size)).to(device)
+            cases = with_control(lambda i: repeat_steps(device, p, models, i), (v1, v2, clips, labels), 2)
+            return models, {k: v for k, v in cases.items() if k in steps}
+        return build
+
+    def action():
+        ap = ActionParams(temporal_loss="trip")
+        ft = load_ft_model(ap.arch, num_classes=ap.num_classes, dropout_rate=ap.ft_dropout or None,
+                           **kw).requires_grad_(True)
+        rng = np.random.default_rng(REPEAT_SEED)
+        b = ap.batch_size
+        clips = torch.from_numpy(rng.integers(0, 256, (b, 3, ap.num_frames, 240, 320, 3),
+                                              dtype=np.uint8)).to(device)
+        inputs = (clips, rng.integers(0, ap.num_classes, b), sample_augment_params(rng, b * 3, 240, 320,
+                                                                                  ap.reso_h, ap.reso_w))
+        return {"ft": ft}, with_control(lambda i: action_repeat_steps(device, ap, ft, i), inputs, 0)
+
+    def fa_pretraining(arch):
+        def build():
+            rp = ReconstructionParams()
+            fa = load_fa_model(arch, **kw).requires_grad_(True)
+            rng = np.random.default_rng(REPEAT_SEED)
+            images = torch.from_numpy(rng.integers(0, 256, (rp.batch_size, 256, 256, 3),
+                                                   dtype=np.uint8)).to(device)
+            inputs = (images, sample_image_augment_params(rng, rp.batch_size, 256, rp.reso_h, rp.reso_w))
+            return {"fa": fa}, with_control(lambda i: fa_pretraining_repeat_steps(device, rp, fa, i),
+                                            inputs, 0)
+        return build
+
+    def privacy():
+        pp = PrivacyParams()
+        fb = load_fb_model(num_pa=pp.num_pa, **kw).requires_grad_(True)
+        fa = load_fa_model(seed=0, dtype=pp.compute_dtype, device=device)
+        src = SyntheticImageSource(n=pp.batch_size, seed=REPEAT_SEED)
+        images, labels = src.get_batch(list(range(pp.batch_size)))
+        rng = np.random.default_rng(REPEAT_SEED)
+        inputs = (torch.from_numpy(images).to(device), labels,
+                  sample_image_augment_params(rng, pp.batch_size, src.canonical, pp.reso_h, pp.reso_w))
+        return {"fb": fb}, with_control(lambda i: privacy_repeat_steps(device, pp, fb, fa, i), inputs, 0)
+
+    def mgfn():
+        p = MGFNParams.for_dataset("UCF")
+        model = perturbed_mgfn(p, device)
+        return {"mgfn": model}, with_control(lambda i: mgfn_repeat_steps(device, p, model, i),
+                                             mgfn_batch(p, seed=REPEAT_SEED), 2)
+
+    # (group, build, K5 expected, K6 expected)
+    return [
+        ("adversarial (UNet++, ResNet50SSL, I3Res50)", adversarial(), True, False),
+        ("action (I3Res50 + head)", action, True, False),
+        ("fa pretraining (UNet++)", fa_pretraining("unet++"), False, False),
+        ("fa pretraining (UNet)", fa_pretraining("unet"), False, True),
+        ("adversarial (UNet++, ResNet50SSL, InceptionI3d)", adversarial(arch_ft="i3d"), True, False),
+        ("adversarial (UNet++, ResNet50SSL, MViTv2-S)", adversarial(arch_ft="mvitv2"), True, False),
+        # The plain UNet's fa step at the defaults' 408 frames of 224^2 does not fit in 80 GB:
+        # chip_smoke.py's phase 13 driver batch.
+        ("adversarial (UNet, ResNet50SSL, I3Res50; 2 videos, 4 pairs)",
+         adversarial("unet", cut=(2, 4), steps=("fa step",)), True, True),
+        ("privacy (ResNet50Classifier, frozen UNet++)", privacy, False, False),
+        ("MGFN (UCF)", mgfn, False, False),
+    ]
+
+
+def repeat_line(group: str, name: str, r: dict, tag: str = "repeat") -> str:
+    """One line of a ``repeat_case`` reading: the gate, the control, the launches."""
+    ok, control = repeat_gate(r)
+    return (f"{repeat_report(f'{group} {name}', r['same'], tag)}; control (one input value moved by one "
+            f"level) {'differs' if control else 'DOES NOT differ'} (losses "
+            f"{'equal' if r['control']['loss_equal'] else 'differ'}, {r['control']['equal']} of "
+            f"{r['control']['entries']} bit-equal); K5 / K6 launches per run {r['launches']}; "
+            f"{r['seconds']:.1f} s; gate {'holds' if ok else 'FAILS'}")
+
+
+@contextlib.contextmanager
+def without_cudnn_repair():
+    """Inside the block the training stages run without their deterministic cuDNN scope
+    (utils/device.deterministic_cudnn becomes a no-op in the stages that call it): the
+    steps as they ran before the repair, for ``repeat``'s reading and ``repairab``."""
+    from ted_spad_tpu_torch.stages import (
+        action_training, anomaly_detection, anonymization_training, fa_pretraining, privacy_training,
+    )
+
+    mods = (action_training, anomaly_detection, anonymization_training, fa_pretraining, privacy_training)
+    saved = [(m, m.deterministic_cudnn) for m in mods]
+    for m in mods:
+        m.deterministic_cudnn = contextlib.nullcontext
+    try:
+        yield
+    finally:
+        for m, fn in saved:
+            m.deterministic_cudnn = fn
+
+
+def _repeat_all(device, tag: str, variants=(("", contextlib.nullcontext),)) -> None:
+    """Each step of ``repeat_groups`` run twice from the same saved state and once on
+    its control (``repeat_case``), under each of ``variants`` ((label, context))."""
+    import torch
+
+    for group, build, _, _ in repeat_groups(device):
+        models, cases = build()
+        for name, (make_step, run, control) in cases.items():
+            for label, ctx in variants:
+                with ctx():
+                    r = repeat_case(models, make_step, run, control)
+                print(repeat_line(group, name + label, r, tag), flush=True)
+        del models, cases
         torch.cuda.empty_cache()
 
 
@@ -2298,12 +2851,13 @@ def repeat(device) -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"[repeat] {card}", flush=True)
-    _repeat_all(device, "repeat")
+    _repeat_all(device, "repeat", (("", contextlib.nullcontext),
+                                   (" (without the cuDNN repair)", without_cudnn_repair)))
     # Deterministic algorithms need cuBLAS's workspace set before its first handle: a
     # process of its own.
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
     proc = subprocess.run([sys.executable, "-m", "ted_spad_tpu_torch.chip_probes", "repeatdet"],
-                          env=env, timeout=1200)
+                          env=env, timeout=1800)
     if proc.returncode != 0:
         raise RuntimeError(f"repeatdet exited with {proc.returncode}")
 
@@ -2311,7 +2865,7 @@ def repeat(device) -> None:
 def repeat_deterministic(device) -> None:
     """``repeat``'s runs under ``torch.use_deterministic_algorithms(True, warn_only=True)``
     (CUBLAS_WORKSPACE_CONFIG set by ``repeat``): every op that warns for lack of a
-    deterministic form, then the two runs compared."""
+    deterministic form, then the runs compared."""
     import os
     import warnings
 
@@ -2327,6 +2881,119 @@ def repeat_deterministic(device) -> None:
           f"ops without a deterministic form ({len(ops)}): {ops}", flush=True)
 
 
+REPAIR_TURNS = ("repaired", "unrepaired", "unrepaired", "repaired")
+
+
+def repair_ab(device, make_step, run, turns=REPAIR_TURNS, n: int = TRAINAB_STEPS, warmup: int = 2) -> dict:
+    """One step with the deterministic cuDNN scope ("repaired") and without it
+    (``without_cudnn_repair``) in alternating ``turns`` after a discarded one, each a
+    ``train_turn`` without a profile: {label: [its readings]}."""
+    import torch
+
+    out = {"repaired": [], "unrepaired": []}
+    for i, label in enumerate((turns[0],) + tuple(turns)):
+        with without_cudnn_repair() if label == "unrepaired" else contextlib.nullcontext():
+            r = train_turn(device, make_step, run, n, warmup, profile=False)
+        torch.cuda.empty_cache()
+        if i:
+            out[label].append(r)
+    return out
+
+
+def repair_summary(ab: dict) -> str:
+    """``repair_ab``'s readings in one line: each label's median step over its turns,
+    the turns' medians, and the cost of the repair."""
+    import statistics
+
+    med = {k: statistics.median(x for r in rs for x in r["ms"]) for k, rs in ab.items()}
+    turns = {k: " / ".join(f"{statistics.median(r['ms']):.3f}" for r in rs) for k, rs in ab.items()}
+    return (f"repaired median {med['repaired']:.3f} ms (turns {turns['repaired']}), unrepaired "
+            f"{med['unrepaired']:.3f} ms (turns {turns['unrepaired']}): the repair costs "
+            f"{100 * (med['repaired'] / med['unrepaired'] - 1):+.2f}% of the step")
+
+
+def repairab(device) -> None:
+    """See the module docstring."""
+    import subprocess
+
+    import torch
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"[repairab] {card}", flush=True)
+    for group, build, _, _ in repeat_groups(device):
+        models, cases = build()
+        for name, (make_step, run, _) in cases.items():
+            print(f"[repairab] {group} {name}: {repair_summary(repair_ab(device, make_step, run))} | {card}",
+                  flush=True)
+        del models, cases
+        torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def torch_atomic_backwards():
+    """Inside the block the models pool and upsample through torch's own functions, whose
+    CUDA backwards add with atomics (the port before K5 and K6): ``models.layers``' and
+    ``models.mvit``'s ``max_pool3d`` become ``F.max_pool3d``, ``resize_bilinear``'s
+    upsample ``F.interpolate``."""
+    import torch.nn.functional as F
+
+    from ted_spad_tpu_torch.models import layers, mvit
+
+    def upsample(x):
+        return F.interpolate(x, size=(x.shape[2] * 2, x.shape[3] * 2), mode="bilinear", align_corners=True)
+
+    saved = [(layers, "max_pool3d", layers.max_pool3d), (mvit, "max_pool3d", mvit.max_pool3d),
+             (layers, "upsample_bilinear", layers.upsample_bilinear)]
+    layers.max_pool3d = mvit.max_pool3d = F.max_pool3d
+    layers.upsample_bilinear = upsample
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def validate_repeat(device, backwards: str = "port") -> None:
+    """``validate_adversarial --scale reference`` cut to one adversarial and one attack
+    epoch (chip_smoke.py's phase 17 cut), run twice from one seed, each in a save
+    directory of its own: both cMAPs and every history compared bit for bit. With
+    ``backwards`` "atomic" both runs pool and upsample through torch's atomic backwards
+    (``torch_atomic_backwards``), as the port did before K5 and K6."""
+    import subprocess
+    import tempfile
+
+    import torch
+
+    from ted_spad_tpu_torch import validate_adversarial
+
+    if backwards not in ("port", "atomic"):
+        raise ValueError(f"validaterepeat takes 'port' or 'atomic', not {backwards!r}")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"[validaterepeat] backwards: {backwards} | {card}", flush=True)
+    runs, states = [], []
+    for i in range(2):
+        with tempfile.TemporaryDirectory() as d, \
+                torch_atomic_backwards() if backwards == "atomic" else contextlib.nullcontext():
+            args = ["--scale", "reference", "--epochs", "1", "--attack_epochs", "1", "--seed", "0",
+                    "--device", str(device), "--save_dir", d]
+            r = validate_adversarial.run(validate_adversarial.parser().parse_args(args))
+        runs.append({k: {"history": r[k]["history"], "best": r[k].get("best_cmap", r[k].get("best_acc"))}
+                     for k in ("anon", "raw", "anonymized")})
+        states.append({k: v.detach().clone() for k, v in r["anon"]["fa"].state_dict().items()})
+        print(f"[validaterepeat] run {i}: cMAP raw {r['raw']['best_cmap']!r}, anonymized "
+              f"{r['anonymized']['best_cmap']!r}, delta {r['delta']!r} | {card}", flush=True)
+        del r
+        torch.cuda.empty_cache()
+    differ = [f"{k}.{part}" for k in runs[0] for part in ("history", "best")
+              if repr(runs[0][k][part]) != repr(runs[1][k][part])]
+    fa_differ = [k for k in states[0] if not torch.equal(states[0][k], states[1][k])]
+    print(f"[validaterepeat] histories and best values of the three stages: {len(differ)} of 6 differ "
+          f"{differ}; the adversarial fa: {len(fa_differ)} of {len(states[0])} tensors differ "
+          f"{fa_differ[:6]} | {card}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2334,11 +3001,13 @@ def main() -> int:
               "int8ab": int8ab, "int8step": int8_step_turn, "k3ab": k3ab, "k3turn": k3_turn,
               "k2ab": k2ab, "k2turn": k2_turn, "fastforms": fastforms, "stepab": stepab,
               "stepturn": step_turn, "trainab": trainab, "repeat": repeat,
-              "repeatdet": repeat_deterministic}
+              "repeatdet": repeat_deterministic, "k5": k5, "k6": k6, "repairab": repairab,
+              "validaterepeat": validate_repeat}
     takes_arg = ("int8ab", "int8step", "k3turn", "stepab", "stepturn")
     n_args = len(sys.argv) - 2
     if (len(sys.argv) < 2 or sys.argv[1] not in probes
-            or (n_args < 1 if sys.argv[1] in ("k3ab", "k2ab") else n_args != (sys.argv[1] in takes_arg))):
+            or (n_args < 1 if sys.argv[1] in ("k3ab", "k2ab") else
+                n_args > 1 if sys.argv[1] == "validaterepeat" else n_args != (sys.argv[1] in takes_arg))):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():

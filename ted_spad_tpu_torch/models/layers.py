@@ -31,6 +31,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from ted_spad_tpu_torch.ops.maxpool3d import max_pool3d
+from ted_spad_tpu_torch.ops.upsample import SCALE, upsample_bilinear
 from ted_spad_tpu_torch.parallel.mesh import active_mesh
 from ted_spad_tpu_torch.utils.device import at_least_f32
 
@@ -212,11 +214,10 @@ def resize_nearest(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
 def resize_bilinear(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
     """Bilinear upsample of (H, W) by an integer scale, align_corners=True
     (unet_parts.py:53), computed in float32 and cast back as the JAX package does;
-    keeps the memory format."""
-    h, w = x.shape[-2], x.shape[-1]
-    out = F.interpolate(x.float(), size=(h * scale, w * scale), mode="bilinear",
-                        align_corners=True)
-    return out.to(x.dtype)
+    keeps the memory format. Under grad its gradient is ops/upsample.py's (K6 on the
+    card), which repeats bit for bit; the scale is that module's SCALE, 2."""
+    assert scale == SCALE, f"resize_bilinear doubles its maps (the UNet's decoder), not x{scale}"
+    return upsample_bilinear(x.float()).to(x.dtype)
 
 
 def pad_to_match(x: torch.Tensor, target_h: int, target_w: int) -> torch.Tensor:
@@ -230,8 +231,10 @@ def pad_to_match(x: torch.Tensor, target_h: int, target_w: int) -> torch.Tensor:
 
 
 def max_pool_valid(x: torch.Tensor, window: Sequence[int], strides: Sequence[int]) -> torch.Tensor:
-    """torch MaxPool with padding=0 (floor mode) == VALID pooling, 2D or 3D."""
-    pool = {2: F.max_pool2d, 3: F.max_pool3d}[len(window)]
+    """torch MaxPool with padding=0 (floor mode) == VALID pooling, 2D or 3D. A 3D pool
+    runs through ops/maxpool3d.py, whose gradient (K5 on the card) repeats bit for bit;
+    torch's 2D backward already gathers."""
+    pool = {2: F.max_pool2d, 3: max_pool3d}[len(window)]
     return pool(x, tuple(window), tuple(strides))
 
 

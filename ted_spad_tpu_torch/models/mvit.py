@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ted_spad_tpu_torch.models.layers import checkpoint, lecun_normal_
+from ted_spad_tpu_torch.ops.maxpool3d import max_pool3d
 
 FEATURE_DIM = 768
 LN_EPS = 1e-5
@@ -135,7 +136,7 @@ class MViTBlock(nn.Module):
             b, _, c = shortcut.shape
             kernel = tuple(s + 1 if s > 1 else 1 for s in self.q_stride)
             grid = shortcut[:, 1:].reshape(b, *thw, c).permute(0, 4, 1, 2, 3)
-            grid = F.max_pool3d(grid, kernel, self.q_stride, tuple(k // 2 for k in kernel))
+            grid = max_pool3d(grid, kernel, self.q_stride, tuple(k // 2 for k in kernel))
             shortcut = torch.cat([shortcut[:, :1], grid.flatten(2).transpose(1, 2)], dim=1)
         x = shortcut + attn_out
         h2 = self.mlp_fc2(F.gelu(self.mlp_fc1(self.norm2(x)), approximate="none"))

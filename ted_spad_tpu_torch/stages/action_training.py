@@ -62,7 +62,7 @@ from ted_spad_tpu_torch.stages.common import (
 from ted_spad_tpu_torch.utils.checkpoint import (
     BestCheckpointer, flush_checkpoints, load_checkpoint, save_temp,
 )
-from ted_spad_tpu_torch.utils.device import resolve_device
+from ted_spad_tpu_torch.utils.device import deterministic_cudnn, resolve_device
 from ted_spad_tpu_torch.utils.jax_weights import load_jax_variables, state_dict_to_flax
 from ted_spad_tpu_torch.utils.logging import MetricsWriter
 
@@ -124,21 +124,22 @@ def make_train_step(ft: torch.nn.Module, optimizer: torch.optim.Optimizer, p: Ac
             else:
                 x = _apply_fa_frames(fa, x)
         optimizer.zero_grad(set_to_none=True)
-        with autocast(device, p.compute_dtype), active(dp):
-            logits, emb = ft_train(x.permute(0, 4, 1, 2, 3), generator=generator, frozen_bn=frozen_bn)
-        logits, emb = logits.reshape(b, v, -1)[:, 0], emb.reshape(b, v, -1)
-        if dp is not None:
-            logits, emb, labels = dp.gather_rows(logits), dp.gather_rows(emb), dp.gather_rows(labels)
-        if v > 1 and p.loss == "con":
-            loss = supcon_loss(l2_normalize(emb[:, :2], dim=-1), labels)
-        else:
-            loss = cross_entropy_loss(logits, labels)
-        if v > 1 and p.temporal_loss == "trip":
-            loss = loss + p.temporal_loss_weight * triplet_margin_loss(
-                emb[:, 0], emb[:, 1], emb[:, 2], margin=p.triplet_loss_margin)
-        elif v > 1 and p.temporal_loss == "con":
-            loss = loss + p.temporal_loss_weight * nt_xent_loss(emb[:, 0], emb[:, 1])
-        loss.backward()
+        with deterministic_cudnn():
+            with autocast(device, p.compute_dtype), active(dp):
+                logits, emb = ft_train(x.permute(0, 4, 1, 2, 3), generator=generator, frozen_bn=frozen_bn)
+            logits, emb = logits.reshape(b, v, -1)[:, 0], emb.reshape(b, v, -1)
+            if dp is not None:
+                logits, emb, labels = dp.gather_rows(logits), dp.gather_rows(emb), dp.gather_rows(labels)
+            if v > 1 and p.loss == "con":
+                loss = supcon_loss(l2_normalize(emb[:, :2], dim=-1), labels)
+            else:
+                loss = cross_entropy_loss(logits, labels)
+            if v > 1 and p.temporal_loss == "trip":
+                loss = loss + p.temporal_loss_weight * triplet_margin_loss(
+                    emb[:, 0], emb[:, 1], emb[:, 2], margin=p.triplet_loss_margin)
+            elif v > 1 and p.temporal_loss == "con":
+                loss = loss + p.temporal_loss_weight * nt_xent_loss(emb[:, 0], emb[:, 1])
+            loss.backward()
         zero_missing_grads(optimizer)
         if mesh is not None:
             mesh.all_reduce_grads(ft.parameters())

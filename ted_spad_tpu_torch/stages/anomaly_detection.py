@@ -44,7 +44,7 @@ from ted_spad_tpu_torch.ops.metrics import frame_level_scores, pr_auc, roc_auc
 from ted_spad_tpu_torch.parallel.mesh import active
 from ted_spad_tpu_torch.stages.common import make_optimizer as common_optimizer
 from ted_spad_tpu_torch.stages.common import module_device
-from ted_spad_tpu_torch.utils.device import resolve_device, tf32_off
+from ted_spad_tpu_torch.utils.device import deterministic_cudnn, resolve_device, tf32_off
 
 
 def make_optimizer(model: MGFN, p: MGFNParams) -> torch.optim.Adam:
@@ -79,7 +79,7 @@ def make_train_step(model: MGFN, optimizer: torch.optim.Optimizer, p: MGFNParams
         batch = nfeat.shape[0]
         video = torch.cat([nfeat, afeat], dim=0)  # (2B, ncrops, T, F+1)
         optimizer.zero_grad(set_to_none=True)
-        with tf32_off(), active(mesh):
+        with tf32_off(), deterministic_cudnn(), active(mesh):
             score_abnormal, score_normal, abn_fm, nor_fm, scores = model(
                 video, train=True, generator=generator)
             abn_scores = scores.reshape(-1)[batch * scores.shape[1]:]  # train.py:88-91

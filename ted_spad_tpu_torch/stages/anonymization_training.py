@@ -79,7 +79,7 @@ from ted_spad_tpu_torch.stages.common import (
 from ted_spad_tpu_torch.utils.checkpoint import (
     BestCheckpointer, async_writer, flush_checkpoints, save_temp,
 )
-from ted_spad_tpu_torch.utils.device import resolve_device
+from ted_spad_tpu_torch.utils.device import deterministic_cudnn, resolve_device
 from ted_spad_tpu_torch.utils.jax_weights import state_dict_to_flax
 from ted_spad_tpu_torch.utils.logging import MetricsWriter, config_dump
 
@@ -215,7 +215,8 @@ def make_fa_step(fa: torch.nn.Module, fb: torch.nn.Module, ft: torch.nn.Module,
     n = p.accum_steps
 
     def one(v1, v2, clips, labels, remat, dp):
-        with active(dp):  # also over the backward: remat recomputes BN there
+        # Both also over the backward: remat recomputes BN there.
+        with active(dp), deterministic_cudnn():
             with autocast(device, p.compute_dtype):
                 a1 = _anon_frames(fa, v1[:, None], True, remat)
                 a2 = _anon_frames(fa, v2[:, None], True, remat)
@@ -273,7 +274,8 @@ def make_fbft_step(fa: torch.nn.Module, fb: torch.nn.Module, ft: torch.nn.Module
             anon_clips = _anon_frames(fa, clips, False, quirk=p.quirk_compat)
         opt_fb.zero_grad(set_to_none=True)
         opt_ft.zero_grad(set_to_none=True)
-        with active(dp, parts):  # also over the backward: remat recomputes BN there
+        # Both also over the backward: remat recomputes BN there.
+        with active(dp, parts), deterministic_cudnn():
             with autocast(device, p.compute_dtype):
                 loss_fb = _fb_loss(fb, (a1[:, 0], a2[:, 0]), p, True, remat, dp, parts)
                 loss_ft, loss_temporal = _ft_losses(ft, anon_clips, labels, p, True, generator,

@@ -42,7 +42,7 @@ from ted_spad_tpu_torch.stages.common import (
 from ted_spad_tpu_torch.utils.checkpoint import (
     BestCheckpointer, flush_checkpoints, load_checkpoint, save_temp,
 )
-from ted_spad_tpu_torch.utils.device import resolve_device
+from ted_spad_tpu_torch.utils.device import deterministic_cudnn, resolve_device
 from ted_spad_tpu_torch.utils.jax_weights import load_jax_variables, state_dict_to_flax
 from ted_spad_tpu_torch.utils.logging import MetricsWriter
 
@@ -66,10 +66,11 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         images = torch.as_tensor(images_u8).to(device, non_blocking=True)
         x = augment_batch(images[:, None], aug, out_h, out_w, aug_dtype)[:, 0].permute(0, 3, 1, 2)
         optimizer.zero_grad(set_to_none=True)
-        with autocast(device, compute_dtype):
-            recon = fa_apply(x, train=True)
-        loss = l1_loss(recon, x)
-        loss.backward()
+        with deterministic_cudnn():
+            with autocast(device, compute_dtype):
+                recon = fa_apply(x, train=True)
+            loss = l1_loss(recon, x)
+            loss.backward()
         zero_missing_grads(optimizer)
         optimizer.step()
         return loss.detach()

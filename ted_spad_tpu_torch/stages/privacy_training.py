@@ -44,7 +44,7 @@ from ted_spad_tpu_torch.stages.common import (
     zero_missing_grads,
 )
 from ted_spad_tpu_torch.utils.checkpoint import BestCheckpointer, flush_checkpoints, save_temp
-from ted_spad_tpu_torch.utils.device import resolve_device
+from ted_spad_tpu_torch.utils.device import deterministic_cudnn, resolve_device
 from ted_spad_tpu_torch.utils.jax_weights import state_dict_to_flax
 from ted_spad_tpu_torch.utils.logging import MetricsWriter
 
@@ -75,10 +75,11 @@ def make_steps(fb: torch.nn.Module, fa: torch.nn.Module | None, optimizer: torch
         labels = torch.as_tensor(labels).to(device, non_blocking=True)
         img = anonymize(fa, augment_batch(images[:, None], aug, out_h, out_w, aug_dtype)[:, 0])
         optimizer.zero_grad(set_to_none=True)
-        with autocast(device, compute_dtype):
-            logits = fb(img.permute(0, 3, 1, 2), train=True)
-        loss = bce_with_logits_loss(logits, labels.to(logits.dtype))
-        loss.backward()
+        with deterministic_cudnn():
+            with autocast(device, compute_dtype):
+                logits = fb(img.permute(0, 3, 1, 2), train=True)
+            loss = bce_with_logits_loss(logits, labels.to(logits.dtype))
+            loss.backward()
         zero_missing_grads(optimizer)
         optimizer.step()
         return loss.detach()

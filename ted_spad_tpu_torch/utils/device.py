@@ -38,6 +38,22 @@ def tf32_off():
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN restricted to deterministic algorithms inside the block, the caller's flag
+    restored on exit. Every training step runs inside it, backward included: some of
+    cuDNN's weight-gradient algorithms add partial sums with atomics, so without it a
+    step does not repeat bit for bit on the card, as the JAX package's steps do under
+    XLA. The algorithm is cuDNN's heuristic choice (torch's default, the port never
+    autotunes), the same on every run. Serving never enters it."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
 def at_least_f32(x: torch.Tensor) -> torch.Tensor:
     """``x`` in float32, or left in float64: the JAX package's ``astype(float32)``
     where its input is bf16 or f32, without narrowing a float64 reference run."""

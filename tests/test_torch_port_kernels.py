@@ -12,10 +12,11 @@ import pytest
 import torch
 
 from ted_spad_tpu_torch.chip_probes import (
-    K4_FORMS, UNET_DOUBLECONVS, VIS_CHUNK, double_conv_operands, k4_epilogue, unet_doubleconv_shapes,
+    K4_FORMS, K5_CASES, K6_CASES, UNET_DOUBLECONVS, VIS_CHUNK, double_conv_operands, k4_epilogue, k5_error,
+    k5_operands, k6_error, k6_operands, unet_doubleconv_shapes,
 )
 from ted_spad_tpu_torch.ops import doubleconv as dc
-from ted_spad_tpu_torch.ops import int8conv
+from ted_spad_tpu_torch.ops import int8conv, maxpool3d, upsample
 from ted_spad_tpu_torch.ops import preprocess as pp
 from ted_spad_tpu_torch.ops import yuv
 from ted_spad_tpu_torch.utils.device import tf32_off
@@ -286,3 +287,36 @@ def test_int8_conv_kernel_rejects_what_it_does_not_take(cuda_device):
         int8conv.int8_conv(x[:, :, ::2], weight, 0.1, padding=((1, 1), (1, 1)))
     with pytest.raises(ValueError, match="float64"):
         int8conv.int8_conv(x, weight, 0.1, padding=((1, 1), (1, 1)), out_dtype=torch.float64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [c[0] for c in K5_CASES])
+def test_maxpool3d_backward_kernel_is_bit_equal_to_plain_version(cuda_device, case):
+    _, shape, window, strides, padding = next(c for c in K5_CASES if c[0] == case)
+    for dtype in (torch.float32, torch.bfloat16, torch.float64):
+        for channels_last in (False, True):
+            for ties in (True, False):
+                ops = k5_operands(cuda_device, shape, window, strides, padding, dtype, channels_last, ties)
+                assert k5_error(*ops, shape, window, strides, padding, channels_last) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [c[0] for c in K6_CASES])
+def test_upsample_bilinear_backward_kernel_is_bit_equal_to_plain_version(cuda_device, case):
+    shape = dict(K6_CASES)[case]
+    for dtype in (torch.float32, torch.float64):
+        for channels_last in (False, True):
+            grad = k6_operands(cuda_device, shape, dtype, channels_last)
+            assert k6_error(grad, shape, channels_last) == 0.0
+
+
+@pytest.mark.cuda
+def test_backward_kernels_count_their_launches_through_the_functions(cuda_device):
+    x = torch.randn((1, 2, 4, 9, 9), device=cuda_device, requires_grad=True)
+    before = maxpool3d.max_pool3d_backward.launches
+    maxpool3d.max_pool3d(x, (2, 3, 3), (2, 2, 2)).sum().backward()
+    assert maxpool3d.max_pool3d_backward.launches == before + 1
+    y = torch.randn((1, 2, 5, 7), device=cuda_device, requires_grad=True)
+    before = upsample.upsample_bilinear_backward.launches
+    upsample.upsample_bilinear(y).sum().backward()
+    assert upsample.upsample_bilinear_backward.launches == before + 1
