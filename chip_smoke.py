@@ -409,7 +409,11 @@ def phase_build() -> tuple[dict, dict]:
     log(f"[build] all kernels built in {time.perf_counter() - t0:.2f}s")
     out = dict(zip(names, results))
     for name in ("maxpool3d", "upsample_bilinear"):
-        if any(r["spill_stores"] or r["spill_loads"] for r in ptxas_report(out[name][1]).values()):
+        report = ptxas_report(out[name][1])
+        for kernel, r in report.items():
+            log(f"[build] {name}: {kernel}: {r['registers']} registers, spills {r['spill_stores']} / "
+                f"{r['spill_loads']} bytes")
+        if any(r["spill_stores"] or r["spill_loads"] for r in report.values()):
             raise AssertionError(f"csrc/{name}.cu spills registers")
     return k1_register_report(out["preprocess"][1], log), k2_register_report(out["doubleconv"][1], log)
 
@@ -3773,13 +3777,15 @@ def repeat_phase(device, card: str) -> tuple[dict, dict, dict]:
     each that trains the plain UNet (none elsewhere; K1-K4 none); K5 and K6 against their
     plain versions at every call the steps made (recorded by wrapping the wrappers;
     checked at the recorded shape), at chip_probes.K5_CASES / K6_CASES and on the timed
-    operands; each timed beside its bound, its plain version and torch's atomic backward. Returns (K5's and
-    K6's kernel entries, {path: launch counts over the case's three runs})."""
+    operands; each timed at every recorded call beside torch's atomic backward and its
+    bound, and at its timed shape beside its bound, its plain version and torch's atomic
+    backward. Returns (K5's and K6's kernel entries, {path: launch counts over the
+    case's three runs})."""
     import torch
 
     from ted_spad_tpu_torch.chip_probes import (
         check_recorded, k5_check, k5_timing, k6_check, k6_timing, recorded_backward_calls,
-        repeat_case, repeat_gate, repeat_groups, repeat_line,
+        repeat_case, repeat_gate, repeat_groups, repeat_line, time_recorded,
     )
 
     t0 = time.perf_counter()
@@ -3807,6 +3813,7 @@ def repeat_phase(device, card: str) -> tuple[dict, dict, dict]:
     if failed:
         raise AssertionError("phase 19: " + "; ".join(failed))
     checks = check_recorded(device, seen, log)
+    time_recorded(device, seen, lambda m: log(f"{m} | {card}"))
     for key, more in (("K5", k5_check(device, log)), ("K6", k6_check(device, log))):
         checks[key] = (checks[key][0] + more[0], max(checks[key][1], more[1]))
     entries = {}

@@ -17,6 +17,8 @@ numbers PERF.md quotes from them can be taken again:
     python -m ted_spad_tpu_torch.chip_probes mgfn   # where MGFN's card-vs-CPU step error sits
     python -m ted_spad_tpu_torch.chip_probes k5     # kernel K5 (3D max-pool backward) alone
     python -m ted_spad_tpu_torch.chip_probes k6     # kernel K6 (bilinear upsample backward) alone
+    python -m ted_spad_tpu_torch.chip_probes k5ab PARENT   # K5: PARENT vs this tree, in turns
+    python -m ted_spad_tpu_torch.chip_probes k6ab PARENT   # K6: PARENT vs this tree, in turns
     python -m ted_spad_tpu_torch.chip_probes repeat   # every training step run twice, compared
     python -m ted_spad_tpu_torch.chip_probes repairab   # training steps with and without the cuDNN repair
     python -m ted_spad_tpu_torch.chip_probes validaterepeat [atomic]   # validate_adversarial twice, one seed
@@ -106,6 +108,13 @@ the adversarial step's stem pool (K5_TIMED) beside its byte bound, the plain ver
 torch's own atomic backward. ``k6``: the same for K6 (csrc/upsample_bilinear.cu) at
 K6_CASES in float32 and float64, NCHW and channels_last, timed at the UNet's largest
 upsample on the fa pretraining batch (K6_TIMED).
+
+``k5ab PARENT`` / ``k6ab PARENT``: K5's / K6's build of PARENT (another checkout, e.g.
+``git archive`` of the parent commit unpacked under ``build/``) and of this tree in turns,
+parent / change / change / parent, each turn a process of its own under that tree's
+package and kernel (``backwardturn``): registers, and the kernel held bit-equal to its
+plain version and timed at K5_TIMED and K5_AB (K6_TIMED and K6_AB) beside torch's atomic
+backward and the byte bound.
 
 ``repeat``: every training step of ``repeat_groups`` at full width (the adversarial fa
 and fb/ft steps at AnonymizationParams' defaults; the I3Res50 action step; fa
@@ -2150,19 +2159,37 @@ def trainab(device) -> None:
 # Checks beside the shapes a training run records: (name, input (B, C, D, H, W), window,
 # strides, padding). Each runs in float32, bf16 and float64, NCDHW and channels_last_3d,
 # with planted ties (small integers: most windows hold several maxima) and without.
+# The edges of K5's mappings (ops/maxpool3d.py: k5_plan; channels_last_3d runs the owner
+# form, NCDHW the row form): C one 16-byte vector of bf16 (two of float32, four of
+# float64), two bf16 vectors, ragged C (one-element stores); a stride-1 (3,3,3) pool whose
+# windows clip at every face; a width-1 row; a row cut into column runs or chunks with a
+# remainder; a stride no row-form instance compiles in (runtime division); more channels
+# than a chunk (two chunks, the second partial) and than the row form's lanes (its loop).
 K5_CASES = (
     ("ragged", (3, 5, 7, 9, 11), (2, 3, 3), (2, 2, 2), (0, 0, 0)),
     ("ragged stride 1", (2, 3, 6, 7, 5), (3, 3, 3), (1, 1, 1), (0, 0, 0)),
     ("MViT skip padding", (2, 4, 3, 9, 7), (1, 3, 3), (1, 2, 2), (0, 1, 1)),
     ("padded on every axis", (1, 3, 5, 6, 7), (3, 3, 3), (2, 2, 2), (1, 1, 1)),
     ("I3Res50 stem, 2 clips", (2, 64, 8, 112, 112), (2, 3, 3), (2, 2, 2), (0, 0, 0)),
+    ("one vector", (2, 8, 4, 9, 10), (2, 3, 3), (2, 2, 2), (0, 0, 0)),
+    ("two vectors, stride 1 at every face", (2, 16, 5, 7, 9), (3, 3, 3), (1, 1, 1), (1, 1, 1)),
+    ("ragged channels", (2, 19, 4, 7, 6), (2, 3, 3), (2, 2, 2), (0, 0, 0)),
+    ("width 1", (2, 8, 4, 6, 1), (2, 2, 1), (2, 2, 1), (0, 0, 0)),
+    ("row split with a remainder", (1, 8, 2, 3, 301), (1, 3, 3), (1, 2, 2), (0, 1, 1)),
+    ("runtime stride 3", (1, 8, 3, 10, 11), (1, 3, 3), (1, 3, 3), (0, 0, 0)),
+    ("lane loop", (1, 2064, 2, 3, 4), (2, 3, 3), (2, 2, 2), (0, 0, 0)),
 )
 # The adversarial steps' stem pool at AnonymizationParams' defaults (8 videos x 3 views,
 # 16 x 224^2 -> the stem's 64 x 8 x 112^2), bf16, channels_last_3d as the ft runs it.
 K5_TIMED = ((24, 64, 8, 112, 112), (2, 3, 3), (2, 2, 2), (0, 0, 0))
-# (name, input (N, C, H, W)), each in float32 and float64, NCHW and channels_last.
+# (name, input (N, C, H, W)), each in float32 and float64, NCHW and channels_last; the
+# edges of K6's mapping (ops/upsample.py: k6_plan): C one float32 vector (two float64),
+# ragged C, a last band shorter than K6_BAND, a width-1 column, more channel vectors than
+# a block's threads (the lane loop).
 K6_CASES = (("ragged", (2, 3, 5, 7)), ("one pixel", (1, 4, 1, 1)), ("one row", (2, 3, 1, 9)),
-            ("odd", (1, 16, 13, 17)), ("UNet up1, 2 frames", (2, 512, 14, 14)))
+            ("odd", (1, 16, 13, 17)), ("UNet up1, 2 frames", (2, 512, 14, 14)),
+            ("one vector", (2, 4, 9, 11)), ("ragged channels", (2, 6, 5, 7)),
+            ("band remainder", (1, 8, 37, 13)), ("width 1", (2, 8, 6, 1)), ("lane loop", (1, 1032, 3, 5)))
 # The UNet's largest upsample (up4: 64 channels, 112^2 -> 224^2) on the fa pretraining
 # batch of 32 frames, float32, channels_last as the UNet runs it.
 K6_TIMED = (32, 64, 112, 112)
@@ -2315,9 +2342,9 @@ def recorded_backward_calls(seen: dict):
 def check_recorded(device, seen: dict, log=print) -> dict:
     """K5 and K6 against their plain versions at every recorded call
     (``recorded_backward_calls``): its shape, dtype, layout and grad_out's strides as
-    recorded, so the grid-stride loop (a thread takes several elements past 132 x 16 x 64
-    blocks of 256) runs as on the training path; raises on the first that is not
-    bit-equal. Returns {"K5": (checks, worst max |error|), "K6": likewise}."""
+    recorded, so the plan (K5's form, its tiles and chunks; K6's band and chunks) is the
+    training path's; raises on the first that is not bit-equal. Returns {"K5": (checks,
+    worst max |error|), "K6": likewise}."""
     import torch
 
     n, worst = {"K5": 0, "K6": 0}, {"K5": 0.0, "K6": 0.0}
@@ -2343,63 +2370,126 @@ def check_recorded(device, seen: dict, log=print) -> dict:
     return {k: (n[k], worst[k]) for k in n}
 
 
-def k5_timing(device, log=print) -> dict:
-    """K5 at K5_TIMED (bf16, channels_last_3d), held bit-equal to its plain version on the
-    timed operands (raises where not), beside its byte bound, its plain version and
-    torch's own atomic backward (the library yardstick, which the port never calls)."""
+def k5_times(device, shape, window, strides, padding, dtype, channels_last: bool, grad_stride=None,
+             plain: bool = False) -> dict:
+    """K5 at one call (operands as ``k5_operands`` makes them, without ties), held bit-equal
+    to its plain version on the timed operands (raises where not), timed (``time_ms``, and
+    device only with ``queued``) beside torch's own atomic backward (the library
+    yardstick, which the port never calls), the byte bound (grad_out, the int64 indices
+    and grad_in each moved once) and, with ``plain``, the plain version; the plan where
+    the package has one (``k5_plan``)."""
     import math
 
     import torch
 
-    from ted_spad_tpu_torch.ops.maxpool3d import max_pool3d_backward, max_pool3d_backward_reference
+    from ted_spad_tpu_torch.ops import maxpool3d
 
-    shape, window, strides, padding = K5_TIMED
-    grad, idx = k5_operands(device, shape, window, strides, padding, torch.bfloat16, True, ties=False)
-    x = torch.empty(shape, dtype=torch.bfloat16, device=device, memory_format=torch.channels_last_3d)
-    args = (grad, idx, shape, window, strides, padding, True)
-    if k5_error(*args) != 0.0:
-        raise AssertionError(f"K5 differs from its plain version at K5_TIMED {shape}: {k5_error(*args)}")
-    ms = time_ms(lambda: max_pool3d_backward(*args), reps=10, inner=4)
-    plain_ms = time_ms(lambda: max_pool3d_backward_reference(*args), reps=3, inner=1)
-    library_ms = time_ms(lambda: torch.ops.aten.max_pool3d_with_indices_backward(
-        grad, x, window, strides, padding, (1, 1, 1), False, idx), reps=10, inner=4)
-    moved = grad.numel() * 2 + idx.numel() * 8 + math.prod(shape) * 2
-    bound_ms = moved / HBM_BYTES_PER_S * 1e3
-    log(f"[K5] stem pool {shape} {window}/{strides} bf16 channels_last_3d: kernel {ms:.4f} ms "
-        f"({moved / ms * 1e-6:.1f} GB/s), plain {plain_ms:.4f} ms, torch's atomic backward "
-        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes: {moved / 1e6:.1f} MB), {ms / bound_ms:.2f}x "
-        f"the bound")
-    return {"shape": list(shape), "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes"}
+    grad, idx = k5_operands(device, shape, window, strides, padding, dtype, channels_last, ties=False,
+                            grad_stride=grad_stride)
+    args = (grad, idx, shape, window, strides, padding, channels_last)
+    err = k5_error(*args)
+    if err != 0.0:
+        raise AssertionError(f"K5 differs from its plain version at the timed {shape} {dtype}: {err}")
+    x = torch.empty(shape, dtype=dtype, device=device,
+                    memory_format=torch.channels_last_3d if channels_last else torch.contiguous_format)
+    kernel = lambda: maxpool3d.max_pool3d_backward(*args)  # noqa: E731
+    library = lambda: torch.ops.aten.max_pool3d_with_indices_backward(  # noqa: E731
+        grad, x, window, strides, padding, (1, 1, 1), False, idx)
+    ms, library_ms = time_ms(kernel, reps=10, inner=4), time_ms(library, reps=10, inner=4)
+    device_ms = time_ms(kernel, reps=10, inner=4, queued=True)
+    library_device_ms = time_ms(library, reps=10, inner=4, queued=True)
+    moved = grad.numel() * grad.element_size() + idx.numel() * 8 + math.prod(shape) * grad.element_size()
+    plan = getattr(maxpool3d, "k5_plan", None)
+    out = {"shape": list(shape), "ms": ms, "library_ms": library_ms, "device_ms": device_ms,
+           "library_device_ms": library_device_ms, "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes", "moved_mb": moved / 1e6,
+           "plan": str(tuple(plan(grad, idx, shape, window, strides, channels_last))) if plan else "none"}
+    if plain:
+        out["plain_ms"] = time_ms(lambda: maxpool3d.max_pool3d_backward_reference(*args), reps=3, inner=1)
+    return out
+
+
+def k6_times(device, shape, dtype, channels_last: bool, grad_stride=None, plain: bool = False) -> dict:
+    """K6 at one call (operands as ``k6_operands`` makes them), held bit-equal to its
+    plain version on the timed operands (raises where not), timed (``time_ms``, and
+    device only with ``queued``) beside torch's own atomic backward (the library
+    yardstick, which the port never calls), the byte bound (grad_out and grad_in each
+    moved once) and, with ``plain``, the plain version; the plan where the package has
+    one (``k6_plan``)."""
+    import math
+
+    import torch
+
+    from ted_spad_tpu_torch.ops import upsample
+
+    grad = k6_operands(device, shape, dtype, channels_last, grad_stride=grad_stride)
+    err = k6_error(grad, shape, channels_last)
+    if err != 0.0:
+        raise AssertionError(f"K6 differs from its plain version at the timed {shape} {dtype}: {err}")
+    kernel = lambda: upsample.upsample_bilinear_backward(grad, shape, channels_last)  # noqa: E731
+    library = lambda: torch.ops.aten.upsample_bilinear2d_backward(  # noqa: E731
+        grad, list(grad.shape[2:]), list(shape), True, None, None)
+    ms, library_ms = time_ms(kernel, reps=10, inner=4), time_ms(library, reps=10, inner=4)
+    device_ms = time_ms(kernel, reps=10, inner=4, queued=True)
+    library_device_ms = time_ms(library, reps=10, inner=4, queued=True)
+    moved = (grad.numel() + math.prod(shape)) * grad.element_size()
+    plan = getattr(upsample, "k6_plan", None)
+    out = {"shape": list(shape), "ms": ms, "library_ms": library_ms, "device_ms": device_ms,
+           "library_device_ms": library_device_ms, "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes", "moved_mb": moved / 1e6,
+           "plan": str(tuple(plan(grad, shape, channels_last))) if plan else "none"}
+    if plain:
+        out["plain_ms"] = time_ms(lambda: upsample.upsample_bilinear_backward_reference(grad, shape, channels_last),
+                                  reps=3, inner=1)
+    return out
+
+
+def times_line(t: dict) -> str:
+    """``k5_times`` / ``k6_times``' reading in one line."""
+    plain = f", plain {t['plain_ms']:.4f} ms" if "plain_ms" in t else ""
+    return (f"kernel {t['ms']:.4f} ms (device only {t['device_ms']:.4f}, {t['moved_mb'] / t['device_ms']:.1f} "
+            f"GB/s){plain}, torch's atomic backward {t['library_ms']:.4f} ms (device only "
+            f"{t['library_device_ms']:.4f}), bound {t['bound_ms']:.4f} ms (bytes: {t['moved_mb']:.1f} MB), "
+            f"device only {t['device_ms'] / t['bound_ms']:.2f}x the bound and "
+            f"{t['device_ms'] / t['library_device_ms']:.2f}x torch's; plan {t['plan']}")
+
+
+def k5_timing(device, log=print) -> dict:
+    """K5 at K5_TIMED (bf16, channels_last_3d): ``k5_times`` with the plain version."""
+    import torch
+
+    t = k5_times(device, *K5_TIMED, torch.bfloat16, True, plain=True)
+    shape, window, strides, _ = K5_TIMED
+    log(f"[K5] stem pool {shape} {window}/{strides} bf16 channels_last_3d: {times_line(t)}")
+    return t
 
 
 def k6_timing(device, log=print) -> dict:
-    """K6 at K6_TIMED (float32, channels_last), held bit-equal to its plain version on the
-    timed operands (raises where not), beside its byte bound, its plain version and
-    torch's own atomic backward (the library yardstick, which the port never calls)."""
-    import math
-
+    """K6 at K6_TIMED (float32, channels_last): ``k6_times`` with the plain version."""
     import torch
 
-    from ted_spad_tpu_torch.ops.upsample import (
-        upsample_bilinear_backward, upsample_bilinear_backward_reference,
-    )
+    t = k6_times(device, K6_TIMED, torch.float32, True, plain=True)
+    log(f"[K6] UNet up4 {K6_TIMED} x2 float32 channels_last: {times_line(t)}")
+    return t
 
-    shape = K6_TIMED
-    grad = k6_operands(device, shape, torch.float32, True)
-    if k6_error(grad, shape, True) != 0.0:
-        raise AssertionError(f"K6 differs from its plain version at K6_TIMED {shape}: {k6_error(grad, shape, True)}")
-    ms = time_ms(lambda: upsample_bilinear_backward(grad, shape, True), reps=10, inner=4)
-    plain_ms = time_ms(lambda: upsample_bilinear_backward_reference(grad, shape, True), reps=3, inner=1)
-    library_ms = time_ms(lambda: torch.ops.aten.upsample_bilinear2d_backward(
-        grad, list(grad.shape[2:]), list(shape), True, None, None), reps=10, inner=4)
-    moved = (grad.numel() + math.prod(shape)) * 4
-    bound_ms = moved / HBM_BYTES_PER_S * 1e3
-    log(f"[K6] UNet up4 {shape} x2 float32 channels_last: kernel {ms:.4f} ms ({moved / ms * 1e-6:.1f} GB/s), "
-        f"plain {plain_ms:.4f} ms, torch's atomic backward {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"(bytes: {moved / 1e6:.1f} MB), {ms / bound_ms:.2f}x the bound")
-    return {"shape": list(shape), "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes"}
+
+def time_recorded(device, seen: dict, log=print) -> list[dict]:
+    """K5 and K6 timed at every recorded call (``recorded_backward_calls``) with its
+    shape, dtype, layout and grad_out's strides (``k5_times`` / ``k6_times``, each held
+    bit-equal on its timed operands): one line a call, and the readings, each with its key."""
+    import torch
+
+    rows = []
+    for key in sorted(seen, key=str):
+        if key[0] == "K5":
+            _, shape, window, strides, padding, dtype, cl, stride = key
+            t = k5_times(device, shape, window, strides, padding, getattr(torch, dtype), cl, grad_stride=stride)
+        else:
+            _, shape, dtype, cl, stride = key
+            t = k6_times(device, shape, getattr(torch, dtype), cl, grad_stride=stride)
+        log(f"[{key[0]}] timed recorded call {key[1:]}: {times_line(t)}")
+        rows.append({"key": [str(k) for k in key], **t})
+    return rows
 
 
 def backward_register_report(name: str, log=print) -> dict[str, dict[str, int]]:
@@ -2430,6 +2520,86 @@ def k6(device) -> None:
     backward_register_report("upsample_bilinear")
     k6_check(device)
     k6_timing(device)
+
+
+# k5ab / k6ab's shapes beside K5_TIMED / K6_TIMED, calls phase 19 records on the
+# adversarial steps (24 clips): (input shape, window, strides, padding, dtype name,
+# channels_last): InceptionI3d's 2a (1,3,3)/(1,2,2) and (3,3,3)/(1,1,1) branch pools, the
+# I3Res50's layer1 pool, InceptionI3d's 5a; (input shape, dtype name, channels_last):
+# the plain UNet's up1 at 32 frames and up2 at 4.
+K5_AB = (((24, 64, 8, 113, 113), (1, 3, 3), (1, 2, 2), (0, 0, 0), "bfloat16", True),
+         ((24, 192, 10, 30, 30), (3, 3, 3), (1, 1, 1), (0, 0, 0), "bfloat16", True),
+         ((24, 256, 4, 55, 55), (2, 1, 1), (2, 1, 1), (0, 0, 0), "bfloat16", True),
+         ((24, 832, 4, 14, 14), (2, 2, 2), (2, 2, 2), (0, 0, 0), "bfloat16", True))
+K6_AB = (((32, 512, 14, 14), "float32", True), ((4, 256, 28, 28), "float32", True))
+
+
+def backward_turn(device, kernel: str) -> None:
+    """One turn of ``k5ab`` / ``k6ab`` (``kernel`` "k5" or "k6"), under whichever package
+    the import path finds: the build's registers and spills, and ``k5_times`` /
+    ``k6_times`` at the timed shape and K5_AB / K6_AB, as one JSON line."""
+    import json
+
+    import torch
+
+    from ted_spad_tpu_torch.utils import cuda_build
+    from ted_spad_tpu_torch.utils.cuda_build import ptxas_report
+
+    name = {"k5": "maxpool3d", "k6": "upsample_bilinear"}[kernel]
+    registers = ptxas_report(cuda_build.build(name)[1])
+    if kernel == "k5":
+        rows = [k5_times(device, *K5_TIMED, torch.bfloat16, True)]
+        rows += [k5_times(device, *c[:4], getattr(torch, c[4]), c[5]) for c in K5_AB]
+    else:
+        rows = [k6_times(device, K6_TIMED, torch.float32, True)]
+        rows += [k6_times(device, c[0], getattr(torch, c[1]), c[2]) for c in K6_AB]
+    print(json.dumps({"registers": registers, "rows": rows}), flush=True)
+
+
+def backward_ab(device, kernel: str, parent: str) -> None:
+    """``k5ab`` / ``k6ab``: the kernel of ``parent`` (another checkout) and of this tree in
+    turns, parent / change / change / parent, each turn a process of its own
+    (``backwardturn``), both trees built first, at once; each turn's times, and whether
+    the change was faster than the parent in every turn at every shape."""
+    import json
+    import os
+    import subprocess
+
+    name = {"k5": "maxpool3d", "k6": "upsample_bilinear"}[kernel]
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    parent = os.path.abspath(parent)
+    turns = [("parent", parent), ("change", here), ("change", here), ("parent", parent)]
+    code = f"from ted_spad_tpu_torch.utils.cuda_build import build; build({name!r})"
+    builds = {root: subprocess.Popen([sys.executable, "-c", code], cwd=root,
+                                     env={**os.environ, "PYTHONPATH": root}, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+              for root in (parent, here)}
+    for root, proc in builds.items():
+        out = proc.communicate(timeout=600)[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"{kernel}ab: the build under {root} failed:\n{out[-3000:]}")
+    turn = ("import runpy, sys; sys.argv = ['chip_probes', 'backwardturn', sys.argv[1]]; "
+            f"runpy.run_path({os.path.abspath(__file__)!r}, run_name='__main__')")
+    times = {}
+    for i, (tag, root) in enumerate(turns):
+        proc = subprocess.run([sys.executable, "-c", turn, kernel], cwd=root,
+                              env={**os.environ, "PYTHONPATH": root}, capture_output=True, text=True, timeout=900)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith('{"registers"')]
+        if proc.returncode != 0 or not lines:
+            raise RuntimeError(f"{kernel}ab turn {i} ({tag}) failed (exit {proc.returncode}):\n"
+                               f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        reading = json.loads(lines[-1])
+        regs = ", ".join(f"{k} {v['registers']}" + (f" (spills {v['spill_stores']} / {v['spill_loads']} B)"
+                                                     if v["spill_stores"] or v["spill_loads"] else "")
+                         for k, v in reading["registers"].items())
+        print(f"[{kernel}ab] turn {i} {tag}: registers {regs}", flush=True)
+        for r in reading["rows"]:
+            times.setdefault(tag, {}).setdefault(str(r["shape"]), []).append(r["ms"])
+            print(f"[{kernel}ab]     {r['shape']}: {times_line(r)}", flush=True)
+    for shape, change in times["change"].items():
+        parent_ms = times["parent"][shape]
+        verdict = "faster in every turn" if max(change) < min(parent_ms) else "NOT faster in every turn"
+        print(f"[{kernel}ab] {shape}: change {change} ms against parent {parent_ms} ms: {verdict}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3002,8 +3172,10 @@ def main() -> int:
               "k2ab": k2ab, "k2turn": k2_turn, "fastforms": fastforms, "stepab": stepab,
               "stepturn": step_turn, "trainab": trainab, "repeat": repeat,
               "repeatdet": repeat_deterministic, "k5": k5, "k6": k6, "repairab": repairab,
-              "validaterepeat": validate_repeat}
-    takes_arg = ("int8ab", "int8step", "k3turn", "stepab", "stepturn")
+              "validaterepeat": validate_repeat, "backwardturn": backward_turn,
+              "k5ab": lambda device, parent: backward_ab(device, "k5", parent),
+              "k6ab": lambda device, parent: backward_ab(device, "k6", parent)}
+    takes_arg = ("int8ab", "int8step", "k3turn", "stepab", "stepturn", "backwardturn", "k5ab", "k6ab")
     n_args = len(sys.argv) - 2
     if (len(sys.argv) < 2 or sys.argv[1] not in probes
             or (n_args < 1 if sys.argv[1] in ("k3ab", "k2ab") else

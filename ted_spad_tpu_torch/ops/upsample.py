@@ -12,8 +12,13 @@ step through the plain UNet does not repeat.
   an autograd Function whose backward is ``upsample_bilinear_backward``; otherwise the
   plain ``F.interpolate``, so serving is unchanged.
 - ``upsample_bilinear_backward``: the kernel wrapper (K6, csrc/upsample_bilinear.cu).
-  On a CUDA tensor it launches the hand-written gather kernel (no fallback); on a CPU
-  tensor it runs the plain version. Its ``launches`` attribute counts kernel launches.
+  On a CUDA tensor it launches the hand-written gather kernel (no fallback) with the
+  mapping ``k6_plan`` picks; on a CPU tensor it runs the plain version. Its
+  ``launches`` attribute counts kernel launches.
+- ``k6_plan``: the kernel's launch. A block owns a band of ``K6_BAND`` input rows of
+  one plane (n, c_outer) x a run of columns; its threads take (channel vector, column)
+  pairs and walk the band's output rows once, the vector 16 bytes of channels where
+  the layout allows, one element elsewhere.
 - ``upsample_bilinear_backward_reference``: the plain version, the separable sum
   grad_in[iy, ix] = sum_oy wy * (sum_ox wx * g[oy, ox]) with each axis's outputs in
   ascending order, written as masked dense products over the 4 x SCALE candidate
@@ -29,14 +34,61 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from ted_spad_tpu_torch.ops.maxpool3d import sample_span, thread_block, vector_width, vectors_fit
+
 _DTYPES = {torch.float32: 0, torch.float64: 2}
 SCALE = 2  # the factor of both axes: the UNet's decoder doubles its maps, and K6 takes only this
+K6_BAND = 16  # input rows a K6 block owns at most (csrc/upsample_bilinear.cu: kMaxBand, 32)
+K6_LANES = 16  # channel vectors a K6 block takes
+K6_MIN_BLOCKS = 132 * 8  # a grid below this halves the band, down to 4 rows
+
+
+class K6Plan(NamedTuple):
+    vec: int  # channels a thread takes at once
+    channels_last: bool
+    block: tuple[int, int]  # (channel vectors, columns)
+    band: int  # input rows a block
+    grid: tuple[int, int, int]  # (planes x bands, column chunks, channel-vector chunks)
+    fits: bool  # samples below 2^31 elements, the grid below (2^31, 2^16, 2^16)
+
+
+def k6_plan(grad_out: torch.Tensor, input_shape, channels_last: bool) -> K6Plan:
+    """``_k6_plan`` for these operands (cached on their shape, strides and alignment: the
+    plan is host time on every backward)."""
+    return _k6_plan(tuple(int(s) for s in input_shape), grad_out.dtype, tuple(grad_out.shape), grad_out.stride(),
+                    channels_last, vectors_fit(grad_out, vector_width(grad_out.dtype)))
+
+
+@functools.lru_cache(maxsize=1024)
+def _k6_plan(input_shape: tuple, dtype: torch.dtype, out_shape: tuple, go_stride: tuple, channels_last: bool,
+             vectors: bool) -> K6Plan:
+    """K6's launch for these operands (csrc/upsample_bilinear.cu): planes (n) of H x W x
+    C elements in channels_last, (n, c) of H x W in NCHW, cut into bands of ``K6_BAND``
+    input rows; 16-byte vectors of channels where ``grad_in`` is channels_last, C a
+    multiple of the vector width and grad_out holds such vectors (``vectors_fit``), else
+    one element a thread (the generic path). A block takes up to K6_LANES vectors of a
+    run of columns; the band halves, down to 4 rows, while the grid holds fewer than
+    K6_MIN_BLOCKS blocks."""
+    n, c, h, w = input_shape
+    width = vector_width(dtype)
+    vec = width if channels_last and c % width == 0 and vectors else 1
+    c_outer, c_inner = (1, c) if channels_last else (c, 1)
+    bx, by, _ = thread_block(min(c_inner // vec, K6_LANES), w, 1, 1)
+    band = K6_BAND
+    grid = lambda band: (n * c_outer * -(-h // band), -(-w // by), -(-(c_inner // vec) // bx))  # noqa: E731
+    while band > 4 and math.prod(grid(band)) < K6_MIN_BLOCKS:
+        band //= 2
+    fits = (max(sample_span(out_shape, go_stride), math.prod(input_shape[1:])) < 2 ** 31
+            and grid(band)[0] < 2 ** 31 and max(grid(band)[1:]) < 2 ** 16)
+    return K6Plan(vec, channels_last, (bx, by), band, grid(band), fits)
 
 
 def is_channels_last(x: torch.Tensor) -> bool:
@@ -93,7 +145,7 @@ def _library():
     fn = load("upsample_bilinear").ted_upsample_bilinear_backward
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.restype = i
-    fn.argtypes = [p, p, i, p, p, i, p]
+    fn.argtypes = [p, p, i, p, p, p, p]
     return fn
 
 
@@ -112,14 +164,19 @@ def upsample_bilinear_backward(grad_out: torch.Tensor, input_shape, channels_las
         return upsample_bilinear_backward_reference(grad_out, input_shape, channels_last)
     if grad_out.device.type != "cuda":
         raise ValueError(f"upsample_bilinear_backward runs on cuda or cpu, not {grad_out.device}")
-    if max(grad_out.shape[2:]) >= 2 ** 30:
-        raise ValueError(f"upsample_bilinear_backward: K6 takes sides below 2^30, got {tuple(grad_out.shape)}")
     fmt = torch.channels_last if channels_last else torch.contiguous_format
     grad_in = torch.empty(input_shape, dtype=grad_out.dtype, device=grad_out.device, memory_format=fmt)
+    if grad_in.numel() == 0:
+        return grad_in
+    plan = k6_plan(grad_out, input_shape, channels_last)
+    if not plan.fits:
+        raise ValueError(f"upsample_bilinear_backward: K6 takes samples below 2^31 elements and grids "
+                         f"below (2^31, 2^16) blocks, not {input_shape} (grid {plan.grid})")
     with torch.cuda.device(grad_out.device):
         err = _library()(grad_out.data_ptr(), grad_in.data_ptr(), _DTYPES[grad_out.dtype],
                          (ctypes.c_int * 4)(*input_shape),
-                         (ctypes.c_longlong * 4)(*grad_out.stride()), int(channels_last),
+                         (ctypes.c_longlong * 4)(*grad_out.stride()),
+                         (ctypes.c_int * 5)(plan.vec, int(channels_last), *plan.block, plan.band),
                          torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"upsample_bilinear_backward: kernel launch failed with cudaError {err}")

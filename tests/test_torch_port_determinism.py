@@ -18,9 +18,12 @@ CPU runs and which the card holds each kernel against bit for bit, are held here
   largest gradient, an ulp of the source coordinate) and against ``F.interpolate``'s
   backward (1e-6 in float32, 1e-12 in float64), at odd and even sizes, NCHW and
   channels_last.
-- Emulations of the kernels' own loops (one input element at a time, its windows or
-  taps visited in the kernel's order, numpy scalars rounding each operation as the
-  card does) bit-equal to the plain versions: the order the two share is the kernels'.
+- Emulations of the kernels as their wrappers' plans launch them (``k5_plan``,
+  ``k6_plan``: blocks, rows or bands, threads, vector lanes and the lane loop, K6's
+  row-tap table, column taps and ring of two rows, every read through the operands'
+  strides, numpy rounding each operation as the card does) bit-equal to the plain
+  versions, each element of grad_in stored once: the order the two share is the
+  kernels'.
 - Routing: on a tiny train step of each family (I3Res50, InceptionI3d, MViTv2-S, the
   plain-UNet fa) every 3D max pool and every bilinear upsample under grad goes through
   the new autograd Functions, and none does under ``no_grad``.
@@ -201,80 +204,288 @@ def test_k6_plain_matches_torch_backward(hw, dtype, channels_last):
     assert torch.equal(through, got) and through.is_contiguous(memory_format=fmt)
 
 
-def _emulate_k5(grad, idx, shape, window, strides, padding, acc_type):
-    """csrc/maxpool3d.cu's loop on the CPU: per input element, the windows that hold it
-    in ascending (od, oh, ow) order, grad_out added where the argmax names it, in
-    ``acc_type`` scalars."""
+def _storage(t: torch.Tensor) -> np.ndarray:
+    """The flat elements under ``t`` from its first one on (as float64 for bf16, which
+    converts exactly), for reads through its strides."""
+    flat = t.as_strided((t.untyped_storage().nbytes() // t.element_size() - t.storage_offset(),), (1,))
+    return (flat.double() if t.dtype == torch.bfloat16 else flat).numpy()
+
+
+def _window_range(i, pad, k, s, n):
+    first = i + pad - k + 1
+    lo = 0 if first <= 0 else (first + s - 1) // s
+    return lo, min((i + pad) // s, n - 1)
+
+
+def _emulate_k5(grad, idx, shape, window, strides, padding, channels_last: bool):
+    """csrc/maxpool3d.cu as ``k5_plan`` launches it, on the CPU. The row form: the grid's
+    blocks, each block's rows (b, c_outer, d, h) with what one thread computes for them
+    (window ranges, the row target, the offsets at the first window), the threads'
+    columns w and channel vectors (the lane loop past the block's width), each vector's
+    windows in ascending (od, oh, ow) order read through the operands' strides, its lanes
+    compared with the one target. The owner form: each block's (b, d, input rows) x
+    channel chunk with its sums, each thread's (channel, run of columns) walking the
+    outputs that cover them in ascending order, the argmax's low word decoded by the
+    magic division and added where it names an element of the thread's, then the rows
+    written out a cell's vectors together. Sums in the accumulator's type (float32,
+    float64 for float64), rounded once. Returns grad_in in its layout and each element's
+    store count."""
+    plan = maxpool3d.k5_plan(grad, idx, shape, window, strides, channels_last)
+    acc_type = np.float64 if grad.dtype == torch.float64 else np.float32
     b, c, d, h, w = shape
-    out = np.zeros(shape, acc_type)
     od, oh, ow = grad.shape[2:]
+    (kd, kh, kw), (sd, sh, sw), (pd, ph, pw) = window, strides, padding
+    c_outer, c_inner = (1, c) if channels_last else (c, 1)
+    vec, (bx, by, bz), (gx, gy) = plan.vec, plan.block, plan.grid
+    rows = b * c_outer * d * h
+    go, ix = _storage(grad), _storage(idx)
+    gs, js = grad.stride(), idx.stride()
+    out = np.zeros(rows * w * c_inner, acc_type)
+    stores = np.zeros(out.shape, np.int64)
+    lanes = np.arange(vec)
 
-    def window_range(i, pad, k, s, n):
-        first = i + pad - k + 1
-        lo = 0 if first <= 0 else (first + s - 1) // s
-        return lo, min((i + pad) // s, n - 1)
+    def gather(acc, hit, g):
+        return np.where(hit, acc + g.astype(acc_type), acc) if hit.any() else acc
 
-    for bi, ci, zd, zh, zw in np.ndindex(*shape):
-        (d0, d1), (h0, h1), (w0, w1) = (window_range(i, p, k, s, n) for i, p, k, s, n in zip(
-            (zd, zh, zw), padding, window, strides, (od, oh, ow)))
-        target = (zd * h + zh) * w + zw
-        acc = acc_type(0)
-        for a in range(d0, d1 + 1):
-            for e in range(h0, h1 + 1):
-                for f in range(w0, w1 + 1):
-                    if idx[bi, ci, a, e, f] == target:
-                        acc = acc_type(acc + acc_type(grad[bi, ci, a, e, f]))
-        out[bi, ci, zd, zh, zw] = acc
-    return out
+    if plan.owner[0]:
+        tile_h, chunk, seg_w = plan.owner
+        n_tiles = -(-h // tile_h)
+        magic, shift = _div_magic(w)
+        for block_x, block_y in np.ndindex(gx, gy):
+            zd, tile = divmod(block_x, n_tiles)
+            bi, zd = divmod(zd, d)
+            ha, hb = tile * tile_h, min(tile * tile_h + tile_h, h)
+            c0 = block_y * chunk
+            cc = min(chunk, c - c0)
+            sums = np.zeros((hb - ha, w, chunk), acc_type)  # the block's shared memory
+            for s_y, ch in np.ndindex(by, bx):  # thread (channel, run of columns)
+                wa, wb = s_y * seg_w, min(s_y * seg_w + seg_w, w)
+                if ch >= cc or wa >= wb:
+                    continue
+                (d0, d1), h0, h1 = (_window_range(zd, pd, kd, sd, od), _window_range(ha, ph, kh, sh, oh)[0],
+                                    _window_range(hb - 1, ph, kh, sh, oh)[1])
+                w0, w1 = _window_range(wa, pw, kw, sw, ow)[0], _window_range(wb - 1, pw, kw, sw, ow)[1]
+                for a, e, f in np.ndindex(max(d1 - d0 + 1, 0), max(h1 - h0 + 1, 0), max(w1 - w0 + 1, 0)):
+                    at = (bi, c0 + ch, d0 + a, h0 + e, w0 + f)
+                    m = int(ix[sum(i * st for i, st in zip(at, js))]) & 0xFFFFFFFF  # the low word
+                    r = (m - zd * h * w) & 0xFFFFFFFF
+                    if r >= h * w:
+                        continue
+                    zh = (r * magic) >> shift
+                    zw = r - zh * w
+                    if ha <= zh < hb and wa <= zw < wb:
+                        g = go[sum(i * st for i, st in zip(at, gs))]
+                        sums[zh - ha, zw, ch] = acc_type(sums[zh - ha, zw, ch] + acc_type(g))
+            vectors = chunk // vec
+            for t in range(bx * by):  # the rows out, a cell's vectors together
+                cv = t % vectors
+                if t >= bx * by // vectors * vectors or cv * vec >= cc:
+                    continue
+                for cell in range(t // vectors, (hb - ha) * w, bx * by // vectors):
+                    at = ((bi * d + zd) * h + ha) * w * c + cell * c + c0 + cv * vec + lanes
+                    out[at] += sums[cell // w, cell % w, cv * vec + lanes]
+                    stores[at] += 1
+    else:
+        for block_x, block_y in np.ndindex(gx, gy):
+            for z in range(bz):
+                r = block_x * bz + z
+                if r >= rows:
+                    continue
+                q = r
+                zh = q % h; q //= h
+                zd = q % d; q //= d
+                co, bi = q % c_outer, q // c_outer
+                (d0, d1), (h0, h1) = _window_range(zd, pd, kd, sd, od), _window_range(zh, ph, kh, sh, oh)
+                target = (zd * h + zh) * w
+                go_row = bi * gs[0] + co * gs[1] + d0 * gs[2] + h0 * gs[3]
+                ix_row = bi * js[0] + co * js[1] + d0 * js[2] + h0 * js[3]
+                for y, x in np.ndindex(by, bx):
+                    zw = block_y * by + y
+                    if zw >= w:
+                        continue
+                    w0, w1 = _window_range(zw, pw, kw, sw, ow)
+                    for cv in range(x, c_inner // vec, bx):
+                        acc = np.zeros(vec, acc_type)
+                        for a, e, f in np.ndindex(d1 - d0 + 1, h1 - h0 + 1, w1 - w0 + 1):
+                            at = a * js[2] + e * js[3] + (w0 + f) * js[4] + cv * vec * js[1] + lanes
+                            g_at = a * gs[2] + e * gs[3] + (w0 + f) * gs[4] + cv * vec * gs[1] + lanes
+                            acc = gather(acc, ix[ix_row + at] == target + zw, go[go_row + g_at])
+                        at = r * w * c_inner + zw * c_inner + cv * vec + lanes
+                        out[at] += acc
+                        stores[at] += 1
+    fmt = torch.channels_last_3d if channels_last else torch.contiguous_format
+    dense = torch.empty(shape, dtype=grad.dtype, memory_format=fmt)
+    got = torch.from_numpy(out).to(grad.dtype).as_strided(shape, dense.stride())
+    return got, stores
+
+
+def _div_magic(w: int) -> tuple[int, int]:
+    """The owner form's division (csrc/maxpool3d.cu's entry): r // w == (r m) >> shift for
+    0 <= r < 2^31, with m = ceil(2^(31 + l) / w), l = ceil(log2 w), and shift = 31 + l."""
+    shift = 31 + (w - 1).bit_length()
+    return -(-(1 << shift) // w), shift
+
+
+def _k5_operands(shape, window, strides, padding, dtype, channels_last: bool, seed: int):
+    """(grad_out, indices) of a pool over small integers (planted ties) in ``dtype``."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randint(-2, 3, shape, generator=g).to(dtype)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last_3d)
+    out, idx = F.max_pool3d(x, window, strides, padding, return_indices=True)
+    return torch.empty_like(out).copy_(torch.randn(out.shape, generator=g).to(dtype)), idx
+
+
+def _k5_emulation_check(grad, idx, shape, window, strides, padding, channels_last):
+    got, stores = _emulate_k5(grad, idx, shape, window, strides, padding, channels_last)
+    want = max_pool3d_backward_reference(grad, idx, shape, window, strides, padding, channels_last)
+    assert (stores == 1).all(), "every element of grad_in is stored once"
+    assert torch.equal(got, want)
+    return maxpool3d.k5_plan(grad, idx, shape, window, strides, channels_last)
 
 
 @pytest.mark.parametrize("pool", sorted(POOLS))
 def test_k5_loop_emulation_is_bit_equal_to_plain(pool):
     shape, window, strides, kind = POOLS[pool]
     padding = tuple(k // 2 for k in window) if kind == "mvit" else (0, 0, 0)
-    g = torch.Generator().manual_seed(5)
-    x = torch.randint(-2, 3, shape, generator=g).float()
-    out, idx = F.max_pool3d(x, window, strides, padding, return_indices=True)
-    grad = torch.randn(out.shape, generator=g)
-    want = max_pool3d_backward_reference(grad, idx, shape, window, strides, padding)
-    got = _emulate_k5(grad.numpy(), idx.numpy(), shape, window, strides, padding, np.float32)
-    np.testing.assert_array_equal(got, want.numpy())
+    for channels_last in (False, True):
+        grad, idx = _k5_operands(shape, window, strides, padding, torch.float32, channels_last, seed=5)
+        plan = _k5_emulation_check(grad, idx, shape, window, strides, padding, channels_last)
+        overlap = window[0] <= strides[0] and (window[1] > strides[1] or window[2] > strides[2])
+        assert (plan.vec, bool(plan.owner[0])) == (1, channels_last and overlap)  # C = 3: one-element stores
 
 
-def _emulate_k6(grad, shape, scale, t):
-    """csrc/upsample_bilinear.cu's loop on the CPU in numpy scalars of type ``t``: per
-    input pixel, the outputs of each axis that read it (candidates [s i - s - 1, s i +
-    3 s - 2], ascending), the x sum inside the y sum, each product and sum rounded."""
+# channels_last_3d shapes of the vector stores: C two vectors (8 float32, 16 bf16, 4
+# float64), and C two vectors and a tail (one-element stores); the stem's pool (the owner
+# form; with the indices in NCDHW the row form) and a stride-1 (3,3,3) pool padded at
+# every face (the row form), and MViT's skip pool on a permuted slice of its grad_out.
+@pytest.mark.parametrize("dtype,c", [(torch.float32, 8), (torch.float32, 9), (torch.bfloat16, 16),
+                                     (torch.bfloat16, 17), (torch.float64, 4)], ids=str)
+def test_k5_vector_emulation_is_bit_equal_to_plain(dtype, c):
+    vec = maxpool3d.vector_width(dtype) if c % 2 == 0 else 1
+    for shape, window, strides, padding, owner in (((2, c, 4, 7, 9), (2, 3, 3), (2, 2, 2), (0, 0, 0), True),
+                                                   ((2, c, 3, 4, 5), (3, 3, 3), (1, 1, 1), (1, 1, 1), False)):
+        grad, idx = _k5_operands(shape, window, strides, padding, dtype, True, seed=c)
+        plan = _k5_emulation_check(grad, idx, shape, window, strides, padding, True)
+        assert (plan.vec, bool(plan.owner[0])) == (vec, owner)
+        if owner:
+            plan = _k5_emulation_check(grad, idx.contiguous(), shape, window, strides, padding, True)
+            assert (plan.vec, bool(plan.owner[0])) == (1, False)
+    x = torch.randint(-2, 3, (2, c, 3, 9, 7), generator=torch.Generator().manual_seed(1)).to(dtype)
+    x = x.contiguous(memory_format=torch.channels_last_3d)
+    out, idx = F.max_pool3d(x, (1, 3, 3), (1, 2, 2), (0, 1, 1), return_indices=True)
+    view = torch.randn((2, 3, 5, 4, 2 * c), generator=torch.Generator().manual_seed(2)).to(dtype)
+    grad = view[..., c:].permute(0, 4, 1, 2, 3)
+    assert not grad.is_contiguous(memory_format=torch.channels_last_3d)
+    plan = _k5_emulation_check(grad, idx, tuple(x.shape), (1, 3, 3), (1, 2, 2), (0, 1, 1), True)
+    assert (plan.vec, bool(plan.owner[0])) == (vec, True)
+
+
+def test_k5_owner_plan_and_division():
+    """The owner form's plan: a chunk of up to K5_CHUNK channels, THREADS // chunk runs of
+    columns, the most rows whose float sums fit SUM_BYTES and whose outputs a thread
+    walks stay within OWNER_VISITS (the stem pool: 3 rows of 112 x 32 float32 sums, 42 KB,
+    3 x 8 outputs a thread; a (3,3,3)/(1,1,1) pool: one row, 3 x 3 x 6); none where one
+    row's sums do not fit. Its h = r // W by a multiply and a shift, exact below 2^31."""
+    assert maxpool3d.k5_owner(112, 112, 64, 4, (2, 3, 3), (2, 2, 2)) == (3, 32, 14)
+    assert maxpool3d.k5_owner(30, 30, 192, 2, (3, 3, 3), (1, 1, 1)) == (1, 32, 4)
+    assert maxpool3d.k5_owner(8, 5, 3, 8, (1, 1, 1), (1, 1, 1)) == (8, 3, 1)
+    assert maxpool3d.k5_owner(8, 20000, 64, 4, (1, 1, 1), (1, 1, 1)) == (0, 0, 0)
+    rng = np.random.default_rng(0)
+    for w in list(range(1, 300)) + [2 ** 20 + 1, 2 ** 31 - 1]:
+        magic, shift = _div_magic(w)
+        assert magic < 2 ** 32
+        for r in [0, w - 1, w, 2 ** 31 - 1, *rng.integers(0, 2 ** 31, 20).tolist()]:
+            assert (r * magic) >> shift == r // w
+
+
+def _tap(o, i, n_in, scale, t):
+    """csrc/upsample_bilinear.cu's ``tap`` in numpy scalars of type ``t``: output o's
+    weight on input i, or None where o does not read i."""
+    src = t(scale * t(o))
+    i0 = int(src)
+    i1 = i0 + (1 if i0 < n_in - 1 else 0)
+    if i0 != i and i1 != i:
+        return None
+    lam1 = t(src - t(i0))
+    lam0 = t(t(1) - lam1)
+    return t((lam0 if i0 == i else t(0)) + (lam1 if i1 == i else t(0)))
+
+
+def _emulate_k6(grad, shape, channels_last: bool):
+    """csrc/upsample_bilinear.cu as ``k6_plan`` launches it, on the CPU in numpy scalars of
+    the data's type: the grid's blocks (a plane's band of input rows x a run of columns
+    x a run of channel vectors),
+    the band's row-tap table (each output row's first tap and the band rows it feeds,
+    with their weights), each thread's 8 candidate column taps, its channel vectors (the
+    lane loop), and the walk down the band's output rows: t once per output row (ox
+    ascending), wy t into the ring of two input rows, a row stored once the first tap
+    passes it. Returns grad_in in its layout and each element's store count."""
+    plan = upsample.k6_plan(grad, shape, channels_last)
+    t = np.float64 if grad.dtype == torch.float64 else np.float32
     n, c, h, w = shape
-    oh, ow = h * scale, w * scale
-    sy = t(h - 1) / t(oh - 1) if oh > 1 else t(0)
-    sx = t(w - 1) / t(ow - 1) if ow > 1 else t(0)
-
-    def tap(o, i, n_in, s):
-        src = t(s * t(o))
-        i0 = int(src)
-        i1 = i0 + (1 if i0 < n_in - 1 else 0)
-        if i0 != i and i1 != i:
-            return None
-        lam1 = t(src - t(i0))
-        lam0 = t(t(1) - lam1)
-        return t((lam0 if i0 == i else t(0)) + (lam1 if i1 == i else t(0)))
-
-    out = np.zeros(shape, t)
-    for b, ch, y, x in np.ndindex(*shape):
-        acc = t(0)
-        for oy in range(max(0, scale * y - scale - 1), min(oh - 1, scale * y + 3 * scale - 2) + 1):
-            wy = tap(oy, y, h, sy)
-            if wy is None:
+    oh, ow = 2 * h, 2 * w
+    sy, sx = t(h - 1) / t(oh - 1), t(w - 1) / t(ow - 1)
+    c_outer, c_inner = (1, c) if channels_last else (c, 1)
+    vec, (bx, by), band, (gx, gy, gz) = plan.vec, plan.block, plan.band, plan.grid
+    n_bands = -(-h // band)
+    go, gs = _storage(grad), grad.stride()
+    out = np.zeros(n * c_outer * h * w * c_inner, t)
+    stores = np.zeros(out.shape, np.int64)
+    lanes = np.arange(vec)
+    for block_x, block_y, block_z in np.ndindex(gx, gy, gz):
+        plane, bi = divmod(block_x, n_bands)
+        ia, ib = bi * band, min(bi * band + band, h)
+        oa, ob = max(0, 2 * ia - 3), min(oh - 1, 2 * (ib - 1) + 4)
+        taps = []
+        for oy in range(oa, ob + 1):
+            i0 = int(t(sy * t(oy)))
+            i1 = i0 + (1 if i0 < h - 1 else 0)
+            fed = [(r, _tap(oy, r, h, sy, t)) for r in dict.fromkeys((i0, i1))
+                   if ia <= r < ib and 2 * r - 3 <= oy <= 2 * r + 4]
+            taps.append((i0, [(r, wy) for r, wy in fed if wy is not None]))
+        for y, x in np.ndindex(by, bx):
+            col = block_y * by + y
+            if col >= w:
                 continue
-            row = t(0)
-            for ox in range(max(0, scale * x - scale - 1), min(ow - 1, scale * x + 3 * scale - 2) + 1):
-                wx = tap(ox, x, w, sx)
-                if wx is not None:
-                    row = t(row + t(wx * t(grad[b, ch, oy, ox])))
-            acc = t(acc + t(wy * row))
-        out[b, ch, y, x] = acc
-    return out
+            wx = [(2 * col - 3 + j, _tap(2 * col - 3 + j, col, w, sx, t)) for j in range(8)]
+            wx = [(ox, wt) for ox, wt in wx if 0 <= ox < ow and wt is not None]
+            base = (plane // c_outer) * gs[0] + (plane % c_outer) * gs[1]
+            for cv in range(block_z * bx + x, c_inner // vec, gz * bx):
+                ring, cur = [np.zeros(vec, t), np.zeros(vec, t)], ia
+
+                def store(row, acc):
+                    at = ((plane * h + row) * w + col) * c_inner + cv * vec + lanes
+                    out[at] += acc
+                    stores[at] += 1
+
+                for oy, (i0, fed) in zip(range(oa, ob + 1), taps):
+                    while i0 > cur and cur < ib:
+                        store(cur, ring[0])
+                        ring, cur = [ring[1], np.zeros(vec, t)], cur + 1
+                    if cur >= ib:
+                        break
+                    if not fed:
+                        continue
+                    row_sum = np.zeros(vec, t)
+                    for ox, wt in wx:
+                        g = go[base + oy * gs[2] + ox * gs[3] + cv * vec * gs[1] + lanes].astype(t)
+                        row_sum = (row_sum + (wt * g).astype(t)).astype(t)
+                    for r, wy in fed:
+                        ring[r - cur] = (ring[r - cur] + (wy * row_sum).astype(t)).astype(t)
+                for row in range(cur, ib):
+                    store(row, ring[0])
+                    ring = [ring[1], np.zeros(vec, t)]
+    dense = torch.empty(shape, dtype=grad.dtype,
+                        memory_format=torch.channels_last if channels_last else torch.contiguous_format)
+    return torch.from_numpy(out).as_strided(shape, dense.stride()), stores
+
+
+def _k6_emulation_check(grad, shape, channels_last):
+    got, stores = _emulate_k6(grad, shape, channels_last)
+    want = upsample_bilinear_backward_reference(grad, shape, channels_last)
+    assert (stores == 1).all(), "every element of grad_in is stored once"
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -282,9 +493,21 @@ def _emulate_k6(grad, shape, scale, t):
 def test_k6_loop_emulation_is_bit_equal_to_plain(hw, dtype):
     h, w = hw
     grad = torch.randn((1, 2, 2 * h, 2 * w), generator=torch.Generator().manual_seed(7), dtype=dtype)
-    want = upsample_bilinear_backward_reference(grad, (1, 2, h, w))
-    t = np.float32 if dtype == torch.float32 else np.float64
-    np.testing.assert_array_equal(_emulate_k6(grad.numpy(), (1, 2, h, w), 2, t), want.numpy())
+    for channels_last in (False, True):
+        _k6_emulation_check(grad.contiguous(memory_format=torch.channels_last if channels_last
+                                            else torch.contiguous_format), (1, 2, h, w), channels_last)
+
+
+# channels_last shapes of the vector path: C two vectors and two vectors and a tail (one
+# element a thread), a last band shorter than K6_BAND, and grad_out in another layout.
+@pytest.mark.parametrize("dtype,c", [(torch.float32, 8), (torch.float32, 9), (torch.float64, 4)], ids=str)
+def test_k6_vector_emulation_is_bit_equal_to_plain(dtype, c):
+    shape = (1, c, upsample.K6_BAND + 3, 5)
+    grad = torch.randn((1, c, 2 * shape[2], 10), generator=torch.Generator().manual_seed(c), dtype=dtype)
+    grad = grad.contiguous(memory_format=torch.channels_last)
+    assert upsample.k6_plan(grad, shape, True).vec == (maxpool3d.vector_width(dtype) if c % 2 == 0 else 1)
+    _k6_emulation_check(grad, shape, True)
+    _k6_emulation_check(grad.contiguous(), shape, True)
 
 
 @contextlib.contextmanager
